@@ -1,0 +1,490 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of NAVIS (``src/repro_torch``) on one
+NVIDIA GPU and check every step.
+
+Run from the repository root:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
+``build/``), holds each kernel against its plain PyTorch version at the
+main path's shapes, builds and searches a small index (the test suite's
+configuration) and a FineWeb-like 768-d one, repeats one wave with the
+plain versions on the card (A/B), and checks that the main path launched
+every kernel.  Each phase prints one JSON line; any failure exits non-zero
+without the final result line.  With no CUDA device, or without the
+repository beside it, it exits non-zero at once.  It takes no options:
+every run is the whole smoke.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FP32_S = 67e12         # H100 SXM fp32 outside the tensor cores
+WAVE = 256                  # lanes per kernel check and per query wave
+RERANK_RTOL, RERANK_ATOL = 1e-5, 1e-3
+# The FineWeb-like cell (benchmarks/common.py:38-40, :72-77) keeps its
+# widths and is cut in scale only: N vectors (the paper's corpora hold
+# 60-120M), built in seek waves of FINEWEB_BLOCK vertices instead of the
+# benchmark's 64, which takes 8x as many host-bound waves per pass
+# (tools/build_block_cut.py times both).
+FINEWEB_N = 100_000
+FINEWEB_BLOCK = 512
+
+KERNELS = {
+    "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
+                   "src/repro/kernels/topk_pool.py:25"),
+    "adc_distance": ("src/repro_torch/kernels/csrc/adc_distance.cu",
+                     "src/repro/kernels/pq_adc.py:26"),
+    "rerank_l2": ("src/repro_torch/kernels/csrc/rerank_l2.cu",
+                  "src/repro/kernels/rerank_l2.py:29"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20) -> float | None:
+    """Mean device time per call of the kernels ``fn`` launches, from the
+    profiler's CUDA activity (execution only, no launch gaps); None when
+    the profiler reports no device time."""
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(_self_device_us(e) for e in prof.key_averages())
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
+def _self_device_us(event) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def profile_window(torch, fn) -> dict:
+    """Device busy share of one call of ``fn`` (host clock around it) and
+    its five largest kernels by device time."""
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, _self_device_us(e) / 1e3, e.count)
+            for e in prof.key_averages() if _self_device_us(e) > 0]
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms if wall_ms else None,
+            "top_kernels": [[k, ms, n] for k, ms, n in rows[:5]]}
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_env(torch) -> dict:
+    from repro_torch import env_probe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    probe = env_probe()
+    fields = dict(nvidia_smi=nvidia_smi_line(), torch=probe["torch"],
+                  cuda=probe["cuda"], device=probe["device_name"],
+                  device_count=probe["device_count"],
+                  nvcc=probe["nvcc_version"],
+                  matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                  cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    emit("env", **fields)
+    require(probe["nvcc"] is not None, "nvcc not found")
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    log = (lib.parent / "ptxas.log").read_text()
+    usage = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    emit("build", seconds=time.perf_counter() - t0, library=str(
+        lib.relative_to(ROOT)), ptxas=usage)
+    return fields
+
+
+def _kernel_record(torch, name, max_err, kernel, plain, library, n_bytes,
+                   n_ops):
+    """Times of the kernel, its plain version and the library yardstick:
+    ``*ms`` by CUDA events over back-to-back calls (what a caller pays per
+    call, launch included), ``*device_ms`` by the profiler (execution
+    only).  The bound is the larger of bytes over HBM bandwidth and
+    operations over the fp32 peak."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_FP32_S * 1e3
+    source, replaces = KERNELS[name]
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0, "max_abs_err": max_err,
+           "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": time_ms(torch, library)}
+    extra = {"device_ms": device_ms(torch, kernel),
+             "plain_device_ms": device_ms(torch, plain),
+             "library_device_ms": device_ms(torch, library)}
+    return rec, extra
+
+
+def phase_kernels(torch) -> dict:
+    """Each kernel against its plain version at the main path's shapes."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    b = WAVE
+    records = {}
+
+    # -- pool_merge: exact, ties included (distances on a 0.25 grid) ------
+    worst = 0.0
+    for p, q in ((40, 192), (32, 32), (10, 30), (64, 128)):
+        pool_d = torch.sort(torch.round(torch.rand(
+            (b, p), generator=gen, device=dev) * 400) / 4, dim=1).values
+        pool_d[:, p - p // 4:] = ref.INF
+        pool_i = torch.randint(0, 10 ** 6, (b, p), generator=gen,
+                               device=dev, dtype=torch.int32)
+        pool_i[:, p - p // 4:] = -1
+        new_d = torch.round(torch.rand((b, q), generator=gen,
+                                       device=dev) * 400) / 4
+        new_i = torch.randint(0, 10 ** 6, (b, q), generator=gen,
+                              device=dev, dtype=torch.int32)
+        drop = torch.rand((b, q), generator=gen, device=dev) < 0.2
+        new_d[drop], new_i[drop] = ref.INF, -1
+        kd, ki = ops.pool_merge(pool_d, pool_i, new_d, new_i)
+        pd, pi = ref.pool_merge_ref(pool_d, pool_i, new_d, new_i)
+        torch.cuda.synchronize()
+        require(torch.equal(kd, pd) and torch.equal(ki, pi),
+                f"pool_merge ({p},{q}) differs from its plain version")
+        worst = max(worst, float((kd - pd).abs().max()))
+        if (p, q) == (40, 192):
+            m_args = (pool_d, pool_i, new_d, new_i)
+            cat_d = torch.cat([pool_d, new_d], 1)
+    # The merge must read L (distance, id) pairs and write P; its work is
+    # sorting the Q new entries and one merge pass, about Q log2 Q + L
+    # compares a lane (the kernel's dense L x L rank is its own choice).
+    L = 40 + 192
+    records["pool_merge"] = _kernel_record(
+        torch, "pool_merge", worst,
+        lambda: ops.pool_merge(*m_args),
+        lambda: ref.pool_merge_ref(*m_args),
+        lambda: torch.sort(cat_d, dim=1, stable=True),
+        n_bytes=b * L * 8 + b * 40 * 8,
+        n_ops=b * (192 * math.ceil(math.log2(192)) + L))
+
+    # -- adc_distance: bit-exact -------------------------------------------
+    m = 96
+    worst = 0.0
+    for c in (192, 32, 10):
+        lut = torch.rand((b, m, 256), generator=gen, device=dev) * 10
+        codes = torch.randint(0, 256, (b, c, m), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        got = ops.adc_distance(lut, codes)
+        want = ref.adc_distance_ref(lut, codes)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(err == 0.0, f"adc_distance C={c} not bit-exact: {err}")
+        worst = max(worst, err)
+        if c == 192:
+            a_args = (lut, codes)
+            offs = (torch.arange(b, device=dev)[:, None, None] * m * 256 +
+                    torch.arange(m, device=dev) * 256)
+            flat = (codes.long() + offs).reshape(b * c, m)
+            weight = lut.reshape(-1, 1)
+    records["adc_distance"] = _kernel_record(
+        torch, "adc_distance", worst,
+        lambda: ops.adc_distance(*a_args),
+        lambda: ref.adc_distance_ref(*a_args),
+        lambda: torch.nn.functional.embedding_bag(flat, weight, mode="sum"),
+        n_bytes=b * m * 256 * 4 + b * 192 * m + b * 192 * 4,
+        n_ops=b * 192 * m)
+
+    # -- rerank_l2: rtol 1e-5 / atol 1e-3 (sum order differs) --------------
+    d, s = 768, 4
+    worst = 0.0
+    for ss in (s, 40):
+        cent = torch.randn((b, d), generator=gen, device=dev) * 3
+        q = cent + torch.randn((b, d), generator=gen, device=dev)
+        xs = cent[:, None] + torch.randn((b, ss, d), generator=gen,
+                                         device=dev)
+        got = ops.rerank_l2(q, xs)
+        want = ref.rerank_l2_ref(q, xs)
+        torch.cuda.synchronize()
+        require(bool(torch.allclose(got, want, rtol=RERANK_RTOL,
+                                    atol=RERANK_ATOL)),
+                f"rerank_l2 S={ss} outside rtol {RERANK_RTOL} / atol "
+                f"{RERANK_ATOL}")
+        worst = max(worst, float((got - want).abs().max()))
+        if ss == s:
+            r_args = (q, xs)
+    records["rerank_l2"] = _kernel_record(
+        torch, "rerank_l2", worst,
+        lambda: ops.rerank_l2(*r_args),
+        lambda: ref.rerank_l2_ref(*r_args),
+        lambda: torch.cdist(r_args[0][:, None], r_args[1]),
+        n_bytes=b * d * 4 + b * s * d * 4 + b * s * 4, n_ops=3 * b * s * d)
+
+    grades = {"pool_merge": "exact (distances and ids)",
+              "adc_distance": "bit-exact",
+              "rerank_l2": f"rtol {RERANK_RTOL} / atol {RERANK_ATOL}"}
+    out = {}
+    for name, (rec, extra) in records.items():
+        emit(f"kernel:{name}", lanes=b, grade=grades[name],
+             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")},
+             **extra)
+        out[name] = rec
+    return out
+
+
+def _spec_small():
+    from repro_torch.core import preset
+    return preset("navis", dim=48, r=16, n_max=1600, e_search=40, e_pos=48,
+                  pq_m=24, cache_capacity_pages=256, max_hops=64,
+                  buffer_max=128)
+
+
+def phase_small(torch) -> None:
+    """The test suite's configuration, built and searched on the card."""
+    from repro_torch import random as jr
+    from repro_torch.core import (Engine, brute_force_topk,
+                                  check_invariants, recall_at_k)
+    from repro_torch.data import make_clustered, query_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vecs, _, cents = make_clustered(gen, 1200, 48, n_clusters=12,
+                                    scale=3.0, noise=1.0)
+    qs = query_stream(gen, cents, 40)
+    eng = Engine(_spec_small())
+    t0 = time.perf_counter()
+    state = eng.build(jr.PRNGKey(2), vecs, build_block=64, build_e_pos=32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids, dists, _, state = eng.search_many(state, qs)
+    truth = brute_force_topk(qs, vecs, 1200, 10)
+    recall = recall_at_k(ids, truth)
+    inv = check_invariants(state.store)
+    finite = bool(torch.isfinite(dists[ids >= 0]).all())
+    emit("small", n=1200, build_s=build_s, recall_at_10=recall,
+         invariants=all(inv.values()), shape=list(ids.shape),
+         finite=finite)
+    require(tuple(ids.shape) == (40, 10) and finite, "small: bad output")
+    require(all(inv.values()), f"small: invariants {inv}")
+    require(recall >= 0.9, f"small: recall@10 {recall} < 0.9")
+
+
+def _page_budget_ok(torch, store) -> bool:
+    ep = store.edge_page.long()
+    held = ep >= 0
+    counts = torch.bincount(ep[held], minlength=store.p_max)
+    return (store.next_page <= store.p_max and
+            int(ep.max()) < store.p_max and
+            counts.shape[0] == store.p_max and
+            bool(torch.equal(counts.to(torch.int32), store.page_live)) and
+            int(store.page_live.sum()) == int(held.sum()))
+
+
+def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
+                  n_waves: int = 4):
+    """FineWeb-like cell (benchmarks/common.py:38-40, :72-77) at full width."""
+    from repro_torch import random as jr
+    from repro_torch.core import (Engine, brute_force_topk,
+                                  check_invariants, preset, recall_at_k)
+    from repro_torch.data import make_clustered, query_stream
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    vecs, _, cents = make_clustered(gen, n, 768, n_clusters=24, scale=3.0,
+                                    noise=1.0)
+    queries = query_stream(gen, cents, n_waves * WAVE)
+    spec = preset("navis", dim=768, r=48, n_max=n + 1200, pq_m=96,
+                  e_search=40, e_pos=64, cache_capacity_pages=256,
+                  max_hops=96, buffer_max=256)
+    eng = Engine(spec)
+    marks = []
+
+    def progress(stage, done, total):
+        step = max(total // 10, 1)
+        if done == total or done // step != (done - block) // step:
+            marks.append((stage, done, round(time.perf_counter() - t0, 1)))
+
+    t0 = time.perf_counter()
+    state = eng.build(jr.PRNGKey(42), vecs, build_block=block,
+                      build_e_pos=64, progress=progress)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    inv = check_invariants(state.store)
+    budget = _page_budget_ok(torch, state.store)
+    emit("fineweb_like:build", n=n, n_max=n + 1200, build_block=block,
+         build_e_pos=64, build_s=build_s, invariants=all(inv.values()),
+         page_budget_ok=budget, p_max=state.store.p_max,
+         next_page=state.store.next_page,
+         progress=marks)
+    require(all(inv.values()), f"fineweb: invariants {inv}")
+    require(budget, "fineweb: page budget check failed")
+
+    all_ids = []
+    for w in range(n_waves):
+        qs = queries[w * WAVE:(w + 1) * WAVE]
+        before = state.ctr_search
+        launched = dict(ops.launches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ids, dists, stats, state = eng.search_many(state, qs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        ctr = state.ctr_search
+        per_q = lambda f: (int(getattr(ctr, f)) -
+                           int(getattr(before, f))) / WAVE
+        require(bool(torch.isfinite(dists[ids >= 0]).all()),
+                "fineweb: non-finite distance")
+        emit(f"fineweb_like:wave{w}", queries=WAVE, wall_s=wall,
+             qps=WAVE / wall, mean_hops=per_q("hops"),
+             reads_per_query=per_q("read_requests"),
+             cache_hits_per_query=per_q("cache_hits"),
+             wave_s=eng.last_wave_timing["wave_s"],
+             replay_s=eng.last_wave_timing["replay_s"],
+             launches={k: v - launched[k] for k, v in ops.launches.items()})
+        all_ids.append(ids)
+    emit("fineweb_like:profile", **profile_window(
+        torch, lambda: eng.search_many(state, queries[:WAVE])))
+    truth = brute_force_topk(queries, vecs, n, 10)
+    recall = recall_at_k(torch.cat(all_ids), truth)
+    emit("fineweb_like", recall_at_10=recall, gated=False,
+         pq_scan_recall_10_at_40=_pq_scan_recall(
+             torch, eng, state, queries[:WAVE], truth[:WAVE], n, 40))
+    return eng, state, queries[:WAVE], vecs
+
+
+def _pq_scan_recall(torch, eng, state, qs, truth, n: int, depth: int):
+    """Share of the exact top-10 inside the top-``depth`` of a full PQ
+    (ADC) scan of the corpus: the ceiling a PQ-guided search with a pool
+    of ``depth`` can reach before its exact rerank."""
+    from repro_torch.core import pq as pq_mod
+    lut = pq_mod.adc_lut(eng.codec, qs)                    # [Q, M, 256]
+    codes = state.codes[:n].long()
+    d = torch.zeros((qs.shape[0], n), device=qs.device)
+    for m in range(codes.shape[1]):
+        d += lut[:, m, codes[:, m]]
+    top = torch.sort(d, dim=1, stable=True).indices[:, :depth]
+    hits = (top[:, :, None] == truth[:, None, :].long()).any(1)
+    return float(hits.float().mean())
+
+
+def phase_ab(torch, eng, state, qs, vecs) -> None:
+    """One wave with the kernels, then under plain_on_device()."""
+    from repro_torch.kernels import ops
+    ids_k, d_k, _, _ = eng.search_many(state, qs)
+    torch.cuda.synchronize()
+    before = dict(ops.launches)
+    with ops.plain_on_device():
+        ids_p, d_p, _, _ = eng.search_many(state, qs)
+    torch.cuda.synchronize()
+    flat = dict(ops.launches) == before
+    differ = ids_k != ids_p
+    near_ties = 0
+    if bool(differ.any()):
+        rows, cols = differ.nonzero(as_tuple=True)
+        ka, pa = ids_k[rows, cols].long(), ids_p[rows, cols].long()
+        ok = (ka >= 0) & (pa >= 0)
+        da = ((vecs[ka.clamp(min=0)] - qs[rows]) ** 2).sum(-1)
+        db = ((vecs[pa.clamp(min=0)] - qs[rows]) ** 2).sum(-1)
+        tie = ok & ((da - db).abs() <= RERANK_ATOL + RERANK_RTOL *
+                    torch.maximum(da.abs(), db.abs()))
+        near_ties = int(tie.sum())
+        require(bool(tie.all()), f"ab: {int((~tie).sum())} id slots differ "
+                "beyond the rerank tolerance")
+    same = ~differ & (ids_k >= 0)
+    d_ok = bool(torch.allclose(d_k[same], d_p[same], rtol=RERANK_RTOL,
+                               atol=RERANK_ATOL))
+    emit("ab", queries=int(qs.shape[0]), identical_slots=int(same.sum()),
+         near_tie_slots=near_ties, dists_within_tolerance=d_ok,
+         launch_counts_flat_under_plain=flat)
+    require(flat, "ab: kernels launched under plain_on_device()")
+    require(d_ok, "ab: distances outside the rerank tolerance")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels import ops
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not beside this script ({exc})",
+              file=sys.stderr)
+        return 2
+
+    try:
+        env = phase_env(torch)
+        records = phase_kernels(torch)
+        ops.reset_launches()
+        phase_small(torch)
+        fw = phase_fineweb(torch)
+        counts = dict(ops.launches)
+        emit("kernels", launches=counts)
+        require(all(v > 0 for v in counts.values()),
+                f"a kernel was not launched on the main path: {counts}")
+        phase_ab(torch, *fw)
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    for name, rec in records.items():
+        rec["launches"] = counts[name]
+    print(json.dumps({"kernels": list(records.values())}))
+    print(env["nvidia_smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,26 @@
+"""NAVIS core on PyTorch (port of ``repro/core``).
+
+Public API:
+    EngineSpec / Engine / EngineState / OpStats / preset / PRESETS
+    GraphStore / LayoutSpec / empty_store / page_budget
+    build_graph / brute_force_topk / recall_at_k / check_invariants /
+        medoid / robust_prune
+    IOCounters / SSDModel / merge_counters / sum_counters
+"""
+from repro_torch.core.engine import (Engine, EngineSpec, EngineState, OpStats,
+                                     PRESETS, preset)
+from repro_torch.core.graph import (brute_force_topk, build_graph,
+                                    check_invariants, medoid, recall_at_k,
+                                    robust_prune)
+from repro_torch.core.iomodel import (IOCounters, PAGE_BYTES, SSDModel,
+                                      merge_counters, sum_counters)
+from repro_torch.core.layout import (GraphStore, LayoutSpec, empty_store,
+                                     page_budget)
+
+__all__ = [
+    "Engine", "EngineSpec", "EngineState", "OpStats", "PRESETS", "preset",
+    "brute_force_topk", "build_graph", "check_invariants", "medoid",
+    "recall_at_k", "robust_prune", "IOCounters", "PAGE_BYTES", "SSDModel",
+    "merge_counters", "sum_counters", "GraphStore", "LayoutSpec",
+    "empty_store", "page_budget",
+]

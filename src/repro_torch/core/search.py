@@ -1,0 +1,257 @@
+"""GVS search: entry-point selection -> on-disk beam traversal (port of
+``repro/core/search.py``).
+
+The traversal is the paper's ② stage: greedy beam search over the on-disk
+graph with in-memory PQ distances, loading only edgelist pages under the
+decoupled layout.  The reference runs one query per ``lax.while_loop`` and
+gets a wave's concurrency from ``vmap``; the port writes the wave out
+batch-first.  Every tensor carries a leading lane dimension ``[B]``, the
+loop is bounded by ``max_hops``, and a per-lane ``active`` mask stands in
+for the per-lane loop condition: a lane that has converged never changes
+again (pool, visited sets, trace, counters and ``hops``), so each lane
+returns exactly what the reference's ``vmap`` returns for it.
+
+Only the frozen-cache mode is ported (the mode both fan-outs and the build
+use): traversals probe one cache snapshot with :func:`cache.lookup` and
+record the pages they charge, in order, for a later ordered replay.  Per
+hop the ADC scoring and the pool merge go through the kernel layer
+(:mod:`repro_torch.kernels.ops`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import cache as cache_mod
+from repro_torch.core import visited as visited_mod
+from repro_torch.core.entrance import EntranceGraph
+from repro_torch.core.iomodel import IOCounters, PAGE_BYTES
+from repro_torch.core.layout import GraphStore, LayoutSpec
+from repro_torch.kernels import ops as kernel_ops
+
+INF = 3.4e38
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _lut_adc(lut: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor):
+    """ADC of each lane's LUT against the code rows of ``ids`` [B, C]."""
+    return kernel_ops.adc_distance(lut, codes[ids.long()])
+
+
+def entrance_search(ent: EntranceGraph, lut: torch.Tensor,
+                    codes: torch.Tensor, *, n_entry: int,
+                    pool_size: int = 32, max_hops: int = 64):
+    """In-memory beam search over the entrance graph, one lane per LUT
+    (``lut`` [B, M, 256]).  Returns (entry ids [B, n_entry] into the main
+    graph, explored main ids E_ent [B, pool_size], their PQ distances)."""
+    b = lut.shape[0]
+    dev = lut.device
+    c = ent.c_max
+    # seed: the first live entry slot
+    seed = int(torch.argmax((ent.ids >= 0).to(torch.int32)))
+    seed_main = int(ent.ids[seed])
+    pool_idx = torch.full((b, pool_size), -1, dtype=torch.int32, device=dev)
+    pool_d = torch.full((b, pool_size), INF, device=dev)
+    pool_idx[:, 0] = seed
+    if seed_main >= 0:
+        seed_ids = torch.full((b, 1), seed_main, dtype=torch.int32,
+                              device=dev)
+        pool_d[:, :1] = _lut_adc(lut, codes, seed_ids)
+    expanded = visited_mod.make_hash(min(max_hops, c), b, dev)
+    unexp = pool_idx >= 0
+    hops = torch.zeros((b,), dtype=torch.int32, device=dev)
+    active = unexp.any(1) & (max_hops > 0)
+    while bool(active.any()):
+        cand_d = torch.where(unexp, pool_d, INF)
+        best = cand_d.argmin(dim=1, keepdim=True)
+        v = pool_idx.gather(1, best)[:, 0]
+        expanded = visited_mod.add(expanded, v, active)
+        nbrs = ent.edges[v.clamp(min=0).long()]                  # [B, R_ent]
+        in_pool = (nbrs[:, :, None] == pool_idx[:, None, :]).any(-1)
+        valid = (nbrs >= 0) & ~visited_mod.contains(expanded, nbrs) & \
+            ~in_pool
+        main_ids = ent.ids[nbrs.clamp(min=0).long()]
+        d = torch.where(valid & (main_ids >= 0),
+                        _lut_adc(lut, codes, main_ids.clamp(min=0)), INF)
+        new_d, new_idx = kernel_ops.pool_merge(
+            pool_d, pool_idx, d, torch.where(valid, nbrs, -1))
+        act = active[:, None]
+        pool_d = torch.where(act, new_d, pool_d)
+        pool_idx = torch.where(act, new_idx, pool_idx)
+        unexp = torch.where(
+            act, (pool_idx >= 0) & ~visited_mod.contains(expanded, pool_idx),
+            unexp)
+        hops += active.to(hops.dtype)
+        active = (hops < max_hops) & unexp.any(1)
+    main = torch.where(pool_idx >= 0,
+                       ent.ids[pool_idx.clamp(min=0).long()], -1)
+    return main[:, :n_entry], main, pool_d
+
+
+# ---------------------------------------------------------------------------
+# On-disk traversal
+# ---------------------------------------------------------------------------
+
+class TraverseResult(NamedTuple):
+    pool_ids: torch.Tensor       # [B, pool] main ids sorted by PQ distance
+    pool_dists: torch.Tensor     # [B, pool]
+    hops: torch.Tensor           # [B] int32
+    counters: IOCounters         # [B]
+    page_seen: visited_mod.HashVisited
+    trace: torch.Tensor          # [B, max_hops * W] int32, -1 padded
+    trace_n: torch.Tensor        # [B] int32 valid trace entries
+
+
+def _charge_page_read(counters: IOCounters, spec: LayoutSpec,
+                      n: torch.Tensor) -> IOCounters:
+    """Account ``n`` 4 KiB edge-page reads (decoupled layout) from the
+    slow tier."""
+    per = spec.edgelists_per_page
+    payload = per * spec.edgelist_bytes
+    return dataclasses.replace(
+        counters,
+        read_requests=counters.read_requests + n,
+        edge_bytes_read=counters.edge_bytes_read + n * payload,
+        pad_bytes_read=counters.pad_bytes_read + n * (PAGE_BYTES - payload))
+
+
+def fetch_edgelists(store: GraphStore, spec: LayoutSpec,
+                    cache: cache_mod.CacheState, counters: IOCounters,
+                    page_seen: visited_mod.HashVisited, ids: torch.Tensor,
+                    valid: torch.Tensor, trace: torch.Tensor,
+                    trace_n: torch.Tensor):
+    """Read the edge pages backing each lane's beam ``ids`` [B, W] against
+    a frozen cache snapshot (the reference's frozen branch).
+
+    A page is charged if its slot is valid, this traversal has not read it
+    yet (``page_seen``) and no earlier valid slot of the beam holds it.
+    Charged pages are appended to ``trace`` (``[B, T + 1]``; the last
+    column takes the writes of uncharged slots) at ``trace_n`` in slot
+    order.  Returns (edges [B, W, R], counters, page_seen, trace, trace_n).
+    """
+    w = ids.shape[1]
+    safe = ids.clamp(min=0).long()
+    pages = store.edge_page[safe]                                 # [B, W]
+    ar = torch.arange(w, device=ids.device)
+    eq_earlier = (pages[:, :, None] == pages[:, None, :]) & \
+        valid[:, None, :] & (ar[None, :] < ar[:, None])
+    charged = valid & ~visited_mod.contains(page_seen, pages) & \
+        ~eq_earlier.any(-1)
+    hit = cache_mod.lookup(cache, pages.clamp(min=0)) & charged
+    n_charged = charged.sum(1)
+    n_hit = hit.sum(1)
+    n_miss = n_charged - n_hit
+    counters = dataclasses.replace(
+        counters, cache_hits=counters.cache_hits + n_hit,
+        cache_misses=counters.cache_misses + n_miss)
+    counters = _charge_page_read(counters, spec, n_miss)
+    dump = trace.shape[1] - 1
+    pos = torch.where(charged, trace_n[:, None].long() +
+                      charged.cumsum(1) - 1, dump)
+    trace = trace.scatter(1, pos, torch.where(charged, pages, -1))
+    trace_n = trace_n + n_charged.to(trace_n.dtype)
+    page_seen = visited_mod.add(page_seen, pages, valid)
+    edges = torch.where(valid[..., None], store.edges[safe], -1)
+    return edges, counters, page_seen, trace, trace_n
+
+
+def make_traversal_state(*, beam_width: int, max_hops: int, batch: int,
+                         device,
+                         visited_capacity: int | None = None):
+    """The per-lane state ``disk_traverse`` carries, and the one place its
+    capacity recipe lives: expansion marks at most ``beam_width`` ids and
+    pages per hop for at most ``max_hops`` hops, so ``max_hops *
+    beam_width`` bounds ``expanded`` and ``page_seen`` exactly.  Returns
+    (expanded, page_seen, trace [B, max_hops * beam_width + 1]); the
+    trace's last column takes the writes of uncharged slots."""
+    cap = (visited_capacity if visited_capacity is not None
+           else max_hops * beam_width)
+    return (visited_mod.make_hash(cap, batch, device),
+            visited_mod.make_hash(cap, batch, device),
+            torch.full((batch, max_hops * beam_width + 1), -1,
+                       dtype=torch.int32, device=device))
+
+
+def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
+                  codes: torch.Tensor, cache: cache_mod.CacheState,
+                  counters: IOCounters, entry_ids: torch.Tensor, *,
+                  pool_size: int, beam_width: int = 4, max_hops: int = 512,
+                  visited_capacity: int | None = None) -> TraverseResult:
+    """Greedy beam search, one lane per LUT, against a frozen cache.
+
+    ``entry_ids`` [B, n_entry] main ids (-1 padded); ``counters`` [B].  A
+    lane converges when no unexpanded candidate remains in its top
+    ``pool_size``.  ``visited_capacity`` overrides the exact mark bound
+    ``max_hops * beam_width`` (smaller values saturate: a lane may
+    re-expand vertices, counted in ``visited_overflow``).
+    """
+    if spec.kind != "decoupled":
+        raise NotImplementedError("the packed layout's traversal (vector "
+                                  "piggybacking) comes with a later slice")
+    b, n_entry = entry_ids.shape
+    dev = lut.device
+    safe_e = entry_ids.clamp(min=0)
+    e_valid = entry_ids >= 0
+    e_d = torch.where(e_valid, _lut_adc(lut, codes, safe_e), INF)
+    order = torch.sort(e_d, dim=1, stable=True).indices
+    k = min(n_entry, pool_size)
+    pool_ids = torch.full((b, pool_size), -1, dtype=torch.int32, device=dev)
+    pool_d = torch.full((b, pool_size), INF, device=dev)
+    top = order[:, :k]
+    pool_ids[:, :k] = torch.where(e_valid.gather(1, top),
+                                  entry_ids.gather(1, top), -1)
+    pool_d[:, :k] = e_d.gather(1, top)
+
+    expanded, page_seen, trace = make_traversal_state(
+        beam_width=beam_width, max_hops=max_hops, batch=b, device=dev,
+        visited_capacity=visited_capacity)
+    t = max_hops * beam_width
+    trace_n = torch.zeros((b,), dtype=torch.int32, device=dev)
+    unexp = pool_ids >= 0
+    hops = torch.zeros((b,), dtype=torch.int32, device=dev)
+    active = unexp.any(1) & (max_hops > 0)
+    while bool(active.any()):
+        act = active[:, None]
+        cand_d = torch.where(unexp, pool_d, INF)
+        sd, sel = torch.sort(cand_d, dim=1, stable=True)
+        beam = torch.where(sd[:, :beam_width] < INF,
+                           pool_ids.gather(1, sel[:, :beam_width]), -1)
+        beam_valid = (beam >= 0) & act
+        expanded = visited_mod.add(expanded, beam, beam_valid)
+        edges, counters, page_seen, trace, trace_n = fetch_edgelists(
+            store, spec, cache, counters, page_seen, beam, beam_valid,
+            trace, trace_n)
+
+        # the explored pool is a set: candidates evicted from it may be
+        # re-scored later; only expansion is permanent (Vamana semantics)
+        nbrs = edges.reshape(b, -1)                               # [B, W*R]
+        in_pool = (nbrs[:, :, None] == pool_ids[:, None, :]).any(-1)
+        nvalid = (nbrs >= 0) & ~visited_mod.contains(expanded, nbrs) & \
+            ~in_pool
+        # dedupe the flat neighbor list, first occurrence wins (stable sort)
+        key_ = torch.where(nvalid, nbrs, _INT32_MAX)
+        sorted_key, sort_idx = torch.sort(key_, dim=1, stable=True)
+        first = torch.ones_like(nvalid)
+        first[:, 1:] = sorted_key[:, 1:] != sorted_key[:, :-1]
+        nvalid &= torch.zeros_like(nvalid).scatter(1, sort_idx, first)
+        nd = torch.where(nvalid, _lut_adc(lut, codes, nbrs.clamp(min=0)),
+                         INF)
+        new_d, new_ids = kernel_ops.pool_merge(
+            pool_d, pool_ids, nd, torch.where(nvalid, nbrs, -1))
+        pool_d = torch.where(act, new_d, pool_d)
+        pool_ids = torch.where(act, new_ids, pool_ids)
+        unexp = torch.where(
+            act, (pool_ids >= 0) & ~visited_mod.contains(expanded, pool_ids),
+            unexp)
+        step = active.to(torch.int64)
+        counters = dataclasses.replace(counters, hops=counters.hops + step)
+        hops += active.to(hops.dtype)
+        active = (hops < max_hops) & unexp.any(1)
+    ovf = (visited_mod.overflow(expanded) +
+           visited_mod.overflow(page_seen)).to(torch.int64)
+    counters = dataclasses.replace(
+        counters, visited_overflow=counters.visited_overflow + ovf)
+    return TraverseResult(pool_ids, pool_d, hops, counters, page_seen,
+                          trace[:, :t], trace_n)

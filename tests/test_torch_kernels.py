@@ -1,0 +1,173 @@
+"""The port's kernel layer against the reference's: each plain version
+(what the port runs on CPU tensors, and what the CUDA kernels are held to
+on the card) against ``repro.kernels.ref`` and the Pallas kernel in
+interpret mode, at the main path's shapes; the dispatch contract; and the
+import guard that keeps JAX out of the port."""
+import ast
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.pq_adc import adc_distance_pallas
+from repro.kernels.rerank_l2 import rerank_l2_pallas
+from repro.kernels.topk_pool import pool_merge_pallas
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops, ref
+from _torch_threads import one_torch_thread  # noqa: F401
+
+
+ROOT = Path(__file__).resolve().parents[1]
+LANES = 3
+INF = np.float32(3.4e38)
+
+
+def _merge_inputs(rng, p, q):
+    """Pools ascending with a padded tail; distances on a 0.25 grid so
+    ties occur."""
+    pool_d = np.sort(np.round(rng.random((LANES, p)) * 80) / 4, axis=1)
+    pool_d = pool_d.astype(np.float32)
+    pool_i = rng.integers(0, 5000, (LANES, p)).astype(np.int32)
+    pool_d[:, p - p // 4:], pool_i[:, p - p // 4:] = INF, -1
+    new_d = (np.round(rng.random((LANES, q)) * 80) / 4).astype(np.float32)
+    new_i = rng.integers(0, 5000, (LANES, q)).astype(np.int32)
+    drop = rng.random((LANES, q)) < 0.2
+    new_d[drop], new_i[drop] = INF, -1
+    return pool_d, pool_i, new_d, new_i
+
+
+@pytest.mark.parametrize("p,q", [(40, 192), (32, 32), (10, 30), (64, 128)])
+def test_pool_merge_plain_matches_reference(p, q):
+    """Exact on distances and ids: a stable merge, ties by position."""
+    rng = np.random.default_rng(p * 1000 + q)
+    args = _merge_inputs(rng, p, q)
+    got_d, got_i = ops.pool_merge(*map(torch.from_numpy, args))
+    for b in range(LANES):
+        lane = [jnp.asarray(a[b]) for a in args]
+        for want_d, want_i in (jref.pool_merge_ref(*lane),
+                               pool_merge_pallas(*lane, interpret=True)):
+            np.testing.assert_array_equal(got_d[b].numpy(), want_d)
+            np.testing.assert_array_equal(got_i[b].numpy(), want_i)
+
+
+@pytest.mark.parametrize("m", [24, 32, 96])
+def test_adc_plain_matches_reference(m):
+    """1e-4 abs, the reference's own ADC gate on its inputs (a uniform
+    [0, 1) LUT, benchmarks/kernel_parity.py): XLA may sum the subspaces in
+    another order than the port's in-order loop."""
+    rng = np.random.default_rng(m)
+    lut = rng.random((LANES, m, 256)).astype(np.float32)
+    codes = rng.integers(0, 256, (LANES, 40, m)).astype(np.uint8)
+    got = ops.adc_distance(torch.from_numpy(lut), torch.from_numpy(codes))
+    for b in range(LANES):
+        l, c = jnp.asarray(lut[b]), jnp.asarray(codes[b])
+        for want in (jref.adc_distance_ref(l, c),
+                     adc_distance_pallas(l, c, block_b=32, interpret=True)):
+            np.testing.assert_allclose(got[b].numpy(), want, rtol=0,
+                                       atol=1e-4)
+
+
+def test_adc_plain_sums_in_order():
+    """The plain version accumulates m = 0, 1, ... in float32, which is
+    what the CUDA kernel does: bit-exact with an explicit numpy loop."""
+    rng = np.random.default_rng(5)
+    lut = (rng.random((2, 96, 256)) * 10).astype(np.float32)
+    codes = rng.integers(0, 256, (2, 50, 96)).astype(np.uint8)
+    got = ref.adc_distance_ref(torch.from_numpy(lut),
+                               torch.from_numpy(codes)).numpy()
+    want = np.zeros((2, 50), np.float32)
+    for m in range(96):
+        want = want + np.take_along_axis(lut[:, m], codes[:, :, m].astype(
+            np.int64), axis=1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("d", [48, 768])
+def test_rerank_plain_matches_reference(d):
+    """rtol 1e-5 / atol 1e-3, the repo's D=768 rerank gate: the sums run
+    in another order, and the Pallas kernel uses the expanded form."""
+    rng = np.random.default_rng(d)
+    cent = rng.standard_normal((LANES, d)).astype(np.float32) * 3
+    q = cent + rng.standard_normal((LANES, d)).astype(np.float32)
+    xs = cent[:, None] + rng.standard_normal((LANES, 4, d)).astype(
+        np.float32)
+    got = ops.rerank_l2(torch.from_numpy(q), torch.from_numpy(xs))
+    for b in range(LANES):
+        qb, xb = jnp.asarray(q[b]), jnp.asarray(xs[b])
+        for want in (jref.rerank_l2_ref(qb, xb),
+                     rerank_l2_pallas(qb, xb, group=4, interpret=True)):
+            np.testing.assert_allclose(got[b].numpy(), want, rtol=1e-5,
+                                       atol=1e-3)
+
+
+def test_plain_versions_keep_dtype():
+    gen = torch.Generator().manual_seed(0)
+    lut = torch.rand((2, 8, 256), dtype=torch.float64, generator=gen)
+    codes = torch.randint(0, 256, (2, 5, 8), dtype=torch.uint8,
+                          generator=gen)
+    assert ops.adc_distance(lut, codes).dtype == torch.float64
+    q = torch.rand((2, 16), dtype=torch.float64, generator=gen)
+    xs = torch.rand((2, 3, 16), dtype=torch.float64, generator=gen)
+    assert ops.rerank_l2(q, xs).dtype == torch.float64
+
+
+def test_cpu_tensors_never_launch():
+    """CPU tensors go to the plain versions, with or without the A/B
+    switch, and leave every launch count at 0."""
+    ops.reset_launches()
+    rng = np.random.default_rng(0)
+    args = [torch.from_numpy(a) for a in _merge_inputs(rng, 10, 30)]
+    ops.pool_merge(*args)
+    with ops.plain_on_device():
+        ops.adc_distance(torch.ones((1, 4, 256)),
+                         torch.zeros((1, 2, 4), dtype=torch.uint8))
+    ops.rerank_l2(torch.ones((1, 8)), torch.zeros((1, 2, 8)))
+    assert ops.launches == {"pool_merge": 0, "adc_distance": 0,
+                            "rerank_l2": 0}
+
+
+def test_unsupported_devices_raise():
+    """Neither a meta tensor nor a CPU/meta mix falls back to a plain
+    version."""
+    with pytest.raises(ValueError):
+        ops.rerank_l2(torch.empty((1, 8), device="meta"),
+                      torch.empty((1, 2, 8), device="meta"))
+    with pytest.raises(ValueError):
+        ops.adc_distance(torch.ones((1, 4, 256)),
+                         torch.empty((1, 2, 4), dtype=torch.uint8,
+                                     device="meta"))
+
+
+def test_device_rule():
+    """Entry points default to cuda and raise without a card."""
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            resolve_device()
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_or_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append((path.name, mod))
+    assert not bad, bad
