@@ -10,8 +10,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
 main path's shapes, builds and searches a small index (the test suite's
 configuration) and a FineWeb-like 768-d one, repeats one wave with the
-plain versions on the card (A/B), and checks that the main path launched
-every kernel.  Each phase prints one JSON line; any failure exits non-zero
+plain versions on the card (A/B), and checks the main path's launches:
+``pool_merge`` and ``adc_distance`` launched, ``casr_rerank`` once per
+wave, ``rerank_l2`` never (the kernel phase holds it).  Each phase prints
+one JSON line; any failure exits non-zero
 without the final result line.  With no CUDA device, or without the
 repository beside it, it exits non-zero at once.  It takes no options:
 every run is the whole smoke.
@@ -45,7 +47,16 @@ KERNELS = {
                      "src/repro/kernels/pq_adc.py:26"),
     "rerank_l2": ("src/repro_torch/kernels/csrc/rerank_l2.cu",
                   "src/repro/kernels/rerank_l2.py:29"),
+    # on the main path, the rerank kernel together with CASR's group loop
+    # and its per-round merge (src/repro/core/casr.py:68)
+    "casr_rerank": ("src/repro_torch/kernels/csrc/casr_rerank.cu",
+                    "src/repro/kernels/rerank_l2.py:29"),
 }
+# the main path must launch these, and must not launch rerank_l2 (held by
+# the kernel phase until the full rerank and the stop-point classifier are
+# ported)
+MAIN_PATH_KERNELS = ("pool_merge", "adc_distance", "casr_rerank")
+OFF_PATH_KERNELS = ("rerank_l2",)
 
 
 class SmokeFailure(RuntimeError):
@@ -155,24 +166,108 @@ def phase_env(torch) -> dict:
 
 def _kernel_record(torch, name, max_err, kernel, plain, library, n_bytes,
                    n_ops):
-    """Times of the kernel, its plain version and the library yardstick:
-    ``*ms`` by CUDA events over back-to-back calls (what a caller pays per
-    call, launch included), ``*device_ms`` by the profiler (execution
-    only).  The bound is the larger of bytes over HBM bandwidth and
-    operations over the fp32 peak."""
+    """Times of the kernel, its plain version and the library yardstick
+    (None where no single PyTorch call computes the function): ``*ms`` by
+    CUDA events over back-to-back calls (what a caller pays per call,
+    launch included), ``*device_ms`` by the profiler (execution only), and
+    their difference, the host's cost per call.  The bound is the larger
+    of bytes over HBM bandwidth and operations over the fp32 peak."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / PEAK_FP32_S * 1e3
     source, replaces = KERNELS[name]
+    ms, dev_ms = time_ms(torch, kernel), device_ms(torch, kernel)
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": max_err,
-           "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+           "ms": ms, "device_ms": dev_ms, "plain_ms": time_ms(torch, plain),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": time_ms(torch, library)}
-    extra = {"device_ms": device_ms(torch, kernel),
+           "library_ms": library and time_ms(torch, library)}
+    extra = {"host_ms_per_call": None if dev_ms is None else ms - dev_ms,
              "plain_device_ms": device_ms(torch, plain),
-             "library_device_ms": device_ms(torch, library)}
+             "library_device_ms": library and device_ms(torch, library)}
     return rec, extra
+
+
+def _merge_case(torch, gen, b: int, p: int, q: int, kind: str):
+    """(pool_d, pool_ids, new_d, new_ids) for one merge check.  ``grid``:
+    sorted pools with padded tails and new blocks with dropped entries,
+    distances on a 0.25 grid so ties occur; the adversarial kinds:
+    ``all_equal``, ``unsorted`` (pool in random order), ``signed_zero``
+    (-0.0 beside 0.0)."""
+    dev = gen.device
+    grid = lambda shape: torch.round(torch.rand(
+        shape, generator=gen, device=dev) * 400) / 4
+    ids = lambda shape: torch.randint(0, 10 ** 6, shape, generator=gen,
+                                      device=dev, dtype=torch.int32)
+    pool_d, new_d = grid((b, p)), grid((b, q))
+    pool_i, new_i = ids((b, p)), ids((b, q))
+    if kind == "all_equal":
+        pool_d.fill_(1.5)
+        new_d.fill_(1.5)
+    elif kind == "signed_zero":
+        for t in (pool_d, new_d):
+            t[torch.rand(t.shape, generator=gen, device=dev) < 0.4] = 0.0
+            t[torch.rand(t.shape, generator=gen, device=dev) < 0.4] = -0.0
+    elif kind == "grid":
+        pool_d = torch.sort(pool_d, dim=1).values
+        pool_d[:, p - p // 4:] = 3.4e38
+        pool_i[:, p - p // 4:] = -1
+    drop = torch.rand((b, q), generator=gen, device=dev) < 0.2
+    new_d[drop], new_i[drop] = 3.4e38, -1
+    return pool_d, pool_i, new_d, new_i
+
+
+def _casr_case(torch, gen, vectors, b: int, p: int, n_dup: int):
+    """Queries near stored rows, and pools of p ids in a noisy exact-distance
+    order (a PQ order's stand-in) with random -1 tails and one all -1
+    lane.  Rows i < n_dup of ``vectors`` equal rows i + N // 2, and each
+    pool holds such pairs, so exact ties occur and the pool position has
+    to break them."""
+    dev = vectors.device
+    n = vectors.shape[0]
+    off = n // 2
+    src = torch.randint(0, n_dup, (b,), generator=gen, device=dev)
+    q = vectors[src] + 0.5 * torch.randn((b, vectors.shape[1]),
+                                         generator=gen, device=dev)
+    cand = torch.randint(0, n, (b, p), generator=gen, device=dev)
+    dup = torch.randint(0, n_dup, (b, 3), generator=gen, device=dev)
+    cand[:, :8] = torch.cat([src[:, None], src[:, None] + off, dup,
+                             dup + off], 1)
+    d = ((vectors[cand] - q[:, None]) ** 2).sum(-1)
+    noise = torch.randn((b, p), generator=gen, device=dev) * 30
+    pools = cand.gather(1, torch.argsort(d + noise, dim=1)).to(torch.int32)
+    tail = torch.randint(0, p // 2 + 1, (b, 1), generator=gen, device=dev)
+    pools[torch.arange(p, device=dev) >= p - tail] = -1
+    pools[-1] = -1
+    return q.contiguous(), pools.contiguous()
+
+
+def _check_casr(torch, got, want, b: int) -> dict:
+    """Grade the fused CASR kernel against its plain version: loaded flags,
+    loads, rounds and top-k ids exact, except in lanes where two loaded
+    distances lie within the rerank grade of each other without being
+    equal (sums in another order may order such a pair either way); those
+    lanes are counted.  Exact distances of positions both loaded: rtol
+    1e-5 / atol 1e-3."""
+    exact_k, loaded_k, ids_k, _, n_k, rounds_k = got
+    exact_p, loaded_p, ids_p, _, n_p, rounds_p = want
+    differ = ((loaded_k != loaded_p).any(1) | (n_k != n_p) |
+              (rounds_k != rounds_p) | (ids_k != ids_p).any(1))
+    dp = torch.where(loaded_p, exact_p, float("nan"))
+    gap = (dp[:, :, None] - dp[:, None, :]).abs()
+    tol = RERANK_ATOL + RERANK_RTOL * torch.maximum(dp[:, :, None].abs(),
+                                                    dp[:, None, :].abs())
+    near = ((gap > 0) & (gap <= tol)).flatten(1).any(1)
+    both = loaded_k & loaded_p
+    d_ok = bool(torch.allclose(exact_k[both], exact_p[both],
+                               rtol=RERANK_RTOL, atol=RERANK_ATOL))
+    return {"lanes": b, "near_tie_lanes": int((differ & near).sum()),
+            "other_differing_lanes": int((differ & ~near).sum()),
+            "exact_d_within_grade": d_ok,
+            "max_abs_err": float((exact_k[both] - exact_p[both]).abs().max()),
+            "mean_rounds": float(rounds_p.float().mean()),
+            "max_rounds": int(rounds_p.max()),
+            "mean_loaded": float(n_p.float().mean())}
 
 
 def phase_kernels(torch) -> dict:
@@ -183,33 +278,28 @@ def phase_kernels(torch) -> dict:
     b = WAVE
     records = {}
 
-    # -- pool_merge: exact, ties included (distances on a 0.25 grid) ------
+    # -- pool_merge: exact (distance bits and ids), ties and adversarial
+    #    inputs included ------------------------------------------------
     worst = 0.0
-    for p, q in ((40, 192), (32, 32), (10, 30), (64, 128)):
-        pool_d = torch.sort(torch.round(torch.rand(
-            (b, p), generator=gen, device=dev) * 400) / 4, dim=1).values
-        pool_d[:, p - p // 4:] = ref.INF
-        pool_i = torch.randint(0, 10 ** 6, (b, p), generator=gen,
-                               device=dev, dtype=torch.int32)
-        pool_i[:, p - p // 4:] = -1
-        new_d = torch.round(torch.rand((b, q), generator=gen,
-                                       device=dev) * 400) / 4
-        new_i = torch.randint(0, 10 ** 6, (b, q), generator=gen,
-                              device=dev, dtype=torch.int32)
-        drop = torch.rand((b, q), generator=gen, device=dev) < 0.2
-        new_d[drop], new_i[drop] = ref.INF, -1
-        kd, ki = ops.pool_merge(pool_d, pool_i, new_d, new_i)
-        pd, pi = ref.pool_merge_ref(pool_d, pool_i, new_d, new_i)
+    for p, q, kind in ((40, 192, "grid"), (32, 32, "grid"),
+                       (10, 30, "grid"), (64, 128, "grid"),
+                       (40, 192, "all_equal"), (40, 192, "unsorted"),
+                       (40, 192, "signed_zero"), (64, 8, "grid"),
+                       (512, 512, "unsorted")):
+        args = _merge_case(torch, gen, b, p, q, kind)
+        kd, ki = ops.pool_merge(*args)
+        pd, pi = ref.pool_merge_ref(*args)
         torch.cuda.synchronize()
-        require(torch.equal(kd, pd) and torch.equal(ki, pi),
-                f"pool_merge ({p},{q}) differs from its plain version")
+        require(torch.equal(kd.view(torch.int32), pd.view(torch.int32)) and
+                torch.equal(ki, pi),
+                f"pool_merge ({p},{q}) {kind} differs from its plain version")
         worst = max(worst, float((kd - pd).abs().max()))
-        if (p, q) == (40, 192):
-            m_args = (pool_d, pool_i, new_d, new_i)
-            cat_d = torch.cat([pool_d, new_d], 1)
+        if (p, q, kind) == (40, 192, "grid"):
+            m_args = args
+            cat_d = torch.cat([args[0], args[2]], 1)
     # The merge must read L (distance, id) pairs and write P; its work is
     # sorting the Q new entries and one merge pass, about Q log2 Q + L
-    # compares a lane (the kernel's dense L x L rank is its own choice).
+    # compares a lane (a kernel's own sort network is its choice).
     L = 40 + 192
     records["pool_merge"] = _kernel_record(
         torch, "pool_merge", worst,
@@ -271,14 +361,58 @@ def phase_kernels(torch) -> dict:
         lambda: torch.cdist(r_args[0][:, None], r_args[1]),
         n_bytes=b * d * 4 + b * s * d * 4 + b * s * 4, n_ops=3 * b * s * d)
 
-    grades = {"pool_merge": "exact (distances and ids)",
+    # -- casr_rerank: the fused group loop over a [100_000, 768] store ------
+    n, n_dup, k = 100_000, 2_000, 10
+    vectors = torch.randn((n, d), generator=gen, device=dev)
+    vectors[n // 2:n // 2 + n_dup] = vectors[:n_dup]
+    casr_grades = []
+    for p, s in ((40, 4), (64, 8)):
+        q, pools = _casr_case(torch, gen, vectors, b, p, n_dup)
+        got = ops.casr_rerank(q, vectors, pools, k=k, s=s)
+        want = ref.casr_rerank_ref(q, vectors, pools, k, s)
+        torch.cuda.synchronize()
+        grade = _check_casr(torch, got, want, b)
+        emit(f"kernel:casr_rerank:check_p{p}_s{s}", **grade)
+        require(grade["other_differing_lanes"] == 0 and
+                grade["exact_d_within_grade"],
+                f"casr_rerank (P={p}, s={s}) differs from its plain version "
+                f"outside near ties: {grade}")
+        casr_grades.append(grade)
+        if (p, s) == (40, 4):
+            c_args = (q, vectors, pools)
+            loaded_rows = int(want[4].sum())
+    rec, extra = _kernel_record(
+        torch, "casr_rerank", max(g["max_abs_err"] for g in casr_grades),
+        lambda: ops.casr_rerank(*c_args, k=k, s=4),
+        lambda: ref.casr_rerank_ref(*c_args, k, 4),
+        None,
+        n_bytes=(loaded_rows * d * 4 + b * d * 4 + b * 40 * 4 +
+                 b * 40 * 5 + b * k * 8 + b * 12),
+        n_ops=3 * loaded_rows * d)
+    # the slice-1 path: the same loop with one rerank_l2 and one pool_merge
+    # launch per round
+    pr6 = lambda: ref.casr_rerank_ref(*c_args, k, 4, rerank_l2=ops.rerank_l2,
+                                      pool_merge=ops.pool_merge)
+    rec["library_reason"] = ("no single PyTorch call computes CASR's "
+                             "data-dependent group loop")
+    extra.update(loop_of_kernels_ms=time_ms(torch, pr6),
+                 loop_of_kernels_device_ms=device_ms(torch, pr6),
+                 loaded_rows=loaded_rows)
+    records["casr_rerank"] = (rec, extra)
+
+    grades = {"pool_merge": "exact (distance bits and ids)",
               "adc_distance": "bit-exact",
-              "rerank_l2": f"rtol {RERANK_RTOL} / atol {RERANK_ATOL}"}
+              "rerank_l2": f"rtol {RERANK_RTOL} / atol {RERANK_ATOL}",
+              "casr_rerank": "ids, loads and rounds exact outside near "
+                             f"ties; distances rtol {RERANK_RTOL} / atol "
+                             f"{RERANK_ATOL}"}
     out = {}
     for name, (rec, extra) in records.items():
         emit(f"kernel:{name}", lanes=b, grade=grades[name],
-             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "library_ms", "bound_ms", "bound_by")},
+             **{k: rec[k] for k in ("max_abs_err", "ms", "device_ms",
+                                    "plain_ms", "library_ms",
+                                    "library_reason", "bound_ms",
+                                    "bound_by") if k in rec},
              **extra)
         out[name] = rec
     return out
@@ -383,13 +517,19 @@ def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
                            int(getattr(before, f))) / WAVE
         require(bool(torch.isfinite(dists[ids >= 0]).all()),
                 "fineweb: non-finite distance")
+        timing = eng.last_wave_timing
+        wave_launches = {k: v - launched[k] for k, v in ops.launches.items()}
         emit(f"fineweb_like:wave{w}", queries=WAVE, wall_s=wall,
              qps=WAVE / wall, mean_hops=per_q("hops"),
              reads_per_query=per_q("read_requests"),
              cache_hits_per_query=per_q("cache_hits"),
-             wave_s=eng.last_wave_timing["wave_s"],
-             replay_s=eng.last_wave_timing["replay_s"],
-             launches={k: v - launched[k] for k, v in ops.launches.items()})
+             wave_s=timing["wave_s"], casr_s=timing["casr_s"],
+             casr_share_of_wave=timing["casr_s"] / wall,
+             replay_s=timing["replay_s"], launches=wave_launches)
+        require(wave_launches["casr_rerank"] == 1 and
+                wave_launches["rerank_l2"] == 0,
+                f"fineweb: a wave's CASR stage is not one casr_rerank "
+                f"launch: {wave_launches}")
         all_ids.append(ids)
     emit("fineweb_like:profile", **profile_window(
         torch, lambda: eng.search_many(state, queries[:WAVE])))
@@ -417,16 +557,21 @@ def _pq_scan_recall(torch, eng, state, qs, truth, n: int, depth: int):
 
 
 def phase_ab(torch, eng, state, qs, vecs) -> None:
-    """One wave with the kernels, then under plain_on_device()."""
+    """One wave with the kernels, then under plain_on_device(): ids equal
+    outside near ties, distances within the rerank grade, and each query
+    whose ids are equal with the same I/O (reads, bytes, serial rounds,
+    cache hits and misses)."""
     from repro_torch.kernels import ops
-    ids_k, d_k, _, _ = eng.search_many(state, qs)
+    ids_k, d_k, st_k, _ = eng.search_many(state, qs)
     torch.cuda.synchronize()
     before = dict(ops.launches)
     with ops.plain_on_device():
-        ids_p, d_p, _, _ = eng.search_many(state, qs)
+        ids_p, d_p, st_p, _ = eng.search_many(state, qs)
     torch.cuda.synchronize()
     flat = dict(ops.launches) == before
     differ = ids_k != ids_p
+    same_q = ~differ.any(1)
+    io_same = torch.stack([a == b for a, b in zip(st_k, st_p)]).all(0)
     near_ties = 0
     if bool(differ.any()):
         rows, cols = differ.nonzero(as_tuple=True)
@@ -444,9 +589,13 @@ def phase_ab(torch, eng, state, qs, vecs) -> None:
                                atol=RERANK_ATOL))
     emit("ab", queries=int(qs.shape[0]), identical_slots=int(same.sum()),
          near_tie_slots=near_ties, dists_within_tolerance=d_ok,
+         queries_with_equal_ids=int(same_q.sum()),
+         equal_io_among_them=int((io_same & same_q).sum()),
          launch_counts_flat_under_plain=flat)
     require(flat, "ab: kernels launched under plain_on_device()")
     require(d_ok, "ab: distances outside the rerank tolerance")
+    require(bool(io_same[same_q].all()),
+            "ab: a query with equal ids has other I/O under the plain path")
 
 
 def main() -> int:
@@ -470,8 +619,10 @@ def main() -> int:
         fw = phase_fineweb(torch)
         counts = dict(ops.launches)
         emit("kernels", launches=counts)
-        require(all(v > 0 for v in counts.values()),
-                f"a kernel was not launched on the main path: {counts}")
+        require(all(counts[k] > 0 for k in MAIN_PATH_KERNELS) and
+                all(counts[k] == 0 for k in OFF_PATH_KERNELS),
+                f"main path launches: want {MAIN_PATH_KERNELS} launched and "
+                f"{OFF_PATH_KERNELS} not, got {counts}")
         phase_ab(torch, *fw)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

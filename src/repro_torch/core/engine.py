@@ -140,6 +140,13 @@ class OpStats(NamedTuple):
     dropped: torch.Tensor
 
 
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU), so
+    a host clock around a stage measures the stage."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
 def _delta_stats(before: IOCounters, after: IOCounters,
                  rounds: torch.Tensor) -> OpStats:
     """Per-lane I/O of an operation that is never dropped (a search)."""
@@ -165,8 +172,10 @@ class Engine:
         self.codec: Optional[pq_mod.PQCodec] = None
         self._sym: Optional[torch.Tensor] = None
         # host-clock seconds of the last wave: traversal + rerank on the
-        # device (until its traces reach the host), then the cache replay
+        # device (until its traces reach the host; the CASR stage alone,
+        # between two syncs, in casr_s), then the cache replay
         self.last_wave_timing: dict = {}
+        self.last_casr_s = 0.0
 
     def set_codec(self, codec: pq_mod.PQCodec) -> None:
         self.codec = codec
@@ -279,8 +288,12 @@ class Engine:
         ctr = dataclasses.replace(
             ctr, tombstone_skips=ctr.tombstone_skips + dead.sum(1))
         pool = torch.where(dead, -1, res.pool_ids)
+        _sync(qs)
+        t0 = time.perf_counter()
         cres = casr_mod.casr_rerank(state.store, spec.lspec, qs, pool, ctr,
                                     k=spec.k, s=spec.s_search)
+        _sync(qs)
+        self.last_casr_s = time.perf_counter() - t0
         rounds = res.hops + cres.rerank_rounds
         stats = _delta_stats(ctr0, cres.counters, rounds)
         return cres.topk_ids, cres.topk_d, stats, cres.counters, res
@@ -298,6 +311,7 @@ class Engine:
         t1 = time.perf_counter()
         _, cache = cache_mod.apply_traces(state.cache, traces)
         self.last_wave_timing = {"wave_s": t1 - t0,
+                                 "casr_s": self.last_casr_s,
                                  "replay_s": time.perf_counter() - t1}
         state = dataclasses.replace(
             state, cache=cache,

@@ -1,10 +1,11 @@
-"""Builds and loads the hand-written CUDA kernels (``csrc/*.cu``).
+"""Builds and loads the hand-written CUDA kernels (``csrc/*.cu``, with the
+headers they share, ``csrc/*.cuh``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` (all started together,
 one process per source), linked into one shared library with a plain C
 interface, and loaded with ``ctypes``.  The build runs at the first CUDA
 call, into ``build/repro_torch_kernels/<hash>/`` under the repository
-root, keyed by a hash of the sources and flags, so a fresh checkout
+root, keyed by a hash of the sources, headers and flags, so a fresh checkout
 builds it once and later calls reuse it.  ``ptxas.log`` beside the
 library keeps each kernel's register and shared-memory report.
 """
@@ -33,6 +34,7 @@ SIGNATURES = {
     "pool_merge_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "adc_distance_launch": [_P, _P, _P, _I, _I, _I, _P],
     "rerank_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "casr_rerank_launch": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -45,7 +47,7 @@ def sources() -> list[Path]:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+constexpr int kMaxDevices = 64;
+
 __global__ void adc_distance_kernel(const float* __restrict__ lut,
                                     const uint8_t* __restrict__ codes,
                                     float* __restrict__ out, int C, int M) {
@@ -42,10 +44,20 @@ extern "C" int adc_distance_launch(const void* lut, const void* codes,
                                    void* out, int B, int C, int M,
                                    void* stream) {
   const size_t smem = (size_t)M * 256 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      adc_distance_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // The opt-in above 48 KiB is set once per device, to the largest LUT
+  // seen there; a launch with a smaller LUT needs no new call.
+  static int opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if ((int)smem > opted_in[dev]) {
+    err = cudaFuncSetAttribute(adc_distance_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = (int)smem;
+  }
   const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
   dim3 grid((C + threads - 1) / threads, B);
   adc_distance_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(

@@ -1,0 +1,51 @@
+// l2_row.cuh: the exact squared-L2 body shared by rerank_l2.cu and
+// casr_rerank.cu, so both kernels give the same value for the same row.
+//
+// One warp sums sum_k (x[k] - q[k])^2 for one row: the difference form
+// (the expanded form ||q||^2 - 2 q.x + ||x||^2 cancels at large norms),
+// accumulated in fp32 with fmaf, then a butterfly shuffle reduction so
+// every lane of the warp returns the total.  Rows whose pointers are
+// 16-byte aligned with D % 4 == 0 are read as float4 (each lane takes four
+// neighbouring elements, lanes on neighbouring 16 bytes); other rows one
+// float at a time.  The path depends only on D and the alignment, so a
+// row's value does not depend on which kernel computed it.
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float row_sqdist(const float* __restrict__ x,
+                                            const float* __restrict__ q,
+                                            int D, int lane) {
+  float acc = 0.0f;
+  if ((D & 3) == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(q)) & 15) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+#pragma unroll 4
+    for (int k = lane; k < (D >> 2); k += 32) {
+      const float4 a = __ldg(x4 + k);
+      const float4 b = q4[k];
+      float t = a.x - b.x;
+      acc = fmaf(t, t, acc);
+      t = a.y - b.y;
+      acc = fmaf(t, t, acc);
+      t = a.z - b.z;
+      acc = fmaf(t, t, acc);
+      t = a.w - b.w;
+      acc = fmaf(t, t, acc);
+    }
+  } else {
+    for (int k = lane; k < D; k += 32) {
+      const float t = __ldg(x + k) - q[k];
+      acc = fmaf(t, t, acc);
+    }
+  }
+  return warp_sum(acc);
+}

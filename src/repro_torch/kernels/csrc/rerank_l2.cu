@@ -3,20 +3,18 @@
 // Replaces the TPU kernel `_rerank_kernel` / `rerank_l2_pallas`
 // (src/repro/kernels/rerank_l2.py), which streams CASR groups of s rows
 // through VMEM and computes ||q||^2 - 2 q.x + ||x||^2 with q.x on the MXU.
+// The main path's CASR stage runs casr_rerank.cu instead; this kernel
+// serves callers that rerank rows they already hold (a full rerank).
 //
 // What bounds it on an H100: device-memory bytes.  Every candidate row is
 // read once (D * 4 bytes: 3 KiB at D = 768) for 3 flops per element, far
 // below the ~20 flops per byte where fp32 arithmetic would bind, and each
 // lane reranks its own rows, so there is no reuse for tensor cores.
 //
-// Design: one warp per (lane, row).  The 32 threads stride over D with
-// coalesced loads, accumulate the difference form (x - q)^2 in fp32 (the
-// form the engine runs off the TPU; the expanded form cancels at large
-// norms), and finish with a shuffle reduction.  The sum order differs from
-// the plain version's, hence the rtol 1e-5 / atol 1e-3 grade.  Gathering
-// the candidate rows by id inside the kernel (instead of a torch gather
-// before it) is later work.
-#include <cuda_runtime.h>
+// Design: one warp per (lane, row), summing the row with the shared
+// difference-form body in l2_row.cuh.  The sum order differs from the
+// plain version's, hence the rtol 1e-5 / atol 1e-3 grade.
+#include "l2_row.cuh"
 
 __global__ void rerank_l2_kernel(const float* __restrict__ q,
                                  const float* __restrict__ xs,
@@ -27,15 +25,7 @@ __global__ void rerank_l2_kernel(const float* __restrict__ q,
   const int lane = threadIdx.x & 31;
   if (warp >= (long long)B * S) return;
   const long long b = warp / S;
-  const float* qb = q + b * D;
-  const float* x = xs + warp * D;
-  float acc = 0.0f;
-  for (int k = lane; k < D; k += 32) {
-    const float t = x[k] - qb[k];
-    acc = fmaf(t, t, acc);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  const float acc = row_sqdist(xs + warp * D, q + b * D, D, lane);
   if (lane == 0) out[warp] = acc;
 }
 

@@ -1,5 +1,6 @@
-"""Device-dispatched wrappers for the three hot-spot kernels (port of
-``repro/kernels/ops.py``).
+"""Device-dispatched wrappers for the hand-written kernels (port of
+``repro/kernels/ops.py``; ``casr_rerank`` fuses the CASR loop of
+``repro/core/casr.py`` around the reference's rerank and merge kernels).
 
 ==============  ===================================================
 tensor device   implementation
@@ -18,7 +19,9 @@ Each wrapper adds one to ``launches[name]`` where it launches its kernel,
 and nowhere else, so a run can show that the main path went through the
 kernels.  Kernels launch on the current stream and allocate nothing; the
 wrapper checks device, dtype, shape and contiguity and allocates the
-outputs.
+outputs.  The library's entry points and PyTorch's raw-stream accessor are
+resolved once, at the first CUDA call, so a launch costs the checks, the
+output allocations and one ``ctypes`` call.
 """
 from __future__ import annotations
 
@@ -28,8 +31,11 @@ import torch
 
 from repro_torch.kernels import ref
 
-launches = {"pool_merge": 0, "adc_distance": 0, "rerank_l2": 0}
+launches = {"pool_merge": 0, "adc_distance": 0, "rerank_l2": 0,
+            "casr_rerank": 0}
 _plain_on_device = False
+_entry: dict = {}       # C entry point name -> ctypes function
+_raw_stream = None      # device index -> its current stream's handle
 
 
 def reset_launches() -> None:
@@ -49,10 +55,10 @@ def plain_on_device():
 
 
 def _use_plain(*tensors: torch.Tensor) -> bool:
-    types = {t.device.type for t in tensors}
-    if types == {"cpu"}:
+    if all(t.is_cpu for t in tensors):
         return True
-    if types != {"cuda"} or len({t.device for t in tensors}) != 1:
+    if not all(t.is_cuda for t in tensors) or \
+            len({t.get_device() for t in tensors}) != 1:
         raise ValueError(f"kernel inputs on unsupported or mixed devices: "
                          f"{[str(t.device) for t in tensors]}")
     return _plain_on_device
@@ -65,15 +71,23 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
                          f"contiguous={t.is_contiguous()}")
 
 
-def _call(fn_name: str, *args) -> None:
+def _resolve() -> None:
+    """Build and load the library (first CUDA call only) and keep its entry
+    points and the raw-stream accessor."""
+    global _raw_stream
     from repro_torch.kernels import _build
-    err = getattr(_build.library(), fn_name)(*args)
+    lib = _build.library()
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _entry.update({name: getattr(lib, name) for name in _build.SIGNATURES})
+
+
+def _call(fn_name: str, t: torch.Tensor, *args) -> None:
+    """Launch on the current stream of ``t``'s device; raise on an error."""
+    if not _entry:
+        _resolve()
+    err = _entry[fn_name](*args, _raw_stream(t.get_device()))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def adc_distance(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -91,10 +105,10 @@ def adc_distance(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
         raise ValueError("adc_distance: the LUT must fit shared memory "
                          "(M <= 227) and be 16-byte aligned, and B <= 65535 "
                          "(one grid row per lane)")
-    out = torch.empty((b, c), dtype=torch.float32, device=lut.device)
+    out = lut.new_empty((b, c))
     if b and c:
-        _call("adc_distance_launch", lut.data_ptr(), codes.data_ptr(),
-              out.data_ptr(), b, c, m, _stream(lut))
+        _call("adc_distance_launch", lut, lut.data_ptr(), codes.data_ptr(),
+              out.data_ptr(), b, c, m)
         launches["adc_distance"] += 1
     return out
 
@@ -109,10 +123,10 @@ def rerank_l2(q: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     if q.shape != (b, d):
         raise ValueError(f"rerank_l2 shapes: q {tuple(q.shape)}, "
                          f"xs {tuple(xs.shape)}")
-    out = torch.empty((b, s), dtype=torch.float32, device=q.device)
+    out = q.new_empty((b, s))
     if b and s:
-        _call("rerank_l2_launch", q.data_ptr(), xs.data_ptr(),
-              out.data_ptr(), b, s, d, _stream(q))
+        _call("rerank_l2_launch", q, q.data_ptr(), xs.data_ptr(),
+              out.data_ptr(), b, s, d)
         launches["rerank_l2"] += 1
     return out
 
@@ -134,11 +148,48 @@ def pool_merge(pool_d, pool_ids, new_d, new_ids):
         raise ValueError("pool_merge: mismatched shapes")
     if p + q > 1024:
         raise ValueError(f"pool_merge: P + Q = {p + q} > 1024")
-    out_d = torch.empty((b, p), dtype=torch.float32, device=pool_d.device)
-    out_i = torch.empty((b, p), dtype=torch.int32, device=pool_d.device)
+    out_d = pool_d.new_empty((b, p))
+    out_i = pool_ids.new_empty((b, p))
     if b and p:
-        _call("pool_merge_launch", pool_d.data_ptr(), pool_ids.data_ptr(),
-              new_d.data_ptr(), new_ids.data_ptr(), out_d.data_ptr(),
-              out_i.data_ptr(), b, p, q, _stream(pool_d))
+        _call("pool_merge_launch", pool_d, pool_d.data_ptr(),
+              pool_ids.data_ptr(), new_d.data_ptr(), new_ids.data_ptr(),
+              out_d.data_ptr(), out_i.data_ptr(), b, p, q)
         launches["pool_merge"] += 1
     return out_d, out_i
+
+
+def casr_rerank(q, vectors, pool_ids, *, k: int, s: int):
+    """CASR's group loop for a wave: q [B, D] f32, vectors [N, D] f32 (read
+    in place), PQ-sorted pool_ids [B, P] int32 (-1 tail), groups of s.
+    Returns (exact_d [B, P] f32, loaded [B, P] bool, topk_ids [B, k]
+    int32, topk_d [B, k] f32, n_loaded [B] int64, rounds [B] int32).
+    Kernel limits: P <= 256, 1 <= s <= P, 1 <= k <= P, D <= 8192,
+    B <= 65535."""
+    if _use_plain(q, vectors, pool_ids):
+        return ref.casr_rerank_ref(q, vectors, pool_ids, k, s)
+    _check(q, "q", torch.float32, 2)
+    _check(vectors, "vectors", torch.float32, 2)
+    _check(pool_ids, "pool_ids", torch.int32, 2)
+    b, p = pool_ids.shape
+    n, d = vectors.shape
+    if q.shape != (b, d):
+        raise ValueError(f"casr_rerank shapes: q {tuple(q.shape)}, vectors "
+                         f"{tuple(vectors.shape)}, pool_ids {(b, p)}")
+    if not (1 <= p <= 256 and 1 <= s <= p and 1 <= k <= p and
+            1 <= d <= 8192 and b <= 65535):
+        raise ValueError(f"casr_rerank limits: P={p} (1..256), s={s} "
+                         f"(1..P), k={k} (1..P), D={d} (1..8192), "
+                         f"B={b} (<= 65535)")
+    exact_d = q.new_empty((b, p))
+    loaded = q.new_empty((b, p), dtype=torch.bool)
+    topk_ids = pool_ids.new_empty((b, k))
+    topk_d = q.new_empty((b, k))
+    n_loaded = pool_ids.new_empty((b,), dtype=torch.int64)
+    rounds = pool_ids.new_empty((b,))
+    if b:
+        _call("casr_rerank_launch", q, q.data_ptr(), vectors.data_ptr(),
+              pool_ids.data_ptr(), exact_d.data_ptr(), loaded.data_ptr(),
+              topk_ids.data_ptr(), topk_d.data_ptr(), n_loaded.data_ptr(),
+              rounds.data_ptr(), b, p, d, n, k, s)
+        launches["casr_rerank"] += 1
+    return exact_d, loaded, topk_ids, topk_d, n_loaded, rounds

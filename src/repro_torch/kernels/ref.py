@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the three kernels (port of
-``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the kernels (port of ``repro/kernels/ref.py``,
+plus the CASR group loop of ``repro/core/casr.py``).
 
 Batch-first: every function takes a leading lane dimension ``[B]`` (one
 query of a wave per lane).  They are what :mod:`repro_torch.kernels.ops`
@@ -10,6 +10,8 @@ kernels against on the card.  They keep the input dtype.
 1, ...``, as the TPU kernel's ``fori_loop`` does and as the CUDA kernel
 does, so kernel and plain version agree bit for bit.  ``pool_merge_ref``
 is a stable argsort, the TPU kernel's rank definition.
+``casr_rerank_ref`` is the CASR loop written batch-first over the other
+two plain versions.
 """
 from __future__ import annotations
 
@@ -41,3 +43,65 @@ def pool_merge_ref(pool_d, pool_ids, new_d, new_ids):
     ids = torch.cat([pool_ids, new_ids], dim=1)
     order = torch.sort(d, dim=1, stable=True).indices[:, :p]
     return d.gather(1, order), ids.gather(1, order)
+
+
+def _topk(ids, d, k: int, pool_merge):
+    """Per lane, the k smallest by d (stable), through the pool merge: the
+    candidates' prefix is the "pool", their tail the new block.  ids are
+    -1 where the distance is INF."""
+    out_d, out_i = pool_merge(d[:, :k].contiguous(), ids[:, :k].contiguous(),
+                              d[:, k:].contiguous(), ids[:, k:].contiguous())
+    return torch.where(out_d < INF, out_i, -1), out_d
+
+
+def casr_rerank_ref(q, vectors, pool_ids, k: int, s: int, *,
+                    rerank_l2=rerank_l2_ref, pool_merge=pool_merge_ref):
+    """CASR's group loop (Algorithm 1) for queries ``q`` [B, D] over
+    PQ-sorted pools ``pool_ids`` [B, P] (-1 tail) of rows of ``vectors``
+    [N, D], in groups of ``s`` (1 <= s <= P).  Returns (exact_d [B, P],
+    loaded [B, P], topk_ids [B, k], topk_d [B, k], n_loaded [B] int64,
+    rounds [B] int32).  All lanes that are still running share the group
+    index, so each round reranks one group of ``s`` rows per lane through
+    ``rerank_l2``; ``pool_merge`` takes the stable top-k.  Both default to
+    the plain versions; passing the kernels' wrappers gives the loop of
+    one launch of each per round."""
+    b, p = pool_ids.shape
+    dev = pool_ids.device
+    max_groups = -(-p // s)
+    valid = pool_ids >= 0
+    safe = pool_ids.clamp(min=0).long()
+    exact_d = torch.full((b, p), INF, device=dev)
+    loaded = torch.zeros((b, p), dtype=torch.bool, device=dev)
+
+    def load_group(g: int, active: torch.Tensor) -> torch.Tensor:
+        """Fetch group g (positions [g*s, g*s+s)) for the active lanes."""
+        lo, hi = g * s, min(g * s + s, p)
+        take = valid[:, lo:hi] & ~loaded[:, lo:hi] & active[:, None]
+        d = rerank_l2(q, vectors[safe[:, lo:hi]])
+        exact_d[:, lo:hi] = torch.where(take, d, exact_d[:, lo:hi])
+        loaded[:, lo:hi] |= take
+        return take.sum(1)
+
+    # pipeline start: group 0 is loaded before the loop (Alg 1 line 3)
+    everyone = torch.ones((b,), dtype=torch.bool, device=dev)
+    n_loaded = load_group(0, everyone)
+    topk_prev = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    rounds = torch.ones((b,), dtype=torch.int32, device=dev)
+    pos = torch.arange(p, device=dev)
+    g = 1
+    active = everyone
+    while g <= max_groups and bool(active.any()):
+        if g < max_groups:      # speculative next-group I/O
+            n_loaded = n_loaded + load_group(g, active)
+        known_d = torch.where(loaded & (pos < g * s), exact_d, INF)
+        topk_new, _ = _topk(pool_ids, known_d, k, pool_merge)
+        stable = (topk_new == topk_prev).all(1) & (topk_prev >= 0).any(1)
+        topk_prev = torch.where(active[:, None], topk_new, topk_prev)
+        done = torch.where(active, stable | (g >= max_groups), done)
+        rounds += active.to(rounds.dtype)
+        g += 1
+        active = ~done
+    known_d = torch.where(loaded, exact_d, INF)
+    topk_ids, topk_d = _topk(pool_ids, known_d, k, pool_merge)
+    return exact_d, loaded, topk_ids, topk_d, n_loaded, rounds

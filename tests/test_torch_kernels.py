@@ -4,6 +4,7 @@ on the card) against ``repro.kernels.ref`` and the Pallas kernel in
 interpret mode, at the main path's shapes; the dispatch contract; and the
 import guard that keeps JAX out of the port."""
 import ast
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -11,10 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import casr as jcasr
+from repro.core.iomodel import IOCounters as JCounters
+from repro.core.layout import LayoutSpec as JLayoutSpec
 from repro.kernels import ref as jref
 from repro.kernels.pq_adc import adc_distance_pallas
 from repro.kernels.rerank_l2 import rerank_l2_pallas
 from repro.kernels.topk_pool import pool_merge_pallas
+from repro_torch import interop
+from repro_torch.core import casr as tcasr
+from repro_torch.core.iomodel import IOCounters
+from repro_torch.core.layout import LayoutSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -51,6 +59,108 @@ def test_pool_merge_plain_matches_reference(p, q):
                                pool_merge_pallas(*lane, interpret=True)):
             np.testing.assert_array_equal(got_d[b].numpy(), want_d)
             np.testing.assert_array_equal(got_i[b].numpy(), want_i)
+
+
+def _adversarial_merge(case):
+    """One lane's (pool_d, pool_ids, new_d, new_ids) for a case the merge
+    must get right whatever order or values its inputs arrive in."""
+    rng = np.random.default_rng(len(case))
+    p, q = {"all_equal": (40, 192), "unsorted_pool": (40, 192),
+            "signed_zero": (40, 192), "p_greater_than_q": (64, 8),
+            "at_limit": (512, 512)}[case]
+    d = (np.round(rng.random(p + q) * 40) / 4).astype(np.float32)
+    if case == "all_equal":
+        d[:] = 1.5
+    elif case == "signed_zero":
+        d[rng.random(p + q) < 0.5] = 0.0
+        d[rng.random(p + q) < 0.5] = -0.0
+    elif case != "unsorted_pool":
+        d[:p] = np.sort(d[:p])
+    d[p + q // 2:][rng.random(q - q // 2) < 0.3] = INF
+    ids = rng.permutation(10 ** 5)[:p + q].astype(np.int32)
+    return d[:p], ids[:p], d[p:], ids[p:]
+
+
+@pytest.mark.parametrize("case", ["all_equal", "unsorted_pool",
+                                  "signed_zero", "p_greater_than_q",
+                                  "at_limit"])
+def test_pool_merge_plain_adversarial(case):
+    """Exact against the reference and the Pallas kernel in interpret mode,
+    the distances bit for bit (so -0.0 stays -0.0): every distance equal,
+    an unsorted pool, -0.0 beside 0.0, P > Q, and P + Q at the kernel's
+    limit of 1024."""
+    args = _adversarial_merge(case)
+    got_d, got_i = ops.pool_merge(*[torch.from_numpy(a)[None]
+                                    for a in args])
+    lane = [jnp.asarray(a) for a in args]
+    for want_d, want_i in (jref.pool_merge_ref(*lane),
+                           pool_merge_pallas(*lane, interpret=True)):
+        np.testing.assert_array_equal(got_d[0].numpy().view(np.int32),
+                                      np.asarray(want_d).view(np.int32))
+        np.testing.assert_array_equal(got_i[0].numpy(), want_i)
+
+
+def _casr_inputs(p: int, lanes: int = 6, n: int = 300, d: int = 48):
+    """A store with duplicated rows (exact ties that only the pool position
+    can break), queries near stored rows, pools in a noisy distance order
+    (a PQ order's stand-in) with -1 tails of random length, and one lane
+    whose pool is all -1."""
+    rng = np.random.default_rng(p)
+    vectors = rng.standard_normal((n, d)).astype(np.float32)
+    vectors[n // 2:n // 2 + 40] = vectors[:40]
+    qs = (vectors[rng.integers(0, 40, lanes)] +
+          0.7 * rng.standard_normal((lanes, d))).astype(np.float32)
+    pools = np.full((lanes, p), -1, np.int32)
+    for b in range(lanes - 1):
+        ids = rng.permutation(n)[:p]
+        ids[:6] = np.r_[np.arange(3) + 5 * b, np.arange(3) + 5 * b + n // 2]
+        dist = ((vectors[ids] - qs[b]) ** 2).sum(1)
+        order = np.argsort(dist + rng.normal(0, 8, p), kind="stable")
+        tail = rng.integers(0, p // 2)
+        pools[b, :p - tail] = ids[order][:p - tail]
+    return vectors, qs, pools
+
+
+@pytest.mark.parametrize("p", [40, 64])
+@pytest.mark.parametrize("s", [4, 8])
+def test_casr_rerank_plain_matches_reference(p, s):
+    """The plain CASR loop (what the fused kernel is held to on the card)
+    and the port's CASR stage against the reference's casr_rerank_many,
+    lane by lane: ids, loaded flags, loads, groups, rounds and I/O
+    counters exact; distances to 1e-3 abs (the repo's rerank gate: the
+    sums run in another order)."""
+    k = 10
+    vectors, qs, pools = _casr_inputs(p)
+    want = jcasr.casr_rerank_many(
+        types.SimpleNamespace(vectors=jnp.asarray(vectors)),
+        JLayoutSpec(kind="decoupled", dim=vectors.shape[1], r=16),
+        jnp.asarray(qs), jnp.asarray(pools), JCounters.zeros(), k=k, s=s)
+    tq, tpools = torch.from_numpy(qs), torch.from_numpy(pools)
+    exact_d, loaded, topk_ids, topk_d, n_loaded, rounds = \
+        ref.casr_rerank_ref(tq, torch.from_numpy(vectors), tpools, k, s)
+    got = tcasr.casr_rerank(
+        types.SimpleNamespace(vectors=torch.from_numpy(vectors)),
+        LayoutSpec(kind="decoupled", dim=vectors.shape[1], r=16), tq,
+        tpools, IOCounters.zeros((len(qs),), device="cpu"), k=k, s=s)
+    assert bool((want.n_groups[:-1] >= 2).any()), "no lane ran a 2nd group"
+    assert int(want.n_groups[-1]) == -(-p // s), "all -1 lane stopped early"
+    for name, value in (("topk_ids", topk_ids), ("loaded", loaded),
+                        ("n_loaded", n_loaded),
+                        ("n_groups", rounds - 1)):
+        np.testing.assert_array_equal(
+            value.numpy().astype(np.int64),
+            np.asarray(getattr(want, name)).astype(np.int64), name)
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      value.numpy(), name)
+    for name, value in (("exact_d", exact_d), ("topk_d", topk_d)):
+        np.testing.assert_allclose(value.numpy(), getattr(want, name),
+                                   rtol=0, atol=1e-3, err_msg=name)
+    np.testing.assert_array_equal(got.rerank_rounds.numpy(),
+                                  want.rerank_rounds)
+    g_ctr, w_ctr = (interop.to_numpy(c) for c in (got.counters,
+                                                  want.counters))
+    for field in w_ctr:
+        np.testing.assert_array_equal(g_ctr[field], w_ctr[field], field)
 
 
 @pytest.mark.parametrize("m", [24, 32, 96])
@@ -125,8 +235,11 @@ def test_cpu_tensors_never_launch():
         ops.adc_distance(torch.ones((1, 4, 256)),
                          torch.zeros((1, 2, 4), dtype=torch.uint8))
     ops.rerank_l2(torch.ones((1, 8)), torch.zeros((1, 2, 8)))
+    ops.casr_rerank(torch.ones((1, 8)), torch.zeros((4, 8)),
+                    torch.tensor([[0, 2, 1, -1]], dtype=torch.int32), k=2,
+                    s=2)
     assert ops.launches == {"pool_merge": 0, "adc_distance": 0,
-                            "rerank_l2": 0}
+                            "rerank_l2": 0, "casr_rerank": 0}
 
 
 def test_unsupported_devices_raise():
