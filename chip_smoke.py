@@ -8,15 +8,21 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
-main path's shapes, builds and searches a small index (the test suite's
-configuration) and a FineWeb-like 768-d one, repeats one wave with the
-plain versions on the card (A/B), and checks the main path's launches:
-``pool_merge`` and ``adc_distance`` launched, ``casr_rerank`` once per
-wave, ``rerank_l2`` never (the kernel phase holds it).  Each phase prints
-one JSON line; any failure exits non-zero
-without the final result line.  With no CUDA device, or without the
-repository beside it, it exits non-zero at once.  It takes no options:
-every run is the whole smoke.
+main path's shapes, then drives two paths, each with the launch counts
+set to 0 just before it and read just after:
+
+- search: builds and searches a small index (the test suite's
+  configuration) and a FineWeb-like 768-d one;
+- update: on both indexes, insert waves (``insert_many``), sequential
+  inserts and searches, deletes, and searches after them.
+
+Each path must launch ``pool_merge``, ``adc_distance`` and
+``casr_rerank`` (once per search or insert wave) and never ``rerank_l2``
+(the kernel phase holds it).  After each path one wave is repeated with
+the plain versions on the card (A/B).  Each phase prints one JSON line;
+any failure exits non-zero without the final result line.  With no CUDA
+device, or without the repository beside it, it exits non-zero at once.
+It takes no options: every run is the whole smoke.
 """
 from __future__ import annotations
 
@@ -117,9 +123,29 @@ def _self_device_us(event) -> float:
     return 0.0
 
 
+def device_ms_cold(torch, fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time per call of the kernel named ``kernel`` that
+    ``fn`` launches, with the L2 cache overwritten before each call (the
+    main path reads its rows once, cold); only that kernel's events
+    count."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(_self_device_us(e) for e in prof.key_averages()
+                   if e.key.startswith(kernel + "("))
+    return total_us / 1e3 / iters
+
+
 def profile_window(torch, fn) -> dict:
-    """Device busy share of one call of ``fn`` (host clock around it) and
-    its five largest kernels by device time."""
+    """Device busy share of one call of ``fn`` (host clock around it), its
+    five largest kernels by device time, and the port's kernels in it
+    (device ms, launches)."""
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
@@ -131,9 +157,12 @@ def profile_window(torch, fn) -> dict:
             for e in prof.key_averages() if _self_device_us(e) > 0]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
+    port = {name: [ms, n] for name in KERNELS for k, ms, n in rows
+            if k.startswith(name + "_kernel(")}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms if wall_ms else None,
-            "top_kernels": [[k, ms, n] for k, ms, n in rows[:5]]}
+            "top_kernels": [[k, ms, n] for k, ms, n in rows[:5]],
+            "port_kernels": port}
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +269,12 @@ def _casr_case(torch, gen, vectors, b: int, p: int, n_dup: int):
     pools[torch.arange(p, device=dev) >= p - tail] = -1
     pools[-1] = -1
     return q.contiguous(), pools.contiguous()
+
+
+def _distinct_rows(torch, pools, loaded) -> int:
+    """Rows of the store a CASR call must read at least once: the distinct
+    ids it loads over all lanes (lanes of one wave share candidates)."""
+    return int(torch.unique(pools[loaded]).numel())
 
 
 def _check_casr(torch, got, want, b: int) -> dict:
@@ -381,12 +416,13 @@ def phase_kernels(torch) -> dict:
         if (p, s) == (40, 4):
             c_args = (q, vectors, pools)
             loaded_rows = int(want[4].sum())
+            distinct_rows = _distinct_rows(torch, pools, want[1])
     rec, extra = _kernel_record(
         torch, "casr_rerank", max(g["max_abs_err"] for g in casr_grades),
         lambda: ops.casr_rerank(*c_args, k=k, s=4),
         lambda: ref.casr_rerank_ref(*c_args, k, 4),
         None,
-        n_bytes=(loaded_rows * d * 4 + b * d * 4 + b * 40 * 4 +
+        n_bytes=(distinct_rows * d * 4 + b * d * 4 + b * 40 * 4 +
                  b * 40 * 5 + b * k * 8 + b * 12),
         n_ops=3 * loaded_rows * d)
     # the slice-1 path: the same loop with one rerank_l2 and one pool_merge
@@ -397,7 +433,7 @@ def phase_kernels(torch) -> dict:
                              "data-dependent group loop")
     extra.update(loop_of_kernels_ms=time_ms(torch, pr6),
                  loop_of_kernels_device_ms=device_ms(torch, pr6),
-                 loaded_rows=loaded_rows)
+                 loaded_rows=loaded_rows, distinct_rows=distinct_rows)
     records["casr_rerank"] = (rec, extra)
 
     grades = {"pool_merge": "exact (distance bits and ids)",
@@ -451,6 +487,104 @@ def phase_small(torch) -> None:
     require(tuple(ids.shape) == (40, 10) and finite, "small: bad output")
     require(all(inv.values()), f"small: invariants {inv}")
     require(recall >= 0.9, f"small: recall@10 {recall} < 0.9")
+    return eng, state, qs, cents
+
+
+def _tree_diff(torch, a, b, name="") -> list[str]:
+    """Names of the fields where two state objects differ (tensors by
+    value, host numbers by ==)."""
+    import dataclasses
+    if isinstance(a, torch.Tensor):
+        same = a.shape == b.shape and bool(torch.equal(a, b))
+        return [] if same else [name]
+    if dataclasses.is_dataclass(a):
+        pairs = [(f.name, getattr(a, f.name), getattr(b, f.name))
+                 for f in dataclasses.fields(a)]
+    elif isinstance(a, tuple) and hasattr(a, "_fields"):
+        pairs = list(zip(a._fields, a, b))
+    else:
+        return [] if a == b else [name]
+    return [d for n, x, y in pairs
+            for d in _tree_diff(torch, x, y, f"{name}.{n}" if name else n)]
+
+
+def _entrance_inverse_ok(torch, ent) -> bool:
+    """ids and main_to_ent are each other's inverse on the live members."""
+    ids, m2e = ent.ids, ent.main_to_ent
+    slots = torch.arange(ids.shape[0], device=ids.device)
+    live = ids >= 0
+    held = m2e >= 0
+    verts = torch.arange(m2e.shape[0], device=m2e.device)
+    return (bool((m2e[ids[live].long()] == slots[live]).all()) and
+            bool((ids[m2e[held].long()] == verts[held]).all()))
+
+
+def _self_search(torch, eng, state, vs, new_ids):
+    """Search for each inserted vector (waves of WAVE queries).  Returns
+    (ids [N, k], share of vectors found in their own top k)."""
+    ids = torch.cat([eng.search_many(state, vs[i:i + WAVE])[0]
+                     for i in range(0, vs.shape[0], WAVE)])
+    return ids, float((ids == new_ids[:, None]).any(1).float().mean())
+
+
+def phase_small_update(torch, eng, state, qs, cents) -> None:
+    """The update path on the small index: an insert wave of 64, 8
+    sequential inserts, 8 deletes (one an entrance member), then the 40
+    queries through search_many and search_batch; and a wave of one
+    against the sequential insert."""
+    from repro_torch.core import check_invariants
+    from repro_torch.data import insert_stream
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vs = insert_stream(gen, cents, 64, drift=0.2)
+    vb = insert_stream(gen, cents, 8, drift=0.2)
+    n0 = state.store.count
+    stats_m, st = eng.insert_many(state, vs)
+    stats_b, st = eng.insert_batch(st, vb)
+    new_ids = torch.arange(n0, n0 + 72, device="cuda", dtype=torch.int32)
+    ids = st.ent.ids.tolist()
+    member = next(v for v in ids[1:] if v >= 0)
+    victims = [member] + [v for v in (5, 17, 100, 200, 300, 400, 500, 600)
+                          if v != member][:7]
+    st = eng.delete_many(st, victims)
+    ids_m, _, _, _ = eng.search_many(st, qs)
+    ids_s, _, _, _ = eng.search_batch(st, qs)
+    sids, self_hits = _self_search(torch, eng, st, torch.cat([vs, vb]),
+                                   new_ids)
+    dead = torch.tensor(victims, device="cuda", dtype=torch.int32)
+    deleted_returned = int(torch.isin(torch.cat([ids_m, ids_s, sids]),
+                                      dead).sum())
+    inv = check_invariants(st.store)
+    budget = _page_budget_ok(torch, st.store)
+    dropped = int(stats_m.dropped.sum() + stats_b.dropped.sum())
+    # a wave of one has no conflicts: the sequential insert's cache, bit
+    # for bit, and its neighbor set
+    one = insert_stream(gen, cents, 1, drift=0.2)
+    _, st_m1 = eng.insert_many(st, one)
+    _, st_s1, _ = eng.insert(st, one[0])
+    cache_diff = _tree_diff(torch, st_m1.cache, st_s1.cache)
+    nid = st.store.count
+    same_nbrs = (sorted(st_m1.store.edges[nid].tolist()) ==
+                 sorted(st_s1.store.edges[nid].tolist()))
+    emit("small:update", inserted=72, deleted=len(victims),
+         n_deleted=st.n_deleted, count=st.store.count,
+         invariants=all(inv.values()), page_budget_ok=budget,
+         dropped=dropped, self_hit_rate=self_hits,
+         deleted_ids_returned=deleted_returned,
+         search_many_equals_search_batch=bool(torch.equal(ids_m, ids_s)),
+         entrance_promotions=st.ent.count - state.ent.count,
+         wave_of_one_cache_diff=cache_diff,
+         wave_of_one_same_neighbors=same_nbrs)
+    require(all(inv.values()) and budget,
+            f"small:update: invariants {inv}, page budget {budget}")
+    require(dropped == 0, f"small:update: {dropped} inserts dropped")
+    require(self_hits >= 0.9, f"small:update: self-search {self_hits}")
+    require(deleted_returned == 0, "small:update: deleted ids returned")
+    require(bool(torch.equal(ids_m, ids_s)),
+            "small:update: search_many ids differ from search_batch")
+    require(not cache_diff and same_nbrs,
+            f"small:update: a wave of one differs from the sequential "
+            f"insert (cache fields {cache_diff}, same neighbors "
+            f"{same_nbrs})")
 
 
 def _page_budget_ok(torch, store) -> bool:
@@ -538,7 +672,220 @@ def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
     emit("fineweb_like", recall_at_10=recall, gated=False,
          pq_scan_recall_10_at_40=_pq_scan_recall(
              torch, eng, state, queries[:WAVE], truth[:WAVE], n, 40))
-    return eng, state, queries[:WAVE], vecs
+    return eng, state, queries[:WAVE], vecs, cents
+
+
+def phase_fineweb_update(torch, eng, state, cents, n_rounds: int = 4):
+    """The update path on the FineWeb-like index: rounds of an insert wave
+    of WAVE vectors (drift 0.2) and a search wave, then 8 sequential
+    inserts and searches, and one profiled insert wave."""
+    from repro_torch.core import check_invariants
+    from repro_torch.data import insert_stream, query_stream
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    n0 = state.store.count
+    state0 = state
+    inserted, per_insert_s = [], []
+    for w in range(n_rounds):
+        vs = insert_stream(gen, cents, WAVE, drift=0.2)
+        qs = query_stream(gen, cents, WAVE)
+        before, ent0 = state.ctr_insert, state.ent.count
+        launched = dict(ops.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, state = eng.insert_many(state, vs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        wave_launches = {k: v - launched[k] for k, v in ops.launches.items()}
+        ctr = state.ctr_insert
+        per = lambda f: (int(getattr(ctr, f)) -
+                         int(getattr(before, f))) / WAVE
+        hops = per("hops")
+        timing, counts = eng.last_wave_timing, eng.last_wave_counts
+        dropped = int(stats.dropped.sum())
+        emit(f"fineweb_like:update:insert{w}", inserts=WAVE, wall_s=wall,
+             inserts_per_s=WAVE / wall, seek_s=timing["seek_s"],
+             replay_s=timing["replay_s"], commit_s=timing["commit_s"],
+             mean_hops=hops,
+             mean_rerank_rounds=float(stats.serial_rounds.double().mean())
+             - hops,
+             reads_per_insert=per("read_requests"),
+             writes_per_insert=per("write_requests"),
+             rmw_rereads_per_insert=counts["rmw_rereads"] / WAVE,
+             cache_hits_per_insert=per("cache_hits"),
+             entrance_promotions=state.ent.count - ent0,
+             priority_admits=counts["priority_admits"], dropped=dropped,
+             launches=wave_launches)
+        require(wave_launches["casr_rerank"] == 1 and
+                wave_launches["rerank_l2"] == 0,
+                f"fineweb:update: an insert wave's CASR stage is not one "
+                f"casr_rerank launch: {wave_launches}")
+        require(dropped == 0, f"fineweb:update: {dropped} inserts dropped")
+        inserted.append(vs)
+        per_insert_s.append(wall / WAVE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, dists, _, state = eng.search_many(state, qs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(bool(torch.isfinite(dists[ids >= 0]).all()),
+                "fineweb:update: non-finite distance")
+        emit(f"fineweb_like:update:search{w}", queries=WAVE, wall_s=wall,
+             qps=WAVE / wall)
+
+    n_new = n_rounds * WAVE
+    new_ids = torch.arange(n0, n0 + n_new, device="cuda", dtype=torch.int32)
+    inv = check_invariants(state.store)
+    budget = _page_budget_ok(torch, state.store)
+    min_degree = int(state.store.degree[new_ids.long()].min())
+    ent_ok = _entrance_inverse_ok(torch, state.ent)
+    _, self_hits = _self_search(torch, eng, state, torch.cat(inserted),
+                                new_ids)
+    emit("fineweb_like:update", inserted=n_new, count=state.store.count,
+         invariants=all(inv.values()), page_budget_ok=budget,
+         p_max=state.store.p_max, next_page=state.store.next_page,
+         min_degree_of_inserted=min_degree, entrance_inverse_ok=ent_ok,
+         entrance_members=int((state.ent.ids >= 0).sum()),
+         self_hit_rate=self_hits, self_hit_rate_gated=False)
+    require(all(inv.values()) and budget,
+            f"fineweb:update: invariants {inv}, page budget {budget}")
+    require(min_degree > 0, "fineweb:update: an inserted vertex has no edge")
+    require(ent_ok, "fineweb:update: entrance ids / main_to_ent broken")
+
+    # sequential inserts and searches, one op at a time
+    vs = insert_stream(gen, cents, 8, drift=0.2)
+    qs = query_stream(gen, cents, 8)
+    seq_insert_s, seq_search_s = [], []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, _ = eng.insert(state, vs[i])
+        torch.cuda.synchronize()
+        seq_insert_s.append(time.perf_counter() - t0)
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, state = eng.search(state, qs[i])
+        torch.cuda.synchronize()
+        seq_search_s.append(time.perf_counter() - t0)
+    emit("fineweb_like:update:sequential",
+         insert_s=seq_insert_s, search_s=seq_search_s,
+         mean_insert_s=sum(seq_insert_s) / 8,
+         mean_search_s=sum(seq_search_s) / 8,
+         wave_s_per_insert=per_insert_s)
+    # profiled on the state before the rounds: after them fewer than
+    # WAVE slots are left
+    vs = insert_stream(gen, cents, WAVE, drift=0.2)
+    profile = profile_window(torch, lambda: eng.insert_many(state0, vs))
+    emit("fineweb_like:update:profile", **profile,
+         timing=eng.last_wave_timing)
+    return state
+
+
+def _time_casr_on_seek_pools(torch, q, vectors, pools, k: int,
+                             s: int) -> None:
+    """``casr_rerank`` on a real insert wave's position-seek pools (P =
+    e_pos, groups of s_pos), against its plain version: graded as in the
+    kernel phase, timed, and bounded by the distinct rows these pools
+    load (the wave's lanes share many candidates).
+    Back-to-back calls find those rows in the L2 cache (tens of MB);
+    ``device_ms_cold_l2`` overwrites it before each call, as the main
+    path, which reads each row once a wave, finds it."""
+    from repro_torch.kernels import ops, ref
+    b, p = pools.shape
+    got = ops.casr_rerank(q, vectors, pools, k=k, s=s)
+    want = ref.casr_rerank_ref(q, vectors, pools, k, s)
+    grade = _check_casr(torch, got, want, b)
+    rows = int(want[4].sum())
+    distinct = _distinct_rows(torch, pools, want[1])
+    d = vectors.shape[1]
+    rec, extra = _kernel_record(
+        torch, "casr_rerank", grade["max_abs_err"],
+        lambda: ops.casr_rerank(q, vectors, pools, k=k, s=s),
+        lambda: ref.casr_rerank_ref(q, vectors, pools, k, s), None,
+        n_bytes=(distinct * d * 4 + b * d * 4 + b * p * 4 + b * p * 5 +
+                 b * k * 8 + b * 12),
+        n_ops=3 * rows * d)
+    extra["device_ms_cold_l2"] = device_ms_cold(
+        torch, lambda: ops.casr_rerank(q, vectors, pools, k=k, s=s),
+        "casr_rerank_kernel")
+    emit(f"kernel:casr_rerank:seek_pools_p{p}_s{s}", loaded_rows=rows,
+         distinct_rows=distinct, **grade,
+         **{key: rec[key] for key in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")}, **extra)
+    require(grade["other_differing_lanes"] == 0 and
+            grade["exact_d_within_grade"],
+            f"casr_rerank on seek pools differs from its plain version "
+            f"outside near ties: {grade}")
+
+
+def phase_ab_update(torch, eng, state, cents) -> None:
+    """One insert wave of WAVE with the kernels, then under
+    plain_on_device(), from the same state.  Seek lanes (neighbors, pool,
+    hops, rounds, counters) must be identical except where two exact
+    distances of the lane's pool lie within the rerank grade of each
+    other (the kernels sum in another order); such lanes are counted.
+    With no lane differing, the committed states (graph, pages, entrance,
+    cache, counters) and the per-insert OpStats must be identical."""
+    from repro_torch.core import insert as insert_mod
+    from repro_torch.core import pq as pq_mod
+    from repro_torch.core.iomodel import IOCounters
+    from repro_torch.data import insert_stream
+    from repro_torch.kernels import ops
+    spec = eng.spec
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    vs = insert_stream(gen, cents, WAVE, drift=0.2)
+
+    def seek():
+        entries, _ = eng._entries(state, pq_mod.adc_lut(eng.codec, vs))
+        return insert_mod.position_seek(
+            state.store, spec.lspec, eng.codec, state.codes, state.cache,
+            IOCounters.zeros((WAVE,), "cuda"), vs, entries,
+            e_pos=spec.e_pos, k=spec.k, s=spec.s_pos,
+            beam_width=spec.beam_width, max_hops=spec.max_hops,
+            tombstone=state.tombstone)
+
+    seek_k = seek()
+    _time_casr_on_seek_pools(torch, vs, state.store.vectors, seek_k.pool_ids,
+                             spec.k, spec.s_pos)
+    stats_k, st_k = eng.insert_many(state, vs)
+    torch.cuda.synchronize()
+    before = dict(ops.launches)
+    with ops.plain_on_device():
+        seek_p = seek()
+        stats_p, st_p = eng.insert_many(state, vs)
+    torch.cuda.synchronize()
+    flat = dict(ops.launches) == before
+    differ = ((seek_k.nbrs != seek_p.nbrs).any(1) |
+              (seek_k.pool_ids != seek_p.pool_ids).any(1) |
+              (seek_k.hops != seek_p.hops) |
+              (seek_k.rerank_rounds != seek_p.rerank_rounds))
+    for f in ("read_requests", "useful_vec_bytes_read", "cache_hits"):
+        differ |= getattr(seek_k.counters, f) != getattr(seek_p.counters, f)
+    pool = seek_p.pool_ids
+    d = ((state.store.vectors[pool.clamp(min=0).long()] - vs[:, None]) ** 2
+         ).sum(-1)
+    d = torch.where(pool >= 0, d, float("nan"))
+    gap = (d[:, :, None] - d[:, None, :]).abs()
+    tol = RERANK_ATOL + RERANK_RTOL * torch.maximum(d[:, :, None].abs(),
+                                                    d[:, None, :].abs())
+    near = ((gap > 0) & (gap <= tol)).flatten(1).any(1)
+    n_differ = int(differ.sum())
+    state_diff = _tree_diff(torch, st_k, st_p)
+    stats_same = not _tree_diff(torch, stats_k, stats_p)
+    emit("ab:update", inserts=WAVE, differing_seek_lanes=n_differ,
+         near_tie_lanes_among_them=int((differ & near).sum()),
+         near_tie_lanes=int(near.sum()), committed_state_diff=state_diff,
+         opstats_identical=stats_same,
+         launch_counts_flat_under_plain=flat)
+    require(flat, "ab:update: kernels launched under plain_on_device()")
+    require(not bool((differ & ~near).any()),
+            "ab:update: a seek lane differs without a near tie")
+    if n_differ == 0:
+        require(not state_diff and stats_same,
+                f"ab:update: commits differ under the plain path: "
+                f"{state_diff}, OpStats identical {stats_same}")
+
 
 
 def _pq_scan_recall(torch, eng, state, qs, truth, n: int, depth: int):
@@ -611,24 +958,38 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    def path_counts(path: str) -> dict:
+        counts = dict(ops.launches)
+        emit("kernels" if path == "search" else f"kernels:{path}",
+             launches=counts)
+        require(all(counts[k] > 0 for k in MAIN_PATH_KERNELS) and
+                all(counts[k] == 0 for k in OFF_PATH_KERNELS),
+                f"{path} path launches: want {MAIN_PATH_KERNELS} launched "
+                f"and {OFF_PATH_KERNELS} not, got {counts}")
+        return counts
+
     try:
         env = phase_env(torch)
         records = phase_kernels(torch)
+        # the search path
         ops.reset_launches()
-        phase_small(torch)
-        fw = phase_fineweb(torch)
-        counts = dict(ops.launches)
-        emit("kernels", launches=counts)
-        require(all(counts[k] > 0 for k in MAIN_PATH_KERNELS) and
-                all(counts[k] == 0 for k in OFF_PATH_KERNELS),
-                f"main path launches: want {MAIN_PATH_KERNELS} launched and "
-                f"{OFF_PATH_KERNELS} not, got {counts}")
-        phase_ab(torch, *fw)
+        small = phase_small(torch)
+        fw_eng, fw_state, fw_qs, fw_vecs, fw_cents = phase_fineweb(torch)
+        search = path_counts("search")
+        phase_ab(torch, fw_eng, fw_state, fw_qs, fw_vecs)
+        # the update path
+        ops.reset_launches()
+        phase_small_update(torch, *small)
+        phase_fineweb_update(torch, fw_eng, fw_state, fw_cents)
+        update = path_counts("update")
+        phase_ab_update(torch, fw_eng, fw_state, fw_cents)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     for name, rec in records.items():
-        rec["launches"] = counts[name]
+        rec["launches"] = search[name] + update[name]
+        rec["launches_by_path"] = {"search": search[name],
+                                   "update": update[name]}
     print(json.dumps({"kernels": list(records.values())}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

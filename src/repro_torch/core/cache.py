@@ -14,8 +14,16 @@ then replays the wave's traces in order, one :func:`access` per page —
 a serial state machine with threefry draws on each promotion.  The port
 runs that replay on the host, over Python lists, as the paper's cache
 lives in host DRAM: the state is copied to the host once per wave and
-back once, and the eviction draws run threefry on Python ints.  ``chip_smoke.py`` times it as a phase of every wave; a
-device-side replay is later work.
+back once, and the eviction draws run threefry on Python ints.
+``chip_smoke.py`` times it as a phase of every wave; a device-side replay
+is later work.
+
+The sequential (threaded) paths, ``Engine.search`` / ``insert`` and their
+batches, and an insert wave's commit phase keep one :class:`HostCache`
+unpacked for the whole operation: each charged page goes through
+:meth:`HostCache.access` in order, eviction hints through
+:meth:`HostCache.invalidate` and entrance promotions through
+:meth:`HostCache.priority_admit`, and the state is packed once at the end.
 """
 from __future__ import annotations
 
@@ -201,6 +209,30 @@ class HostCache:
                 self.clock_hand = (victim + 1) % len(self.window_pages)
         return hit
 
+    def priority_admit(self, page: int) -> None:
+        """Admit ``page`` straight into the frozen region, bypassing the
+        two-hits-in-window filter (the entrance-aware hint, §7): a freshly
+        promoted entrance member's edgelist page is about to seed every
+        traversal.  NAVIS policy only; a page already frozen only gets its
+        in-use stamp refreshed.  No clock tick, no I/O."""
+        if self.policy != POLICIES["navis"] or page < 0:
+            return
+        if self.status[page] == IN_FROZEN:
+            self.frozen_last[self.slot_of[page]] = self.clock
+        else:
+            self._install_frozen(page)
+
+    def replay(self, traces: torch.Tensor) -> int:
+        """Access every page of each trace row ``[Q, T]`` (-1 padded, valid
+        entries a prefix) in wave order; returns the hit count."""
+        hits = 0
+        for row in traces.cpu().tolist():
+            for page in row:
+                if page < 0:
+                    break
+                hits += self.access(page)
+        return hits
+
     def invalidate(self, page: int) -> None:
         """Eviction hint when an edge page dies (§8.2)."""
         if self.status[page] == NOT_CACHED:
@@ -223,12 +255,7 @@ def apply_traces(st: CacheState, traces: torch.Tensor
     merged state evolves exactly as if the accesses had been issued one
     after another."""
     host = HostCache(st)
-    hits = 0
-    for row in traces.cpu().tolist():
-        for page in row:
-            if page < 0:
-                break
-            hits += host.access(page)
+    hits = host.replay(traces)
     return hits, host.state()
 
 
@@ -236,6 +263,15 @@ def apply_trace(st: CacheState, trace: torch.Tensor
                 ) -> tuple[int, CacheState]:
     """Replay one trace ``[T]``."""
     return apply_traces(st, trace[None])
+
+
+def priority_admit(st: CacheState, page: int) -> CacheState:
+    """:meth:`HostCache.priority_admit` on a packed state."""
+    if st.policy != POLICIES["navis"] or page < 0:
+        return st
+    host = HostCache(st)
+    host.priority_admit(page)
+    return host.state()
 
 
 def invalidate_pages(st: CacheState, pages: list[int]) -> CacheState:

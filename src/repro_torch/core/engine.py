@@ -1,17 +1,27 @@
-"""The NAVIS engine, build and search-fan-out side (port of
-``repro/core/engine.py``).
+"""The NAVIS engine (port of ``repro/core/engine.py``), ``navis`` preset.
 
-``Engine(preset("navis", dim=768)).build(key, vectors)`` builds the index;
-``search_many(state, queries)`` runs a wave of queries against one
-snapshot of the state and replays their page traces into the shared cache
-in query order — the paper's model of concurrent readers sharing one host
-cache.  A wave is batch-first: one lane per query through the entrance
-search, the on-disk traversal and CASR.
+``Engine(preset("navis", dim=768)).build(key, vectors)`` builds the index.
+Then, as in the reference:
 
-This slice ports the ``navis`` preset's path (decoupled layout, CASR
-rerank, in-place updates).  The sequential ``search`` / ``search_batch``,
-the packed and full-rerank presets, the buffered path, inserts, deletes
-and maintenance come in later slices and raise ``NotImplementedError``.
+- ``search_many(state, queries)`` runs a wave of queries against one
+  snapshot and replays their page traces into the shared cache in query
+  order — the paper's model of concurrent readers sharing one host cache.
+- ``insert_many(state, vectors)`` position-seeks a whole insert wave
+  against one snapshot (phase ①, one lane per insert), replays the seeks'
+  traces, then commits the inserts one after another with the
+  conflict-aware checks of the reference's scan (phase ②): re-validated
+  picks, RMW re-reads of pages the wave dirtied, free-list slots first,
+  NAVIS-update of the entrance graph and the entrance-aware cache admit.
+- ``search`` / ``search_batch`` and ``insert`` / ``insert_batch`` are the
+  sequential paths: one operation after another, each traversal threaded
+  through the cache page by page.
+- ``delete`` / ``delete_many`` tombstone ids and scrub dropped entrance
+  members' reciprocal edges.
+
+Every operation leaves its input state untouched and returns a new one:
+it copies the tensors it mutates once per call, then writes them in
+place.  The packed and full-rerank presets, the buffered path and
+maintenance come in later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,8 +36,10 @@ from repro_torch.core import cache as cache_mod
 from repro_torch.core import casr as casr_mod
 from repro_torch.core import entrance as ent_mod
 from repro_torch.core import graph as graph_mod
+from repro_torch.core import insert as insert_mod
 from repro_torch.core import pq as pq_mod
 from repro_torch.core import search as search_mod
+from repro_torch.core import visited as visited_mod
 from repro_torch.core.iomodel import IOCounters, merge_counters, \
     sum_counters
 from repro_torch.core.layout import GraphStore, LayoutSpec
@@ -148,10 +160,12 @@ def _sync(t: torch.Tensor) -> None:
 
 
 def _delta_stats(before: IOCounters, after: IOCounters,
-                 rounds: torch.Tensor) -> OpStats:
-    """Per-lane I/O of an operation that is never dropped (a search)."""
-    dropped = torch.zeros(rounds.shape, dtype=torch.bool,
-                          device=rounds.device)
+                 rounds: torch.Tensor,
+                 dropped: torch.Tensor | None = None) -> OpStats:
+    """Per-lane I/O of an operation (``dropped`` False by default)."""
+    if dropped is None:
+        dropped = torch.zeros(rounds.shape, dtype=torch.bool,
+                              device=rounds.device)
     return OpStats(
         read_requests=after.read_requests - before.read_requests,
         read_bytes=after.total_read_bytes() - before.total_read_bytes(),
@@ -163,18 +177,52 @@ def _delta_stats(before: IOCounters, after: IOCounters,
         dropped=dropped)
 
 
+def _stack_stats(stats: list[OpStats]) -> OpStats:
+    return OpStats(*[torch.stack(f) for f in zip(*stats)])
+
+
+def _join_counters(ctrs: list[IOCounters], join) -> IOCounters:
+    """Per-op counters joined field by field (``torch.stack`` of scalars
+    or ``torch.cat`` of lanes) into one lane dimension."""
+    return IOCounters(*[join([getattr(c, f.name) for c in ctrs])
+                        for f in dataclasses.fields(IOCounters)])
+
+
+def _owned(state: EngineState) -> EngineState:
+    """A copy of ``state`` whose graph, codes, entrance and slot tables an
+    operation may write in place (counters and the cache are rebuilt, not
+    written)."""
+    st, ent = state.store, state.ent
+    store = dataclasses.replace(st, **{f: getattr(st, f).clone() for f in (
+        "edges", "degree", "vectors", "edge_page", "page_live")})
+    ent = dataclasses.replace(ent, ids=ent.ids.clone(),
+                              edges=ent.edges.clone(),
+                              main_to_ent=ent.main_to_ent.clone())
+    return dataclasses.replace(
+        state, store=store, codes=state.codes.clone(), ent=ent,
+        tombstone=state.tombstone.clone(), free_list=state.free_list.clone(),
+        free_mask=state.free_mask.clone(),
+        young_mask=state.young_mask.clone())
+
+
 class Engine:
-    """Build once, then run query waves with :meth:`search_many`."""
+    """Build once, then thread :class:`EngineState` through ``search*``,
+    ``insert*`` and ``delete*``."""
 
     def __init__(self, spec: EngineSpec, device=None):
         self.spec = spec
         self.device = resolve_device(device)
         self.codec: Optional[pq_mod.PQCodec] = None
         self._sym: Optional[torch.Tensor] = None
-        # host-clock seconds of the last wave: traversal + rerank on the
-        # device (until its traces reach the host; the CASR stage alone,
-        # between two syncs, in casr_s), then the cache replay
+        # host-clock seconds of the last wave.  search_many: traversal +
+        # rerank on the device (until its traces reach the host; the CASR
+        # stage alone, between two syncs, in casr_s), then the cache
+        # replay.  insert_many: seek_s (phase ① until its traces reach the
+        # host), replay_s, commit_s (phase ②, the cache packed)
         self.last_wave_timing: dict = {}
+        # insert_many: RMW re-reads charged, entrance promotions and
+        # priority admits of the last wave
+        self.last_wave_counts: dict = {}
         self.last_casr_s = 0.0
 
     def set_codec(self, codec: pq_mod.PQCodec) -> None:
@@ -269,17 +317,20 @@ class Engine:
                 "this port runs the decoupled + CASR + in-place path with "
                 "hashed visited sets; the other presets come later")
 
-    def _search_core(self, state: EngineState, qs: torch.Tensor):
-        """A wave of searches against a frozen snapshot: traverse + CASR.
-        Returns (ids, dists, stats, counters, traverse result), one lane
-        per query."""
+    def _search_core(self, state: EngineState, qs: torch.Tensor,
+                     cache=None):
+        """Traverse + CASR, one lane per query: a wave against the frozen
+        snapshot ``state.cache``, or one query threaded through ``cache``
+        (a :class:`cache.HostCache`).  Returns (ids, dists, stats,
+        counters, traverse result)."""
         spec = self.spec
         b = qs.shape[0]
         ctr0 = IOCounters.zeros((b,), qs.device)
         lut = pq_mod.adc_lut(self.codec, qs)
         entries, _ = self._entries(state, lut)
         res = search_mod.disk_traverse(
-            state.store, spec.lspec, lut, state.codes, state.cache, ctr0,
+            state.store, spec.lspec, lut, state.codes,
+            state.cache if cache is None else cache, ctr0,
             entries, pool_size=spec.e_search, beam_width=spec.beam_width,
             max_hops=spec.max_hops)
         ctr = res.counters
@@ -317,3 +368,284 @@ class Engine:
             state, cache=cache,
             ctr_search=merge_counters(state.ctr_search, sum_counters(ctrs)))
         return ids, dists, stats, state
+
+    def search(self, state: EngineState, q: torch.Tensor):
+        """One sequential search, its traversal threaded through the cache
+        page by page.  Returns (ids [k], dists [k], stats, new state)."""
+        ids, dists, stats, state = self.search_batch(state, q[None])
+        return ids[0], dists[0], OpStats(*[f[0] for f in stats]), state
+
+    def search_batch(self, state: EngineState, queries: torch.Tensor):
+        """Searches one after another, the cache and the search counters
+        threaded through them.  Returns (ids [Q, k], dists [Q, k],
+        per-query OpStats, new state)."""
+        self._check_sliced()
+        qs = queries.to(self.device, torch.float32)
+        host = cache_mod.HostCache(state.cache)
+        ids, dists, stats, ctrs = [], [], [], []
+        for i in range(qs.shape[0]):
+            out = self._search_core(state, qs[i:i + 1], host)
+            for acc, x in zip((ids, dists, stats, ctrs), out):
+                acc.append(x)
+        state = dataclasses.replace(
+            state, cache=host.state(),
+            ctr_search=merge_counters(state.ctr_search, sum_counters(
+                _join_counters(ctrs, torch.cat))))
+        return (torch.cat(ids), torch.cat(dists),
+                OpStats(*[torch.cat(f) for f in zip(*stats)]), state)
+
+    # -- insert ---------------------------------------------------------------
+
+    def _empty_page_seen(self) -> visited_mod.HashVisited:
+        """What a skipped insert hands back for its traversal's pages."""
+        spec = self.spec
+        hv = visited_mod.make_hash(spec.max_hops * spec.beam_width, 1,
+                                   self.device)
+        return visited_mod.HashVisited(hv.keys[0], hv.count[0],
+                                       hv.overflow[0])
+
+    def _insert_one(self, st: EngineState, v: torch.Tensor,
+                    host: cache_mod.HostCache):
+        """One sequential insertion (the reference's ``_insert_inplace``)
+        into ``st``, which the caller owns (written in place; the returned
+        state shares its tensors), its cache unpacked in ``host``.
+        Returns (stats, state, page_seen)."""
+        spec = self.spec
+        dev = self.device
+        ctr0 = IOCounters.zeros((), dev)
+        # capacity guard: with no free slot left past n_max the insertion
+        # is skipped before it reserves a page, and flagged dropped
+        if st.store.count >= st.store.n_max and st.free_count <= 0:
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            return (_delta_stats(ctr0, ctr0, zero, torch.ones(
+                (), dtype=torch.bool, device=dev)), st,
+                self._empty_page_seen())
+        lut = pq_mod.adc_lut(self.codec, v[None])
+        entries, e_ent = self._entries(st, lut)
+        # reclaimed slots are reused before fresh ones
+        reuse = st.free_count > 0
+        slot = (int(st.free_list[st.free_count - 1]) if reuse
+                else st.store.count)
+        new_code = pq_mod.encode(self.codec, v[None])[0]
+        st.codes[slot] = new_code
+        ires = insert_mod.insert_vertex(
+            st.store, spec.lspec, self.codec, st.codes, self._sym, host,
+            ctr0, v, entries[0], e_pos=spec.e_pos, k=spec.k, s=spec.s_pos,
+            beam_width=spec.beam_width, max_hops=spec.max_hops,
+            tombstone=st.tombstone, new_id=slot)
+        ent = st.ent
+        if spec.entrance == "dynamic":
+            count0 = ent.count
+            ent = ent_mod.navis_update(
+                ent, slot, new_code, ires.pool_ids, e_ent[0],
+                ires.store.count, st.codes, self._sym,
+                r_ent_frac=spec.ent_frac)
+            if spec.cache_policy == "navis" and ent.count > count0:
+                # entrance-aware hint (§7): a promoted member's edgelist
+                # page seeds future traversals
+                host.priority_admit(int(ires.store.edge_page[slot]))
+        stats = _delta_stats(ctr0, ires.counters,
+                             ires.hops + ires.rerank_rounds)
+        st.tombstone[slot] = False
+        st.free_mask[slot] = False
+        st.young_mask[slot] = True
+        st = dataclasses.replace(
+            st, store=ires.store, ent=ent,
+            n_deleted=st.n_deleted - reuse, free_count=st.free_count - reuse,
+            ctr_insert=merge_counters(st.ctr_insert, ires.counters))
+        return stats, st, ires.page_seen
+
+    def insert(self, state: EngineState, v: torch.Tensor):
+        """One sequential insertion.  Returns (stats, new state,
+        page_seen: the pages its traversal read)."""
+        self._check_sliced()
+        host = cache_mod.HostCache(state.cache)
+        stats, st, seen = self._insert_one(
+            _owned(state), v.to(self.device, torch.float32), host)
+        return stats, dataclasses.replace(st, cache=host.state()), seen
+
+    def insert_batch(self, state: EngineState, vectors: torch.Tensor):
+        """Insertions one after another (the reference's scan).  Returns
+        (per-insert OpStats [B], new state)."""
+        self._check_sliced()
+        vs = vectors.to(self.device, torch.float32)
+        host = cache_mod.HostCache(state.cache)
+        st, stats = _owned(state), []
+        for i in range(vs.shape[0]):
+            s_i, st, _ = self._insert_one(st, vs[i], host)
+            stats.append(s_i)
+        return _stack_stats(stats), dataclasses.replace(st,
+                                                        cache=host.state())
+
+    def insert_many(self, state: EngineState, vectors: torch.Tensor,
+                    valid: torch.Tensor | None = None):
+        """Batch-parallel insert fan-out: the wave position-seeks at once,
+        only the structural commits run one after another.
+
+        Phase ①: one batch-first :func:`insert.position_seek` over the
+        frozen snapshot (one lane per insert, one ``casr_rerank`` launch
+        on the card), each lane charging its own counters and recording
+        its trace; the traces replay into the cache in wave order.
+
+        Phase ②: the reference's commit scan, commit for commit: picks
+        re-validated against the edgelists earlier commits changed, an
+        RMW re-read charged for each neighbor page the wave dirtied,
+        reclaimed slots before fresh ones, NAVIS-update and the
+        entrance-aware admit; commits past capacity are dropped.  The
+        state is read back on the host once before the commits (the free
+        list, the live entrance members, the new slots' membership) and
+        the commits' cache effects are applied after them, in commit
+        order (no commit reads the cache), so the commits queue on the
+        device without a sync.
+
+        ``valid`` [B] masks padding lanes: they charge nothing, replay
+        nothing and commit nothing.  Returns (per-insert OpStats [B], new
+        state); ``last_wave_timing`` holds seek_s, replay_s and commit_s.
+        """
+        self._check_sliced()
+        spec = self.spec
+        dev = self.device
+        vs = vectors.to(dev, torch.float32)
+        b = vs.shape[0]
+        ok = (torch.ones((b,), dtype=torch.bool, device=dev) if valid is None
+              else valid.to(dev, torch.bool))
+        keep = ok.tolist()
+
+        # -- phase ①: concurrent position seek on the frozen snapshot -----
+        t0 = time.perf_counter()
+        new_codes = pq_mod.encode(self.codec, vs)                 # [B, M]
+        entries, e_ent = self._entries(state, pq_mod.adc_lut(self.codec,
+                                                             vs))
+        seek = insert_mod.position_seek(
+            state.store, spec.lspec, self.codec, state.codes, state.cache,
+            IOCounters.zeros((b,), dev), vs, entries, e_pos=spec.e_pos,
+            k=spec.k, s=spec.s_pos, beam_width=spec.beam_width,
+            max_hops=spec.max_hops, tombstone=state.tombstone)
+        # padding lanes charge nothing and replay nothing
+        ctrs = seek.counters.map(lambda x: torch.where(ok, x, 0))
+        rounds = torch.where(ok, seek.hops + seek.rerank_rounds, 0)
+        traces = torch.where(ok[:, None], seek.trace, -1).cpu()
+        t1 = time.perf_counter()
+        host = cache_mod.HostCache(state.cache)
+        host.replay(traces)
+        t2 = time.perf_counter()
+
+        # -- phase ②: serial conflict-aware commits -----------------------
+        st = _owned(state)
+        store, ent = st.store, st.ent
+        free = st.free_list[:st.free_count].tolist()
+        count, free_count = store.count, st.free_count
+        plan = []                      # (lane, slot, reused) per commit
+        for i in range(b):
+            if keep[i] and (count < store.n_max or free_count > 0):
+                reuse = free_count > 0
+                slot = free[free_count - 1] if reuse else count
+                free_count -= reuse
+                count = max(count, slot + 1)
+                plan.append((i, slot, reuse))
+        slots = [slot for _, slot, _ in plan]
+        is_member = (ent.main_to_ent[torch.tensor(slots, device=dev)] >= 0
+                     ).tolist() if slots else []
+        n_members = int((ent.ids >= 0).sum())
+        dirty = torch.zeros((store.p_max,), dtype=torch.bool, device=dev)
+        zero_ctr = IOCounters.zeros((), dev)
+        commit_ctr = [zero_ctr] * b
+        hints, admits, rereads = [], [], []
+        for (i, slot, reuse), member in zip(plan, is_member):
+            code = new_codes[i]
+            st.codes[slot] = code
+            nbrs = insert_mod.revalidate_neighbors(
+                seek.nbrs[i], slot, code, st.codes, self._sym, st.tombstone)
+            ctr, n_reread = insert_mod.charge_rmw_rereads(
+                zero_ctr, spec.lspec, store, nbrs, dirty)
+            rereads.append(n_reread)
+            page = store.next_page       # the new vertex's fresh page
+            sres = insert_mod.commit_insert(store, spec.lspec, None, ctr,
+                                            vs[i], nbrs, st.codes,
+                                            self._sym, slot)
+            store = sres.store
+            hints.append(sres.dead_pages)
+            insert_mod.mark_dirty_pages(dirty, store, slot, nbrs,
+                                        sres.modified)
+            promoted = False
+            if spec.entrance == "dynamic":
+                count0 = ent.count
+                ent = ent_mod.navis_update(
+                    ent, slot, code, seek.pool_ids[i], e_ent[i], store.count,
+                    st.codes, self._sym, r_ent_frac=spec.ent_frac,
+                    n_members=n_members, is_member=member)
+                promoted = ent.count > count0
+                n_members += promoted
+            admits.append(page if promoted and
+                          spec.cache_policy == "navis" else -1)
+            st.tombstone[slot] = False
+            st.free_mask[slot] = False
+            st.young_mask[slot] = True
+            commit_ctr[i] = sres.counters
+        # the commits' cache effects in commit order: eviction hints, then
+        # the promoted member's admit
+        if plan and host.policy != cache_mod.POLICIES["none"]:
+            for dead, page in zip(torch.stack(hints).tolist(), admits):
+                for p in dead:
+                    if p >= 0:
+                        host.invalidate(p)
+                host.priority_admit(page)
+        n_reused = sum(reuse for _, _, reuse in plan)
+        dropped = torch.tensor(keep, device=dev)
+        dropped[[i for i, _, _ in plan]] = False
+        per = merge_counters(ctrs, _join_counters(commit_ctr, torch.stack))
+        stats = _delta_stats(IOCounters.zeros((b,), dev), per, rounds,
+                             dropped)
+        st = dataclasses.replace(
+            st, store=store, ent=ent, cache=host.state(),
+            n_deleted=st.n_deleted - n_reused,
+            free_count=st.free_count - n_reused,
+            ctr_insert=merge_counters(st.ctr_insert, sum_counters(per)))
+        _sync(vs)
+        self.last_wave_timing = {"seek_s": t1 - t0, "replay_s": t2 - t1,
+                                 "commit_s": time.perf_counter() - t2}
+        self.last_wave_counts = {
+            "rmw_rereads": int(torch.stack(rereads).sum()) if rereads
+            else 0,
+            "promotions": ent.count - state.ent.count,
+            "priority_admits": sum(p >= 0 for p in admits)}
+        return stats, st
+
+    # -- delete (paper §11) ---------------------------------------------------
+
+    def delete(self, state: EngineState, vid: int) -> EngineState:
+        """Tombstone ``vid``: it leaves results and future wiring, and an
+        entrance member is dropped with every reciprocal edge pointing at
+        its slot (its own row stays, so traversals route through the
+        hole).  Deleting a tombstoned id again changes nothing."""
+        return self.delete_many(state, [int(vid)])
+
+    def delete_many(self, state: EngineState, vids) -> EngineState:
+        """:meth:`delete` for each id of ``vids`` in order (-1 skipped)."""
+        vids = [int(v) for v in (vids.tolist() if isinstance(
+            vids, torch.Tensor) else vids)]
+        live = [v for v in vids if v >= 0]
+        if not live:
+            return state
+        dev = state.tombstone.device
+        idx = torch.tensor(live, device=dev)
+        already = state.tombstone[idx].tolist()
+        eslots = state.ent.main_to_ent[idx].tolist()
+        tomb = state.tombstone.clone()
+        ent = state.ent
+        ent = dataclasses.replace(ent, ids=ent.ids.clone(),
+                                  edges=ent.edges.clone(),
+                                  main_to_ent=ent.main_to_ent.clone())
+        done, n_deleted = set(), state.n_deleted
+        for vid, was, eslot in zip(live, already, eslots):
+            if was or vid in done:
+                continue
+            done.add(vid)
+            if eslot >= 0:
+                ent.ids[eslot] = -1
+                ent.edges.masked_fill_(ent.edges == eslot, -1)
+                ent.main_to_ent[vid] = -1
+            n_deleted += 1
+        tomb[idx] = True
+        return dataclasses.replace(state, ent=ent, tombstone=tomb,
+                                   n_deleted=n_deleted)

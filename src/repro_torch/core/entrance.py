@@ -1,15 +1,25 @@
-"""Entrance graph, build side (port of ``repro/core/entrance.py``).
+"""Entrance graph: build + NAVIS-update (port of
+``repro/core/entrance.py``: ``build_entrance``, ``link_members``,
+``navis_update``).
 
 A small in-memory sample (~1%) of the proximity graph with reduced
 out-degree ``R_ent`` that seeds every traversal.  It is linked by
-symmetric PQ distances, so the build never touches the slow tier.  The
-NAVIS update path (``navis_update``, ``add_member``) comes with the
-insert slice.
+symmetric PQ distances, so it never touches the slow tier.  NAVIS keeps it
+fresh by piggybacking each insertion's explored sets (Algorithm 2):
+
+    E_inter = E_pos ∩ G_ent         (on-disk pool ∩ entrance members)
+    q.nbr   = E_inter ⊕ E_ent       (fill to R_ent, E_inter first)
+    reciprocal links + prune         (drop farthest by symmetric-PQ distance)
+
+:func:`navis_update` writes the entrance tensors in place (the insert
+that calls it owns its copy of the state).  ``add_member`` (maintenance's
+top-up) comes with the maintenance slice.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import random as jr
@@ -85,3 +95,86 @@ def link_members(members: torch.Tensor, codes: torch.Tensor,
                                                device=dev)
     return EntranceGraph(ids=ids, edges=edges, count=s,
                          main_to_ent=main_to_ent)
+
+
+# ---------------------------------------------------------------------------
+# NAVIS-update (Algorithm 2)
+# ---------------------------------------------------------------------------
+
+def navis_update(ent: EntranceGraph, new_id: int, new_code: torch.Tensor,
+                 e_pos: torch.Tensor, e_ent: torch.Tensor, graph_count: int,
+                 codes: torch.Tensor, sym_tables: torch.Tensor, *,
+                 r_ent_frac: float = 0.01, n_members: int | None = None,
+                 is_member: bool | None = None) -> EntranceGraph:
+    """Algorithm 2 for the vertex ``new_id`` with PQ code ``new_code``
+    [M].  ``e_pos`` [P]: the position seek's explored pool (PQ-sorted);
+    ``e_ent`` [E]: the entrance search's explored set; main ids, -1
+    padded.  Runs only while the *live* members number fewer than
+    ``r_ent_frac * graph_count``, a slot is left, and ``new_id`` is not a
+    member yet.  ``n_members`` and ``is_member`` let a caller that tracks
+    them on the host skip reading them from the tensors (two syncs on the
+    card).  Returns the graph with ``count`` advanced when it promoted.
+
+    The reference wires the reciprocal links one neighbor at a time; the
+    neighbors are distinct slots, so each step reads and writes only its
+    own row, and the port wires them all at once."""
+    if n_members is None:
+        n_members = int((ent.ids >= 0).sum())
+    if is_member is None:
+        is_member = new_id >= 0 and int(ent.main_to_ent[new_id]) >= 0
+    # float32 compare, as the reference's
+    want = (np.float32(n_members) <
+            np.float32(r_ent_frac) * np.float32(graph_count))
+    if not (want and ent.count < ent.c_max and not is_member and
+            new_id >= 0):
+        return ent
+    dev = ent.ids.device
+    m2e = ent.main_to_ent
+
+    def as_slots(x):
+        return torch.where(x >= 0, m2e[x.clamp(min=0).long()], -1)
+
+    # lines 2-3: E_inter first, then E_ent; first occurrence kept
+    cand = torch.cat([as_slots(e_pos), as_slots(e_ent)])          # [P+E]
+    ar = torch.arange(cand.shape[0], dtype=torch.int32, device=dev)
+    big = torch.iinfo(torch.int32).max
+    first = torch.full((ent.c_max,), big, dtype=torch.int32, device=dev)
+    first = first.scatter_reduce(0, cand.clamp(min=0).long(),
+                                 torch.where(cand >= 0, ar, big), "amin")
+    keep = (cand >= 0) & (first[cand.clamp(min=0).long()] == ar)
+    order = torch.sort(torch.where(keep, ar, big), stable=True).indices
+    nbrs = torch.where(keep[order], cand[order], -1)[:ent.r_ent]
+
+    # line 6: G_ent ∪ q
+    slot = ent.count
+    ent.ids[slot] = new_id
+    m2e[new_id] = slot
+    ent.edges[slot] = nbrs
+
+    # lines 4-5, 7-8: reciprocal links, pruning the farthest edge of a
+    # full row when q is closer (codes are in host memory: no I/O)
+    p = nbrs.long()
+    do = (p >= 0) & (p != slot)
+    safe = p.clamp(min=0)
+    rows = ent.edges[safe]                                    # [R_ent, R]
+    occupied = rows >= 0
+    free = (~occupied).to(torch.int8).argmax(1)
+    has_free = ~occupied.all(1)
+    p_codes = codes[ent.ids[safe].long()]                     # [R_ent, M]
+    # a row entry of a scrubbed slot reads ids -1, which wraps to the last
+    # code row as the reference's gather does
+    targets = torch.cat([codes[ent.ids[rows.clamp(min=0).long()].long()],
+                         new_code[None, None].expand(p.shape[0], 1, -1)], 1)
+    d = pq_mod.sym_distance(sym_tables, p_codes, targets)   # [R_ent, R+1]
+    d_row = torch.where(occupied, d[:, :-1], -INF)
+    worst = d_row.argmax(1)
+    d_worst = d_row.gather(1, worst[:, None])[:, 0]
+    write = do & (has_free | (d[:, -1] < d_worst))
+    tgt = torch.where(has_free, free, worst)
+    new_rows = rows.scatter(1, tgt[:, None], torch.full_like(rows[:, :1],
+                                                             slot))
+    # rows not written rewrite the new slot's row unchanged (no p is the
+    # slot), so the scatter needs no mask compaction, hence no sync
+    ent.edges.index_put_((torch.where(write, safe, slot),), torch.where(
+        write[:, None], new_rows, ent.edges[slot][None]))
+    return dataclasses.replace(ent, count=ent.count + 1)

@@ -1,21 +1,35 @@
-"""Structural update: wire new vertices into the graph (port of the
-structural half of ``repro/core/insert.py``: ``structural_update``,
-``_wire_reciprocal`` and ``_charge_writes``).
+"""In-place insertion: ① position seeking -> ② structural update (port of
+``repro/core/insert.py``).
 
-It is what the build wires every vertex with.  Position seeking, the wave
-commits and the rest of the insert path come with the insert slice.
+Position seeking is a full graph traversal with a large explored pool
+(|E_pos| ≫ |E_search|) whose only job is to surface ~R adequate neighbors
+for the new vertex; it reuses :func:`search.disk_traverse` and CASR at
+``s_pos``.  :func:`position_seek` runs a wave of seeks batch-first against
+a frozen snapshot (``insert_many``'s phase ①) or one seek threaded through
+a :class:`cache.HostCache` (the sequential insert).
+
+The structural update wires the new vertex to its neighbors, adds
+reciprocal edges (pruning the farthest edge by symmetric-PQ distance when
+a neighbor is at degree R), moves the modified edgelists onto fresh edge
+pages and charges the writes.  A wave commit first re-validates its
+snapshot picks (:func:`revalidate_neighbors`) and pays an RMW re-read for
+every neighbor edge page an earlier commit of the wave dirtied
+(:func:`charge_rmw_rereads`, :func:`mark_dirty_pages`).
 
 The reference wires a new vertex into its neighbors' rows one neighbor at
 a time; each step reads and writes only that neighbor's row and
 duplicates are skipped, so the port runs all neighbors of a vertex at
 once.  Commits of different vertices that touch disjoint rows (their own
-row and their neighbors') commute, so :func:`wire_block` commits a block
-in rounds: a vertex goes one round after the last earlier vertex that
-touched any of its rows, which keeps every row's writes in block order —
-the result is the reference's serial scan, bit for bit.  Updates write
-the store's tensors in place (the reference is functional): a build owns
-its store, and copying the [N_max, R] edge table per vertex would
-dominate it.
+row and their neighbors') commute, so :func:`wire_block` commits a build
+block in rounds: a vertex goes one round after the last earlier vertex
+that touched any of its rows, which keeps every row's writes in block
+order — the result is the reference's serial scan, bit for bit.  The
+build sums symmetric distances in torch's order (a block's per-neighbor
+ADC tables would take gigabytes); a runtime commit (:func:`commit_insert`)
+sums them in subspace order through the ADC kernel, as the reference
+does.  Updates write the store's tensors in place: a build owns its
+store, and an engine operation copies the state once before it mutates
+it.
 """
 from __future__ import annotations
 
@@ -25,6 +39,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import cache as cache_mod
+from repro_torch.core import casr as casr_mod
+from repro_torch.core import pq as pq_mod
+from repro_torch.core import search as search_mod
+from repro_torch.core import visited as visited_mod
 from repro_torch.core.iomodel import IOCounters, PAGE_BYTES
 from repro_torch.core.layout import GraphStore, LayoutSpec, \
     relocate_edgelists
@@ -32,12 +50,39 @@ from repro_torch.core.layout import GraphStore, LayoutSpec, \
 INF = 3.4e38
 
 
+# ---------------------------------------------------------------------------
+# Neighbor selection (paper §5.2-5.3)
+# ---------------------------------------------------------------------------
+
+def select_neighbors(pool_ids: torch.Tensor, casr_res, r: int
+                     ) -> torch.Tensor:
+    """Order each lane's pool [B, P] for wiring: the CASR-loaded part by
+    exact distance first, then the unloaded rest in PQ order.  Returns
+    [B, r] ids (-1 padded).
+
+    The key is the reference's, in float32: ``1e30 + position`` rounds to
+    1e30 for every unloaded slot, so their PQ order comes from the stable
+    sort, as it does there."""
+    p = pool_ids.shape[1]
+    valid = pool_ids >= 0
+    ar = torch.arange(p, dtype=torch.float32, device=pool_ids.device)
+    key = torch.where(casr_res.loaded & valid, casr_res.exact_d,
+                      torch.where(valid, 1e30 + ar, INF))
+    order = torch.sort(key, dim=1, stable=True).indices
+    return torch.where(valid.gather(1, order), pool_ids.gather(1, order),
+                       -1)[:, :r]
+
+
 class StructuralResult(NamedTuple):
     store: GraphStore
-    cache: cache_mod.CacheState | None
+    cache: cache_mod.HostCache | None
     counters: IOCounters | None
     n_wired: torch.Tensor       # reciprocal edges actually added
     modified: torch.Tensor      # [r] bool — which nbr edgelists changed
+    # old edge pages left with no live slot (the §8.2 eviction hints), in
+    # the order the reference applies them, -1 elsewhere ([1 + r]; None
+    # for the packed layout)
+    dead_pages: torch.Tensor | None = None
 
 
 def _sym_pairs(tables: torch.Tensor, code_a: torch.Tensor,
@@ -54,11 +99,15 @@ def _sym_pairs(tables: torch.Tensor, code_a: torch.Tensor,
 
 def _wire_reciprocal(store: GraphStore, nbrs: torch.Tensor,
                      new_ids: torch.Tensor, codes: torch.Tensor,
-                     sym_tables: torch.Tensor) -> torch.Tensor:
+                     sym_tables: torch.Tensor,
+                     in_order: bool = False) -> torch.Tensor:
     """Add each ``new_ids[i]`` into the edgelists of its neighbors
     ``nbrs[i]`` ([k, r]; the k vertices touch disjoint rows), in place,
     replacing the farthest entry (symmetric PQ distance) of a full row
-    when the new vertex is closer.  Returns modified [k, r] bool."""
+    when the new vertex is closer.  ``in_order`` sums the distances over
+    subspaces in order through the ADC kernel (one [M, 256] table per
+    neighbor), as the reference does; otherwise in torch's order.
+    Returns modified [k, r] bool."""
     k, r = nbrs.shape
     p = nbrs.long()
     ar = torch.arange(r, device=p.device)
@@ -71,11 +120,21 @@ def _wire_reciprocal(store: GraphStore, nbrs: torch.Tensor,
     free = (~occupied).to(torch.int8).argmax(-1)        # first empty slot
     has_free = ~occupied.all(-1)
     p_codes = codes[safe]                                      # [k, r, M]
-    d_row = torch.where(occupied, _sym_pairs(
-        sym_tables, p_codes, codes[rows.clamp(min=0).long()]), -INF)
+    row_codes = codes[rows.clamp(min=0).long()]             # [k, r, R, M]
+    if in_order:
+        m = codes.shape[1]
+        targets = torch.cat([row_codes, codes[new_ids][:, None, None, :]
+                             .expand(k, r, 1, m)], 2)
+        d = pq_mod.sym_distance(sym_tables, p_codes.reshape(k * r, m),
+                                targets.reshape(k * r, -1, m)
+                                ).reshape(k, r, -1)
+        d_row, d_new = d[..., :-1], d[..., -1]
+    else:
+        d_row = _sym_pairs(sym_tables, p_codes, row_codes)
+        d_new = _sym_pairs(sym_tables, p_codes,
+                           codes[new_ids][:, None, None, :])[..., 0]
+    d_row = torch.where(occupied, d_row, -INF)
     worst = d_row.argmax(-1)
-    d_new = _sym_pairs(sym_tables, p_codes,
-                       codes[new_ids][:, None, None, :])[..., 0]
     tgt = torch.where(has_free, free, worst)
     write = has_free | (d_new < d_row.gather(-1, worst[..., None])[..., 0])
     modified = do & write
@@ -135,16 +194,22 @@ def pages_per_insert(spec: LayoutSpec) -> int:
 
 def _commit(store: GraphStore, spec: LayoutSpec, new_ids: list[int],
             new_vecs: torch.Tensor, nbrs: torch.Tensor, codes: torch.Tensor,
-            sym_tables: torch.Tensor, first_pages: torch.Tensor):
+            sym_tables: torch.Tensor, first_pages: torch.Tensor,
+            in_order: bool = False):
     """Commit k vertices that touch disjoint rows, their fresh pages
     reserved at ``first_pages`` [k].  Returns (store, modified [k, r],
     pages_written [k], old pages [k, 1 + r] of the moved edgelists)."""
-    ids = torch.tensor(new_ids, dtype=torch.long, device=nbrs.device)
+    # one id: a fill, not a host-to-device copy (which would wait for the
+    # device), so a wave's commits queue without a sync
+    ids = (torch.full((1,), new_ids[0], dtype=torch.long,
+                      device=nbrs.device) if len(new_ids) == 1 else
+           torch.tensor(new_ids, dtype=torch.long, device=nbrs.device))
     nbrs = torch.where(nbrs == ids[:, None], -1, nbrs).to(torch.int32)
     store.vectors[ids] = new_vecs.to(store.vectors.dtype)
     store.edges[ids] = nbrs
     store.degree[ids] = (nbrs >= 0).sum(1).to(store.degree.dtype)
-    modified = _wire_reciprocal(store, nbrs, ids, codes, sym_tables)
+    modified = _wire_reciprocal(store, nbrs, ids, codes, sym_tables,
+                                in_order)
     store = dataclasses.replace(store, count=max(store.count,
                                                  max(new_ids) + 1))
     if spec.kind == "packed":
@@ -178,31 +243,43 @@ def _reserve(store: GraphStore, spec: LayoutSpec, k: int) -> torch.Tensor:
 
 
 def structural_update(store: GraphStore, spec: LayoutSpec,
-                      cache: cache_mod.CacheState | None,
+                      cache: cache_mod.HostCache | None,
                       counters: IOCounters | None, new_vec: torch.Tensor,
                       nbrs: torch.Tensor, codes: torch.Tensor,
                       sym_tables: torch.Tensor,
-                      new_id: int | None = None) -> StructuralResult:
+                      new_id: int | None = None, *,
+                      in_order: bool = False) -> StructuralResult:
     """② Commit a new vertex with neighbor list ``nbrs`` [R] at ``new_id``
-    (default: append at ``store.count``).  ``cache`` may be None (the
-    build's); otherwise dead old edge pages get the §8.2 eviction hint.
-    ``counters`` None skips the write accounting."""
+    (default: append at ``store.count``; a smaller id re-occupies a
+    reclaimed slot and ``count`` only grows past it).  Old edge pages left
+    with no live slot get the §8.2 eviction hint: applied to ``cache`` in
+    place when given, and handed back in ``dead_pages`` either way, so a
+    caller with ``cache`` None can apply them later in commit order.
+    ``counters`` None skips the write accounting; ``in_order`` as in
+    :func:`_wire_reciprocal`."""
     new_id = store.count if new_id is None else int(new_id)
     first = _reserve(store, spec, 1)
     store, modified, written, old_pages = _commit(
         store, spec, [new_id], new_vec[None], nbrs[None], codes, sym_tables,
-        first)
+        first, in_order)
     store = dataclasses.replace(
         store, next_page=store.next_page + pages_per_insert(spec))
     modified, n_modified = modified[0], modified[0].sum()
     if counters is not None:
         counters = _charge_writes(counters, spec, n_modified, written[0])
-    if cache is not None and old_pages is not None and \
-            cache.policy != cache_mod.POLICIES["none"]:
+    dead_pages = None
+    if old_pages is not None:
         old = old_pages[0]
-        dead = (old >= 0) & (store.page_live[old.clamp(min=0).long()] <= 0)
-        cache = cache_mod.invalidate_pages(cache, old[dead].tolist())
-    return StructuralResult(store, cache, counters, n_modified, modified)
+        dead_pages = torch.where(
+            (old >= 0) & (store.page_live[old.clamp(min=0).long()] <= 0),
+            old, -1)
+        if cache is not None and \
+                cache.policy != cache_mod.POLICIES["none"]:
+            for p in dead_pages.tolist():
+                if p >= 0:
+                    cache.invalidate(p)
+    return StructuralResult(store, cache, counters, n_modified, modified,
+                            dead_pages)
 
 
 def commit_rounds(new_ids: list[int], nbrs: list[list[int]]) -> list[int]:
@@ -241,3 +318,171 @@ def wire_block(store: GraphStore, spec: LayoutSpec, vecs: torch.Tensor,
                                  first[idx])
     return dataclasses.replace(
         store, next_page=store.next_page + b * pages_per_insert(spec))
+
+
+# ---------------------------------------------------------------------------
+# Conflict-aware wave commits (batch-parallel insert fan-out)
+# ---------------------------------------------------------------------------
+#
+# ``insert_many`` seeks a whole wave against one frozen snapshot, then
+# commits serially.  A late commit sees a graph the earlier commits have
+# changed, so its snapshot picks are re-validated, and every neighbor edge
+# page a prior commit dirtied is re-read before the RMW: the copy its own
+# traversal read is stale.
+
+def revalidate_neighbors(nbrs: torch.Tensor, new_id: int,
+                         new_code: torch.Tensor, codes: torch.Tensor,
+                         sym_tables: torch.Tensor,
+                         tombstone: torch.Tensor) -> torch.Tensor:
+    """Re-check a snapshot-selected neighbor list [r] at commit time: drop
+    self-references, repeats and now-tombstoned picks, then order the
+    survivors by symmetric-PQ distance to ``new_code`` [M] (stable; codes
+    are in host memory, so this costs no storage I/O).  Returns [r] ids,
+    -1 padded at the tail."""
+    r = nbrs.shape[0]
+    safe = nbrs.clamp(min=0).long()
+    ar = torch.arange(r, device=nbrs.device)
+    dup = ((nbrs[:, None] == nbrs[None, :]) & (nbrs[None, :] >= 0) &
+           (ar[None, :] < ar[:, None])).any(1)
+    valid = (nbrs >= 0) & (nbrs != new_id) & ~tombstone[safe] & ~dup
+    d = pq_mod.sym_distance(sym_tables, new_code[None], codes[safe][None])[0]
+    order = torch.sort(torch.where(valid, d, INF), stable=True).indices
+    return torch.where(valid[order], nbrs[order], -1)
+
+
+def charge_rmw_rereads(counters: IOCounters, spec: LayoutSpec,
+                       store: GraphStore, nbrs: torch.Tensor,
+                       dirty_pages: torch.Tensor
+                       ) -> tuple[IOCounters, torch.Tensor]:
+    """Charge one edge-page read per distinct neighbor page [r] that an
+    earlier commit of the wave dirtied.  Returns (counters, n_reread)."""
+    r = nbrs.shape[0]
+    valid = nbrs >= 0
+    pages = torch.where(valid, store.edge_page[nbrs.clamp(min=0).long()],
+                        -1)
+    ar = torch.arange(r, device=nbrs.device)
+    dup = ((pages[:, None] == pages[None, :]) & (pages[None, :] >= 0) &
+           (ar[None, :] < ar[:, None])).any(1)
+    hit = valid & (pages >= 0) & dirty_pages[pages.clamp(min=0).long()] & \
+        ~dup
+    n = hit.sum()
+    return search_mod._charge_page_read(counters, spec, n), n
+
+
+def mark_dirty_pages(dirty_pages: torch.Tensor, store: GraphStore,
+                     new_id: int, nbrs: torch.Tensor,
+                     modified: torch.Tensor) -> torch.Tensor:
+    """Record, in place, the pages a commit wrote (post-commit ``store``):
+    the new vertex's page and each rewritten neighbor edgelist's page."""
+    touched = torch.cat([torch.full((1,), new_id, dtype=torch.int32,
+                                    device=nbrs.device),
+                         torch.where(modified, nbrs, -1).to(torch.int32)])
+    pages = store.edge_page[touched.clamp(min=0).long()]
+    mark = (touched >= 0) & (pages >= 0)
+    # a max-scatter of 0 leaves the unmarked slots' targets as they are
+    dirty_pages.view(torch.uint8).scatter_reduce_(
+        0, pages.clamp(min=0).long(), mark.to(torch.uint8), "amax")
+    return dirty_pages
+
+
+# ---------------------------------------------------------------------------
+# Full insertion (position seek + rerank + wire)
+# ---------------------------------------------------------------------------
+
+class SeekResult(NamedTuple):
+    """Phase-① output, one lane per insert: what a commit needs, plus the
+    traversal's I/O evidence (trace, frozen mode) for the cache replay."""
+    nbrs: torch.Tensor            # [B, R] selected neighbors (-1 padded)
+    pool_ids: torch.Tensor        # [B, e_pos] E_pos (PQ-sorted, masked)
+    hops: torch.Tensor            # [B] int32
+    rerank_rounds: torch.Tensor   # [B] int32
+    counters: IOCounters          # [B]
+    page_seen: visited_mod.HashVisited
+    trace: torch.Tensor | None = None     # frozen mode only
+    trace_n: torch.Tensor | None = None
+
+
+def position_seek(store: GraphStore, spec: LayoutSpec,
+                  codec: pq_mod.PQCodec, codes: torch.Tensor,
+                  cache: cache_mod.CacheState | cache_mod.HostCache,
+                  counters: IOCounters, new_vecs: torch.Tensor,
+                  entry_ids: torch.Tensor, *, e_pos: int, k: int, s: int,
+                  beam_width: int = 4, max_hops: int = 512,
+                  tombstone: torch.Tensor | None = None) -> SeekResult:
+    """① Position seeking for ``new_vecs`` [B, D]: traverse with a pool of
+    ``e_pos``, mask tombstoned ids out of it, CASR-rerank it in groups of
+    ``s`` (one ``casr_rerank`` launch for the wave on the card) and select
+    the neighbors.  No structural mutation.  A snapshot ``cache`` runs the
+    wave frozen (each lane records its trace); a :class:`cache.HostCache`
+    runs one seek threaded through it (the sequential insert)."""
+    lut = pq_mod.adc_lut(codec, new_vecs)
+    res = search_mod.disk_traverse(
+        store, spec, lut, codes, cache, counters, entry_ids,
+        pool_size=e_pos, beam_width=beam_width, max_hops=max_hops)
+    counters = res.counters
+    pool_ids = res.pool_ids
+    if tombstone is not None:
+        dead = (pool_ids >= 0) & tombstone[pool_ids.clamp(min=0).long()]
+        counters = dataclasses.replace(
+            counters, tombstone_skips=counters.tombstone_skips + dead.sum(1))
+        pool_ids = torch.where(dead, -1, pool_ids)
+    cres = casr_mod.casr_rerank(store, spec, new_vecs, pool_ids, counters,
+                                k=k, s=s)
+    return SeekResult(nbrs=select_neighbors(pool_ids, cres, store.r),
+                      pool_ids=pool_ids, hops=res.hops,
+                      rerank_rounds=cres.rerank_rounds,
+                      counters=cres.counters, page_seen=res.page_seen,
+                      trace=res.trace, trace_n=res.trace_n)
+
+
+def commit_insert(store: GraphStore, spec: LayoutSpec,
+                  cache: cache_mod.HostCache | None, counters: IOCounters,
+                  new_vec: torch.Tensor, nbrs: torch.Tensor,
+                  codes: torch.Tensor, sym_tables: torch.Tensor,
+                  new_id: int) -> StructuralResult:
+    """② The runtime commit of one insertion: :func:`structural_update`
+    with the symmetric distances summed in subspace order, as the
+    reference sums them.  With ``cache`` None the eviction hints come
+    back in ``dead_pages`` only (a wave applies them after its commits,
+    which is the same order: no commit reads the cache)."""
+    return structural_update(store, spec, cache, counters, new_vec, nbrs,
+                             codes, sym_tables, new_id, in_order=True)
+
+
+class InsertResult(NamedTuple):
+    store: GraphStore
+    counters: IOCounters          # scalar: the seek's and the commit's
+    new_id: int
+    pool_ids: torch.Tensor        # [e_pos] E_pos, reused by NAVIS-update
+    hops: torch.Tensor            # scalar int32
+    rerank_rounds: torch.Tensor   # scalar int32
+    page_seen: visited_mod.HashVisited   # this insert's pages (one lane)
+
+
+def insert_vertex(store: GraphStore, spec: LayoutSpec,
+                  codec: pq_mod.PQCodec, codes: torch.Tensor,
+                  sym_tables: torch.Tensor, cache: cache_mod.HostCache,
+                  counters: IOCounters, new_vec: torch.Tensor,
+                  entry_ids: torch.Tensor, *, e_pos: int, k: int, s: int,
+                  beam_width: int = 4, max_hops: int = 512,
+                  tombstone: torch.Tensor | None = None,
+                  new_id: int | None = None) -> InsertResult:
+    """One sequential in-place insertion of ``new_vec`` [D] from
+    ``entry_ids`` [n_entry]: a threaded seek through ``cache`` (advanced
+    in place, the commit's eviction hints included), then the commit at
+    ``new_id`` (default ``store.count``).  The caller writes the new
+    vector's code into ``codes`` first; ``counters`` is a scalar tally."""
+    seek = position_seek(
+        store, spec, codec, codes, cache, counters.map(lambda x: x[None]),
+        new_vec[None], entry_ids[None], e_pos=e_pos, k=k, s=s,
+        beam_width=beam_width, max_hops=max_hops, tombstone=tombstone)
+    nid = store.count if new_id is None else int(new_id)
+    sres = commit_insert(store, spec, cache, seek.counters.map(
+        lambda x: x[0]), new_vec, seek.nbrs[0], codes, sym_tables, nid)
+    ps = seek.page_seen
+    return InsertResult(
+        store=sres.store, counters=sres.counters, new_id=nid,
+        pool_ids=seek.pool_ids[0], hops=seek.hops[0],
+        rerank_rounds=seek.rerank_rounds[0],
+        page_seen=visited_mod.HashVisited(ps.keys[0], ps.count[0],
+                                          ps.overflow[0]))

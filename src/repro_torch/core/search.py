@@ -11,10 +11,16 @@ for the per-lane loop condition: a lane that has converged never changes
 again (pool, visited sets, trace, counters and ``hops``), so each lane
 returns exactly what the reference's ``vmap`` returns for it.
 
-Only the frozen-cache mode is ported (the mode both fan-outs and the build
-use): traversals probe one cache snapshot with :func:`cache.lookup` and
-record the pages they charge, in order, for a later ordered replay.  Per
-hop the ADC scoring and the pool merge go through the kernel layer
+Both cache modes of the reference are ported.  In the frozen mode (both
+fan-outs and the build) the lanes probe one cache snapshot with
+:func:`cache.lookup` and record the pages they charge, in order, for a
+later ordered replay.  In the threaded mode (the reference's
+``frozen_cache=False``: ``Engine.search`` / ``insert`` and their batches)
+one lane runs against a :class:`cache.HostCache`, and each page it charges
+is one :meth:`~cache.HostCache.access` in beam-slot order, so a page that
+an earlier access of the same traversal evicted misses as it does in the
+reference.  That mode syncs with the host once a hop.  Per hop the ADC
+scoring and the pool merge go through the kernel layer
 (:mod:`repro_torch.kernels.ops`).
 """
 from __future__ import annotations
@@ -100,8 +106,9 @@ class TraverseResult(NamedTuple):
     hops: torch.Tensor           # [B] int32
     counters: IOCounters         # [B]
     page_seen: visited_mod.HashVisited
-    trace: torch.Tensor          # [B, max_hops * W] int32, -1 padded
-    trace_n: torch.Tensor        # [B] int32 valid trace entries
+    # frozen mode only (None in the threaded mode): charged page accesses
+    trace: torch.Tensor | None   # [B, max_hops * W] int32, -1 padded
+    trace_n: torch.Tensor | None  # [B] int32 valid trace entries
 
 
 def _charge_page_read(counters: IOCounters, spec: LayoutSpec,
@@ -118,18 +125,22 @@ def _charge_page_read(counters: IOCounters, spec: LayoutSpec,
 
 
 def fetch_edgelists(store: GraphStore, spec: LayoutSpec,
-                    cache: cache_mod.CacheState, counters: IOCounters,
+                    cache: cache_mod.CacheState | cache_mod.HostCache,
+                    counters: IOCounters,
                     page_seen: visited_mod.HashVisited, ids: torch.Tensor,
-                    valid: torch.Tensor, trace: torch.Tensor,
-                    trace_n: torch.Tensor):
-    """Read the edge pages backing each lane's beam ``ids`` [B, W] against
-    a frozen cache snapshot (the reference's frozen branch).
+                    valid: torch.Tensor, trace: torch.Tensor | None,
+                    trace_n: torch.Tensor | None):
+    """Read the edge pages backing each lane's beam ``ids`` [B, W].
 
     A page is charged if its slot is valid, this traversal has not read it
-    yet (``page_seen``) and no earlier valid slot of the beam holds it.
-    Charged pages are appended to ``trace`` (``[B, T + 1]``; the last
-    column takes the writes of uncharged slots) at ``trace_n`` in slot
-    order.  Returns (edges [B, W, R], counters, page_seen, trace, trace_n).
+    yet (``page_seen``) and no earlier valid slot of the beam holds it;
+    the rest are free.  Against a snapshot ``cache`` (the reference's
+    frozen branch) hits come from :func:`cache.lookup` and the charged
+    pages are appended to ``trace`` (``[B, T + 1]``; the last column takes
+    the writes of uncharged slots) at ``trace_n`` in slot order.  Against
+    a :class:`cache.HostCache` (the threaded branch, one lane) each charged
+    page is one access, in slot order, and ``trace`` stays None.  Returns
+    (edges [B, W, R], counters, page_seen, trace, trace_n).
     """
     w = ids.shape[1]
     safe = ids.clamp(min=0).long()
@@ -139,19 +150,26 @@ def fetch_edgelists(store: GraphStore, spec: LayoutSpec,
         valid[:, None, :] & (ar[None, :] < ar[:, None])
     charged = valid & ~visited_mod.contains(page_seen, pages) & \
         ~eq_earlier.any(-1)
-    hit = cache_mod.lookup(cache, pages.clamp(min=0)) & charged
     n_charged = charged.sum(1)
-    n_hit = hit.sum(1)
+    if isinstance(cache, cache_mod.HostCache):
+        # boolean indexing keeps slot order: the accesses run as the
+        # reference's scan over the beam issues them
+        n_hit = torch.full((1,), sum(cache.access(p) for p in
+                                     pages[charged].tolist()),
+                           device=ids.device)
+    else:
+        hit = cache_mod.lookup(cache, pages.clamp(min=0)) & charged
+        n_hit = hit.sum(1)
+        dump = trace.shape[1] - 1
+        pos = torch.where(charged, trace_n[:, None].long() +
+                          charged.cumsum(1) - 1, dump)
+        trace = trace.scatter(1, pos, torch.where(charged, pages, -1))
+        trace_n = trace_n + n_charged.to(trace_n.dtype)
     n_miss = n_charged - n_hit
     counters = dataclasses.replace(
         counters, cache_hits=counters.cache_hits + n_hit,
         cache_misses=counters.cache_misses + n_miss)
     counters = _charge_page_read(counters, spec, n_miss)
-    dump = trace.shape[1] - 1
-    pos = torch.where(charged, trace_n[:, None].long() +
-                      charged.cumsum(1) - 1, dump)
-    trace = trace.scatter(1, pos, torch.where(charged, pages, -1))
-    trace_n = trace_n + n_charged.to(trace_n.dtype)
     page_seen = visited_mod.add(page_seen, pages, valid)
     edges = torch.where(valid[..., None], store.edges[safe], -1)
     return edges, counters, page_seen, trace, trace_n
@@ -175,22 +193,29 @@ def make_traversal_state(*, beam_width: int, max_hops: int, batch: int,
 
 
 def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
-                  codes: torch.Tensor, cache: cache_mod.CacheState,
+                  codes: torch.Tensor,
+                  cache: cache_mod.CacheState | cache_mod.HostCache,
                   counters: IOCounters, entry_ids: torch.Tensor, *,
                   pool_size: int, beam_width: int = 4, max_hops: int = 512,
                   visited_capacity: int | None = None) -> TraverseResult:
-    """Greedy beam search, one lane per LUT, against a frozen cache.
+    """Greedy beam search, one lane per LUT.
 
-    ``entry_ids`` [B, n_entry] main ids (-1 padded); ``counters`` [B].  A
-    lane converges when no unexpanded candidate remains in its top
-    ``pool_size``.  ``visited_capacity`` overrides the exact mark bound
-    ``max_hops * beam_width`` (smaller values saturate: a lane may
-    re-expand vertices, counted in ``visited_overflow``).
+    ``cache`` is a snapshot (frozen mode: the lanes record traces) or a
+    :class:`cache.HostCache` (threaded mode, the reference's
+    ``frozen_cache=False``: one lane, the cache evolves in place, no
+    trace).  ``entry_ids`` [B, n_entry] main ids (-1 padded);
+    ``counters`` [B].  A lane converges when no unexpanded candidate
+    remains in its top ``pool_size``.  ``visited_capacity`` overrides the
+    exact mark bound ``max_hops * beam_width`` (smaller values saturate: a
+    lane may re-expand vertices, counted in ``visited_overflow``).
     """
     if spec.kind != "decoupled":
         raise NotImplementedError("the packed layout's traversal (vector "
                                   "piggybacking) comes with a later slice")
     b, n_entry = entry_ids.shape
+    threaded = isinstance(cache, cache_mod.HostCache)
+    if threaded and b != 1:
+        raise ValueError(f"the threaded traversal runs one lane, got {b}")
     dev = lut.device
     safe_e = entry_ids.clamp(min=0)
     e_valid = entry_ids >= 0
@@ -209,6 +234,8 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
         visited_capacity=visited_capacity)
     t = max_hops * beam_width
     trace_n = torch.zeros((b,), dtype=torch.int32, device=dev)
+    if threaded:
+        trace = trace_n = None
     unexp = pool_ids >= 0
     hops = torch.zeros((b,), dtype=torch.int32, device=dev)
     active = unexp.any(1) & (max_hops > 0)
@@ -254,4 +281,4 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
     counters = dataclasses.replace(
         counters, visited_overflow=counters.visited_overflow + ovf)
     return TraverseResult(pool_ids, pool_d, hops, counters, page_seen,
-                          trace[:, :t], trace_n)
+                          None if threaded else trace[:, :t], trace_n)

@@ -1,4 +1,5 @@
 """Synthetic data for the port (counterpart of ``repro/data``)."""
-from repro_torch.data.pipeline import make_clustered, query_stream
+from repro_torch.data.pipeline import insert_stream, make_clustered, \
+    query_stream
 
-__all__ = ["make_clustered", "query_stream"]
+__all__ = ["insert_stream", "make_clustered", "query_stream"]

@@ -1,5 +1,6 @@
 """Synthetic vector streams (port of the GVS half of
-``repro/data/pipeline.py``).
+``repro/data/pipeline.py``: ``make_clustered``, ``query_stream``,
+``insert_stream``).
 
 Randomness comes from an explicit ``torch.Generator``; pass one that lives
 on the device the data should be made on.
@@ -30,3 +31,16 @@ def query_stream(gen: torch.Generator, cents: torch.Tensor, n: int, *,
                            device=dev)
     return cents[assign] + noise * torch.randn((n, cents.shape[1]),
                                                generator=gen, device=dev)
+
+
+def insert_stream(gen: torch.Generator, cents: torch.Tensor, n: int, *,
+                  noise: float = 1.0, drift: float = 0.0) -> torch.Tensor:
+    """Fresh vectors to insert.  ``drift`` shifts the cluster mixture: the
+    paper's newly inserted regions, which a static entrance graph drifts
+    away from (§3.2)."""
+    dev = gen.device
+    assign = torch.randint(0, cents.shape[0], (n,), generator=gen,
+                           device=dev)
+    shift = drift * torch.randn(cents.shape, generator=gen, device=dev)
+    return (cents + shift)[assign] + noise * torch.randn(
+        (n, cents.shape[1]), generator=gen, device=dev)
