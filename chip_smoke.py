@@ -8,20 +8,27 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives two paths, each with the launch counts
+main path's shapes, then drives three paths, each with the launch counts
 set to 0 just before it and read just after:
 
 - search: builds and searches a small index (the test suite's
-  configuration) and a FineWeb-like 768-d one;
+  configuration) and a FineWeb-like 768-d one (the navis preset);
 - update: on both indexes, insert waves (``insert_many``), sequential
-  inserts and searches, deletes, and searches after them.
+  inserts and searches, deletes, and searches after them (navis);
+- presets: the five baselines (and navis with bitmap visited sets on the
+  small index) adopting each index's build (``build(shared=...)``):
+  search and insert waves, sequential searches, FreshDiskANN's buffer,
+  its search hits and ``merge``, and ``calibrate``.
 
-Each path must launch ``pool_merge``, ``adc_distance`` and
-``casr_rerank`` (once per search or insert wave) and never ``rerank_l2``
-(the kernel phase holds it).  After each path one wave is repeated with
-the plain versions on the card (A/B).  Each phase prints one JSON line;
-any failure exits non-zero without the final result line.  With no CUDA
-device, or without the repository beside it, it exits non-zero at once.
+The search and update paths must launch ``pool_merge``, ``adc_distance``
+and ``casr_rerank`` (once per search or insert wave) and neither rerank
+entry; the presets path all of those and ``rerank_l2_rows`` (the full
+rerank and the buffer scan).  ``rerank_l2`` runs on no path (the kernel
+phase holds it).  After each path one search wave and one insert wave
+are repeated with the plain versions on the card (A/B).  Each phase
+prints one JSON line; any failure exits non-zero without the final
+result line.  With no CUDA device, or without the repository beside it,
+it exits non-zero at once.
 It takes no options: every run is the whole smoke.
 """
 from __future__ import annotations
@@ -53,16 +60,31 @@ KERNELS = {
                      "src/repro/kernels/pq_adc.py:26"),
     "rerank_l2": ("src/repro_torch/kernels/csrc/rerank_l2.cu",
                   "src/repro/kernels/rerank_l2.py:29"),
+    # the same kernel reading its rows in place by id (the full rerank and
+    # FreshDiskANN's buffer scan)
+    "rerank_l2_rows": ("src/repro_torch/kernels/csrc/rerank_l2.cu",
+                       "src/repro/kernels/rerank_l2.py:29"),
     # on the main path, the rerank kernel together with CASR's group loop
     # and its per-round merge (src/repro/core/casr.py:68)
     "casr_rerank": ("src/repro_torch/kernels/csrc/casr_rerank.cu",
                     "src/repro/kernels/rerank_l2.py:29"),
 }
-# the main path must launch these, and must not launch rerank_l2 (held by
-# the kernel phase until the full rerank and the stop-point classifier are
-# ported)
-MAIN_PATH_KERNELS = ("pool_merge", "adc_distance", "casr_rerank")
-OFF_PATH_KERNELS = ("rerank_l2",)
+# Each path's launch gate: the kernels it must launch, and those it must
+# not.  The navis preset's search and update paths rerank with CASR only,
+# so neither rerank entry runs there; the presets path runs the full
+# rerank and the buffer scan through rerank_l2_rows.  The [B, S, D] entry
+# rerank_l2 is on no path (the kernel phase holds it).
+PATH_KERNELS = {
+    "search": (("pool_merge", "adc_distance", "casr_rerank"),
+               ("rerank_l2", "rerank_l2_rows")),
+    "update": (("pool_merge", "adc_distance", "casr_rerank"),
+               ("rerank_l2", "rerank_l2_rows")),
+    "presets": (("pool_merge", "adc_distance", "rerank_l2_rows",
+                 "casr_rerank"), ("rerank_l2",)),
+}
+# the five baselines; the presets path also runs navis with bitmaps
+BASELINES = ("freshdiskann", "odinann", "odinann_cache", "layout_only",
+             "sel_vec")
 
 
 class SmokeFailure(RuntimeError):
@@ -101,10 +123,13 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20) -> float | None:
+NO_DEVICE_EVENT = "not measured: no kernel event in the profile"
+
+
+def device_ms(torch, fn, iters: int = 20) -> float | str:
     """Mean device time per call of the kernels ``fn`` launches, from the
-    profiler's CUDA activity (execution only, no launch gaps); None when
-    the profiler reports no device time."""
+    profiler's CUDA activity (execution only, no launch gaps); where the
+    profiler reports no device time, says so (``NO_DEVICE_EVENT``)."""
     fn()
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
@@ -113,7 +138,7 @@ def device_ms(torch, fn, iters: int = 20) -> float | None:
             fn()
         torch.cuda.synchronize()
     total_us = sum(_self_device_us(e) for e in prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    return total_us / 1e3 / iters if total_us > 0 else NO_DEVICE_EVENT
 
 
 def _self_device_us(event) -> float:
@@ -211,7 +236,8 @@ def _kernel_record(torch, name, max_err, kernel, plain, library, n_bytes,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": library and time_ms(torch, library)}
-    extra = {"host_ms_per_call": None if dev_ms is None else ms - dev_ms,
+    extra = {"host_ms_per_call": (ms - dev_ms if isinstance(dev_ms, float)
+                                  else None),
              "plain_device_ms": device_ms(torch, plain),
              "library_device_ms": library and device_ms(torch, library)}
     return rec, extra
@@ -436,9 +462,59 @@ def phase_kernels(torch) -> dict:
                  loaded_rows=loaded_rows, distinct_rows=distinct_rows)
     records["casr_rerank"] = (rec, extra)
 
+    # -- rerank_l2_rows: rows read by id from the same store; within the
+    #    rerank grade of the plain version, and equal to rerank_l2 on the
+    #    rows gathered (one row body) ---------------------------------------
+    q64, pools64 = _casr_case(torch, gen, vectors, b, 64, n_dup)
+    buf = torch.arange(256, device=dev, dtype=torch.int32)
+    buf_ids = torch.where(buf < 200, buf, -1)[None].expand(b, -1).contiguous()
+    q_buf = (vectors[torch.randint(0, 200, (b,), generator=gen, device=dev)]
+             + 0.5 * torch.randn((b, d), generator=gen, device=dev))
+    rows = {}
+    for case, q_, ids_ in (("pools_p64", q64, pools64),
+                           ("buffer_256", q_buf, buf_ids)):
+        got = ops.rerank_l2_rows(q_, vectors, ids_)
+        want = ref.rerank_l2_rows_ref(q_, vectors, ids_)
+        gathered = ops.rerank_l2(q_, vectors[ids_.clamp(min=0).long()])
+        torch.cuda.synchronize()
+        ok = ids_ >= 0
+        same = (bool(torch.equal(got[ok], gathered[ok])) and
+                bool((got[~ok] == 3.4e38).all()))
+        require(bool(torch.allclose(got, want, rtol=RERANK_RTOL,
+                                    atol=RERANK_ATOL)),
+                f"rerank_l2_rows {case} outside rtol {RERANK_RTOL} / atol "
+                f"{RERANK_ATOL}")
+        require(same, f"rerank_l2_rows {case} differs from rerank_l2 on "
+                "the rows gathered")
+        n_valid = int(ok.sum())
+        distinct = int(torch.unique(ids_[ok]).numel())
+        flat = ids_.clamp(min=0).long()
+        rows[case] = _kernel_record(
+            torch, "rerank_l2_rows",
+            float((got[ok] - want[ok]).abs().max()),
+            lambda q_=q_, ids_=ids_: ops.rerank_l2_rows(q_, vectors, ids_),
+            lambda q_=q_, ids_=ids_: ref.rerank_l2_rows_ref(q_, vectors,
+                                                            ids_),
+            lambda q_=q_, flat=flat: torch.cdist(q_[:, None], vectors[flat]),
+            n_bytes=distinct * d * 4 + b * d * 4 + ids_.numel() * 8,
+            n_ops=3 * n_valid * d)
+        rows[case][1].update(rows_valid=n_valid, rows_distinct=distinct,
+                             equal_to_rerank_l2_gathered=same)
+    rec, extra = rows["pools_p64"]
+    extra["buffer_256"] = {
+        k: v for k, v in {**rows["buffer_256"][0],
+                          **rows["buffer_256"][1]}.items()
+        if k in ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+                 "library_device_ms", "bound_ms", "bound_by", "rows_valid",
+                 "rows_distinct", "equal_to_rerank_l2_gathered")}
+    records["rerank_l2_rows"] = (rec, extra)
+
     grades = {"pool_merge": "exact (distance bits and ids)",
               "adc_distance": "bit-exact",
               "rerank_l2": f"rtol {RERANK_RTOL} / atol {RERANK_ATOL}",
+              "rerank_l2_rows": f"rtol {RERANK_RTOL} / atol {RERANK_ATOL}; "
+                                "bit-equal to rerank_l2 on the rows "
+                                "gathered",
               "casr_rerank": "ids, loads and rounds exact outside near "
                              f"ties; distances rtol {RERANK_RTOL} / atol "
                              f"{RERANK_ATOL}"}
@@ -454,11 +530,20 @@ def phase_kernels(torch) -> dict:
     return out
 
 
-def _spec_small():
+def _spec_small(name: str = "navis", **overrides):
+    """The test suite's configuration (tests/conftest.py:37-41)."""
     from repro_torch.core import preset
-    return preset("navis", dim=48, r=16, n_max=1600, e_search=40, e_pos=48,
+    return preset(name, dim=48, r=16, n_max=1600, e_search=40, e_pos=48,
                   pq_m=24, cache_capacity_pages=256, max_hops=64,
-                  buffer_max=128)
+                  buffer_max=128, **overrides)
+
+
+def _spec_fineweb(name: str, n_max: int):
+    """The FineWeb-like cell (benchmarks/common.py:38-40, :72-77)."""
+    from repro_torch.core import preset
+    return preset(name, dim=768, r=48, n_max=n_max, pq_m=96, e_search=40,
+                  e_pos=64, cache_capacity_pages=256, max_hops=96,
+                  buffer_max=256)
 
 
 def phase_small(torch) -> None:
@@ -587,13 +672,21 @@ def phase_small_update(torch, eng, state, qs, cents) -> None:
             f"{same_nbrs})")
 
 
-def _page_budget_ok(torch, store) -> bool:
+def _page_budget_ok(torch, store, packed: bool = False) -> bool:
+    """Every page id inside the budget, and ``page_live`` counting the
+    slots on each page.  Under the packed layout an insert moves its slot
+    to a fresh page but its initial page keeps counting it (the
+    reference's accounting, ROADMAP queue 3), so there the counts only
+    bound ``page_live`` from below."""
     ep = store.edge_page.long()
     held = ep >= 0
     counts = torch.bincount(ep[held], minlength=store.p_max)
-    return (store.next_page <= store.p_max and
-            int(ep.max()) < store.p_max and
-            counts.shape[0] == store.p_max and
+    inside = (store.next_page <= store.p_max and
+              int(ep.max()) < store.next_page and
+              counts.shape[0] == store.p_max)
+    if packed:
+        return inside and bool((counts <= store.page_live).all())
+    return (inside and
             bool(torch.equal(counts.to(torch.int32), store.page_live)) and
             int(store.page_live.sum()) == int(held.sum()))
 
@@ -610,10 +703,7 @@ def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
     vecs, _, cents = make_clustered(gen, n, 768, n_clusters=24, scale=3.0,
                                     noise=1.0)
     queries = query_stream(gen, cents, n_waves * WAVE)
-    spec = preset("navis", dim=768, r=48, n_max=n + 1200, pq_m=96,
-                  e_search=40, e_pos=64, cache_capacity_pages=256,
-                  max_hops=96, buffer_max=256)
-    eng = Engine(spec)
+    eng = Engine(_spec_fineweb("navis", n + 1200))
     marks = []
 
     def progress(stage, done, total):
@@ -657,8 +747,8 @@ def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
              qps=WAVE / wall, mean_hops=per_q("hops"),
              reads_per_query=per_q("read_requests"),
              cache_hits_per_query=per_q("cache_hits"),
-             wave_s=timing["wave_s"], casr_s=timing["casr_s"],
-             casr_share_of_wave=timing["casr_s"] / wall,
+             wave_s=timing["wave_s"], rerank_s=timing["rerank_s"],
+             rerank_share_of_wave=timing["rerank_s"] / wall,
              replay_s=timing["replay_s"], launches=wave_launches)
         require(wave_launches["casr_rerank"] == 1 and
                 wave_launches["rerank_l2"] == 0,
@@ -819,7 +909,8 @@ def _time_casr_on_seek_pools(torch, q, vectors, pools, k: int,
             f"outside near ties: {grade}")
 
 
-def phase_ab_update(torch, eng, state, cents) -> None:
+def phase_ab_update(torch, eng, state, cents, label: str = "ab:update",
+                    time_casr: bool = True) -> None:
     """One insert wave of WAVE with the kernels, then under
     plain_on_device(), from the same state.  Seek lanes (neighbors, pool,
     hops, rounds, counters) must be identical except where two exact
@@ -841,13 +932,14 @@ def phase_ab_update(torch, eng, state, cents) -> None:
         return insert_mod.position_seek(
             state.store, spec.lspec, eng.codec, state.codes, state.cache,
             IOCounters.zeros((WAVE,), "cuda"), vs, entries,
-            e_pos=spec.e_pos, k=spec.k, s=spec.s_pos,
+            e_pos=spec.e_pos, k=spec.k, s=spec.s_pos, rerank=spec.rerank,
             beam_width=spec.beam_width, max_hops=spec.max_hops,
-            tombstone=state.tombstone)
+            tombstone=state.tombstone, visited=spec.visited_impl)
 
     seek_k = seek()
-    _time_casr_on_seek_pools(torch, vs, state.store.vectors, seek_k.pool_ids,
-                             spec.k, spec.s_pos)
+    if time_casr:
+        _time_casr_on_seek_pools(torch, vs, state.store.vectors,
+                                 seek_k.pool_ids, spec.k, spec.s_pos)
     stats_k, st_k = eng.insert_many(state, vs)
     torch.cuda.synchronize()
     before = dict(ops.launches)
@@ -873,19 +965,259 @@ def phase_ab_update(torch, eng, state, cents) -> None:
     n_differ = int(differ.sum())
     state_diff = _tree_diff(torch, st_k, st_p)
     stats_same = not _tree_diff(torch, stats_k, stats_p)
-    emit("ab:update", inserts=WAVE, differing_seek_lanes=n_differ,
+    emit(label, inserts=WAVE, differing_seek_lanes=n_differ,
          near_tie_lanes_among_them=int((differ & near).sum()),
          near_tie_lanes=int(near.sum()), committed_state_diff=state_diff,
          opstats_identical=stats_same,
          launch_counts_flat_under_plain=flat)
-    require(flat, "ab:update: kernels launched under plain_on_device()")
+    require(flat, f"{label}: kernels launched under plain_on_device()")
     require(not bool((differ & ~near).any()),
-            "ab:update: a seek lane differs without a near tie")
+            f"{label}: a seek lane differs without a near tie")
     if n_differ == 0:
         require(not state_diff and stats_same,
-                f"ab:update: commits differ under the plain path: "
+                f"{label}: commits differ under the plain path: "
                 f"{state_diff}, OpStats identical {stats_same}")
 
+
+
+IO_FIELDS = ("hops", "read_requests", "edge_bytes_read",
+             "useful_vec_bytes_read", "wasted_vec_bytes_read",
+             "pad_bytes_read", "write_requests", "wasted_vec_bytes_written",
+             "cache_hits")
+
+
+def _io_per_op(before, after, n: int) -> dict:
+    """Each I/O counter's growth from ``before`` to ``after``, per op."""
+    return {f: (int(getattr(after, f)) - int(getattr(before, f))) / n
+            for f in IO_FIELDS}
+
+
+def _buffer_checks(torch, eng, state, vb, more) -> dict:
+    """FreshDiskANN on the small index: buffered ``insert_batch`` of ``vb``
+    (no I/O), a search for them (their virtual ids ``n_max + slot`` on
+    top), then ``more`` buffered until ``needs_merge``, and ``merge``."""
+    from repro_torch.core import check_invariants
+    n_max = state.store.n_max
+    stats, st = eng.insert_batch(state, vb)
+    io = int(stats.read_requests.sum() + stats.write_requests.sum())
+    ids, _, _, _ = eng.search_many(st, vb)
+    slots = torch.arange(vb.shape[0], device="cuda", dtype=torch.int32)
+    hits = bool((ids[:, 0] == n_max + slots).all())
+    for i in range(0, more.shape[0], 8):
+        if eng.needs_merge(st):
+            break
+        _, st = eng.insert_many(st, more[i:i + 8])
+    due, buffered, count0 = eng.needs_merge(st), st.buf_count, st.store.count
+    mstats, merged = eng.merge(st)
+    inv = check_invariants(merged.store)
+    out = dict(batch_io_requests=io, buffered_hits_on_top=hits,
+               needs_merge_at=buffered, needs_merge=due,
+               merged_count_growth=merged.store.count - count0,
+               buf_count_after_merge=merged.buf_count,
+               merge_write_requests=int(mstats.write_requests),
+               merge_invariants=all(inv.values()),
+               merge_page_budget_ok=_page_budget_ok(torch, merged.store,
+                                                    packed=True))
+    require(io == 0, f"presets:small: buffered inserts did I/O ({io})")
+    require(hits, "presets:small: a buffered vector is not its own top hit")
+    require(due and buffered > 0 and out["merged_count_growth"] == buffered
+            and merged.buf_count == 0 and out["merge_write_requests"] > 0,
+            f"presets:small: merge {out}")
+    require(out["merge_invariants"] and out["merge_page_budget_ok"],
+            f"presets:small: merge invariants {inv}")
+    return out
+
+
+def phase_presets_small(torch, eng, state, qs, cents) -> None:
+    """The five baselines and navis with bitmaps on the small index, each
+    adopting the navis build's bundle (``build(shared=...)``): the 40
+    queries through ``search_many`` (recall >= 0.9, the reference's bar
+    for odinann, tests/test_navis_core.py:241-245) and ``search_batch``
+    (the same ids), an insert wave of 64 (drift 0.2; invariants, page
+    budget, no drop); FreshDiskANN's buffer and merge; and ``calibrate``
+    on navis."""
+    from repro_torch import random as jr
+    from repro_torch.core import (Engine, brute_force_topk,
+                                  check_invariants, recall_at_k)
+    from repro_torch.data import insert_stream
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    vecs = state.store.vectors[:1200]
+    truth = brute_force_topk(qs, vecs, 1200, 10)
+    bundle = eng.bundle(state)
+    vs = insert_stream(gen, cents, 64, drift=0.2)
+    cases = [(n, {}) for n in BASELINES] + [("navis",
+                                             {"visited_impl": "bitmap"})]
+    for name, over in cases:
+        label = name + ("_bitmap" if over else "")
+        e = Engine(_spec_small(name, **over))
+        st = e.build(jr.PRNGKey(2), vecs, shared=bundle)
+        ids_m, d_m, _, _ = e.search_many(st, qs)
+        ids_b, _, _, _ = e.search_batch(st, qs)
+        recall = recall_at_k(ids_m, truth)
+        stats, st2 = e.insert_many(st, vs)
+        inv = check_invariants(st2.store)
+        budget = _page_budget_ok(torch, st2.store,
+                                 packed=e.spec.layout == "packed")
+        fields = dict(recall_at_10=recall,
+                      search_many_equals_search_batch=bool(
+                          torch.equal(ids_m, ids_b)),
+                      finite=bool(torch.isfinite(d_m[ids_m >= 0]).all()),
+                      invariants=all(inv.values()), page_budget_ok=budget,
+                      dropped=int(stats.dropped.sum()),
+                      count=st2.store.count, buf_count=st2.buf_count)
+        if name == "freshdiskann":
+            fields.update(_buffer_checks(
+                torch, e, st, insert_stream(gen, cents, 8, drift=0.2),
+                insert_stream(gen, cents, 160, drift=0.2)))
+        emit(f"presets:small:{label}", **fields)
+        require(recall >= 0.9, f"presets:small:{label}: recall@10 {recall}")
+        require(fields["search_many_equals_search_batch"] and
+                fields["finite"], f"presets:small:{label}: {fields}")
+        require(all(inv.values()) and budget and fields["dropped"] == 0,
+                f"presets:small:{label}: invariants {inv}, page budget "
+                f"{budget}, dropped {fields['dropped']}")
+    cal = Engine(_spec_small())
+    cal.set_codec(eng.codec)
+    new = cal.calibrate(state, qs)
+    emit("presets:small:calibrate", queries=int(qs.shape[0]),
+         s_search=new.s_search, s_pos=new.s_pos)
+    require(new.s_search >= 1 and new.s_pos >= 1, "calibrate: s < 1")
+
+
+def phase_presets_fineweb(torch, eng, state, vecs, cents):
+    """Every preset on the FineWeb-like index, adopting the navis build's
+    bundle (the post-build state; the cell's buffer_max 256 and 256 cache
+    pages): one search wave and one insert wave of WAVE (drift 0.2) on
+    the post-build state, with wall time and I/O per operation; for
+    FreshDiskANN the insert wave is buffered, a search wave for the
+    buffered vectors hits the buffer, and a timed ``merge`` follows.
+    Gates: the presets that differ only in layout, cache or buffer return
+    identical ids and distances; sel_vec the ids of navis; CASR reads
+    fewer vector bytes than the full rerank; the decoupled layout writes
+    fewer bytes per insert than the packed one; every state keeps its
+    invariants and page budget, with no drop.  Returns the odinann
+    engine, its post-build state and the queries (for the A/B)."""
+    from repro_torch import random as jr
+    from repro_torch.core import Engine, check_invariants
+    from repro_torch.data import insert_stream, query_stream
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    qs = query_stream(gen, cents, WAVE)
+    vs = insert_stream(gen, cents, WAVE, drift=0.2)
+    bundle = eng.bundle(state)
+    n_max = state.store.n_max
+    out = {}
+    for name in ("navis",) + BASELINES:
+        e = Engine(_spec_fineweb(name, n_max))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = e.build(jr.PRNGKey(42), vecs, shared=bundle)
+        torch.cuda.synchronize()
+        adopt_s = time.perf_counter() - t0
+        launched = dict(ops.launches)
+        t0 = time.perf_counter()
+        ids, dists, stats, st_s = e.search_many(st, qs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s_launch = {k: v - launched[k] for k, v in ops.launches.items()}
+        search = dict(wall_s=wall, qps=WAVE / wall,
+                      mean_rounds=float(stats.serial_rounds.double().mean()),
+                      **_io_per_op(st.ctr_search, st_s.ctr_search, WAVE),
+                      timing=e.last_wave_timing, launches=s_launch)
+        launched = dict(ops.launches)
+        t0 = time.perf_counter()
+        istats, st_i = e.insert_many(st, vs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        i_launch = {k: v - launched[k] for k, v in ops.launches.items()}
+        insert = dict(wall_s=wall, inserts_per_s=WAVE / wall,
+                      mean_rounds=float(
+                          istats.serial_rounds.double().mean()),
+                      **_io_per_op(st.ctr_insert, st_i.ctr_insert, WAVE),
+                      write_bytes_per_insert=float(
+                          istats.write_bytes.double().mean()),
+                      dropped=int(istats.dropped.sum()),
+                      timing=e.last_wave_timing, launches=i_launch)
+        packed = e.spec.layout == "packed"
+        inv = check_invariants(st_i.store)
+        budget = _page_budget_ok(torch, st_i.store, packed=packed)
+        fields = dict(adopt_s=adopt_s, search=search, insert=insert,
+                      invariants=all(inv.values()), page_budget_ok=budget)
+        if name == "freshdiskann":
+            fields["buffer"] = _fineweb_merge(torch, e, st_i, vs)
+        emit(f"presets:fineweb_like:{name}", **fields)
+        require(all(inv.values()) and budget and insert["dropped"] == 0,
+                f"presets:fineweb_like:{name}: invariants {inv}, page "
+                f"budget {budget}, dropped {insert['dropped']}")
+        require(bool(torch.isfinite(dists[ids >= 0]).all()),
+                f"presets:fineweb_like:{name}: non-finite distance")
+        out[name] = dict(
+            ids=ids, dists=dists,
+            vec_bytes=search["useful_vec_bytes_read"] +
+            search["wasted_vec_bytes_read"],
+            write_bytes=insert["write_bytes_per_insert"])
+        if name == "odinann":
+            ab = (e, st, qs)
+    full = ("odinann", "odinann_cache", "layout_only", "freshdiskann")
+    same = {n: bool(torch.equal(out[n]["ids"], out["odinann"]["ids"]) and
+                    torch.equal(out[n]["dists"], out["odinann"]["dists"]))
+            for n in full[1:]}
+    sel_ids = bool(torch.equal(out["sel_vec"]["ids"], out["navis"]["ids"]))
+    gates = dict(
+        full_rerank_presets_identical=same,
+        sel_vec_ids_equal_navis=sel_ids,
+        vec_bytes_read_per_query={n: out[n]["vec_bytes"]
+                                  for n in ("sel_vec", "layout_only")},
+        write_bytes_per_insert={n: out[n]["write_bytes"]
+                                for n in ("sel_vec", "odinann")})
+    emit("presets:fineweb_like", **gates)
+    require(all(same.values()), f"presets: layout, cache or buffer changed "
+            f"a result: {same}")
+    require(sel_ids, "presets: sel_vec's ids differ from navis's")
+    require(out["sel_vec"]["vec_bytes"] < out["layout_only"]["vec_bytes"],
+            "presets: CASR read no fewer vector bytes than the full rerank")
+    require(out["sel_vec"]["write_bytes"] < out["odinann"]["write_bytes"],
+            "presets: the decoupled layout wrote no fewer bytes per insert "
+            "than the packed one")
+    return ab
+
+
+def _fineweb_merge(torch, eng, state, vs) -> dict:
+    """After FreshDiskANN's buffered wave: ``needs_merge``, a search wave
+    for the buffered vectors (each its own top hit, at ``n_max + slot``),
+    then one timed ``merge`` with its I/O."""
+    from repro_torch.core import check_invariants
+    n_max = state.store.n_max
+    due = eng.needs_merge(state)
+    t0 = time.perf_counter()
+    ids, _, _, _ = eng.search_many(state, vs)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    slots = torch.arange(vs.shape[0], device="cuda", dtype=torch.int32)
+    hits = int((ids[:, 0] == n_max + slots).sum())
+    count0, buffered = state.store.count, state.buf_count
+    t0 = time.perf_counter()
+    mstats, merged = eng.merge(state)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    inv = check_invariants(merged.store)
+    out = dict(needs_merge=due, buffered=buffered,
+               buffer_hit_search_s=search_s, buffered_on_top=hits,
+               merge_s=merge_s, merge_s_per_insert=merge_s / buffered,
+               merge_io=_io_per_op(state.ctr_insert, merged.ctr_insert, 1),
+               merge_write_bytes=int(mstats.write_bytes),
+               count_growth=merged.store.count - count0,
+               buf_count_after=merged.buf_count,
+               invariants=all(inv.values()),
+               page_budget_ok=_page_budget_ok(torch, merged.store,
+                                              packed=True))
+    require(due and hits == vs.shape[0],
+            f"presets: the buffered wave: needs_merge {due}, {hits} of "
+            f"{vs.shape[0]} buffered vectors on top")
+    require(out["count_growth"] == buffered and merged.buf_count == 0 and
+            out["merge_io"]["write_requests"] > 0 and out["invariants"] and
+            out["page_budget_ok"], f"presets: merge {out}")
+    return out
 
 
 def _pq_scan_recall(torch, eng, state, qs, truth, n: int, depth: int):
@@ -903,7 +1235,7 @@ def _pq_scan_recall(torch, eng, state, qs, truth, n: int, depth: int):
     return float(hits.float().mean())
 
 
-def phase_ab(torch, eng, state, qs, vecs) -> None:
+def phase_ab(torch, eng, state, qs, vecs, label: str = "ab") -> None:
     """One wave with the kernels, then under plain_on_device(): ids equal
     outside near ties, distances within the rerank grade, and each query
     whose ids are equal with the same I/O (reads, bytes, serial rounds,
@@ -929,20 +1261,21 @@ def phase_ab(torch, eng, state, qs, vecs) -> None:
         tie = ok & ((da - db).abs() <= RERANK_ATOL + RERANK_RTOL *
                     torch.maximum(da.abs(), db.abs()))
         near_ties = int(tie.sum())
-        require(bool(tie.all()), f"ab: {int((~tie).sum())} id slots differ "
-                "beyond the rerank tolerance")
+        require(bool(tie.all()), f"{label}: {int((~tie).sum())} id slots "
+                "differ beyond the rerank tolerance")
     same = ~differ & (ids_k >= 0)
     d_ok = bool(torch.allclose(d_k[same], d_p[same], rtol=RERANK_RTOL,
                                atol=RERANK_ATOL))
-    emit("ab", queries=int(qs.shape[0]), identical_slots=int(same.sum()),
+    emit(label, queries=int(qs.shape[0]), identical_slots=int(same.sum()),
          near_tie_slots=near_ties, dists_within_tolerance=d_ok,
          queries_with_equal_ids=int(same_q.sum()),
          equal_io_among_them=int((io_same & same_q).sum()),
          launch_counts_flat_under_plain=flat)
-    require(flat, "ab: kernels launched under plain_on_device()")
-    require(d_ok, "ab: distances outside the rerank tolerance")
+    require(flat, f"{label}: kernels launched under plain_on_device()")
+    require(d_ok, f"{label}: distances outside the rerank tolerance")
     require(bool(io_same[same_q].all()),
-            "ab: a query with equal ids has other I/O under the plain path")
+            f"{label}: a query with equal ids has other I/O under the plain "
+            "path")
 
 
 def main() -> int:
@@ -958,38 +1291,56 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    started = {}
+
+    def start(path: str) -> None:
+        ops.reset_launches()
+        started[path] = time.perf_counter()
+
     def path_counts(path: str) -> dict:
         counts = dict(ops.launches)
         emit("kernels" if path == "search" else f"kernels:{path}",
-             launches=counts)
-        require(all(counts[k] > 0 for k in MAIN_PATH_KERNELS) and
-                all(counts[k] == 0 for k in OFF_PATH_KERNELS),
-                f"{path} path launches: want {MAIN_PATH_KERNELS} launched "
-                f"and {OFF_PATH_KERNELS} not, got {counts}")
+             launches=counts,
+             path_s=time.perf_counter() - started[path])
+        on, off = PATH_KERNELS[path]
+        require(all(counts[k] > 0 for k in on) and
+                all(counts[k] == 0 for k in off),
+                f"{path} path launches: want {on} launched and {off} not, "
+                f"got {counts}")
         return counts
 
     try:
         env = phase_env(torch)
         records = phase_kernels(torch)
         # the search path
-        ops.reset_launches()
+        start("search")
         small = phase_small(torch)
         fw_eng, fw_state, fw_qs, fw_vecs, fw_cents = phase_fineweb(torch)
         search = path_counts("search")
         phase_ab(torch, fw_eng, fw_state, fw_qs, fw_vecs)
         # the update path
-        ops.reset_launches()
+        start("update")
         phase_small_update(torch, *small)
         phase_fineweb_update(torch, fw_eng, fw_state, fw_cents)
         update = path_counts("update")
         phase_ab_update(torch, fw_eng, fw_state, fw_cents)
+        # the presets path
+        start("presets")
+        phase_presets_small(torch, *small)
+        ab_eng, ab_state, ab_qs = phase_presets_fineweb(
+            torch, fw_eng, fw_state, fw_vecs, fw_cents)
+        presets = path_counts("presets")
+        phase_ab(torch, ab_eng, ab_state, ab_qs, fw_vecs,
+                 label="ab:presets:search")
+        phase_ab_update(torch, ab_eng, ab_state, fw_cents,
+                        label="ab:presets:insert", time_casr=False)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    paths = {"search": search, "update": update, "presets": presets}
     for name, rec in records.items():
-        rec["launches"] = search[name] + update[name]
-        rec["launches_by_path"] = {"search": search[name],
-                                   "update": update[name]}
+        rec["launches"] = sum(p[name] for p in paths.values())
+        rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}
     print(json.dumps({"kernels": list(records.values())}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,21 @@
-"""The NAVIS engine (port of ``repro/core/engine.py``), ``navis`` preset.
+"""The NAVIS engine (port of ``repro/core/engine.py``): one engine, and
+every paper baseline a configuration of it.
 
-``Engine(preset("navis", dim=768)).build(key, vectors)`` builds the index.
-Then, as in the reference:
+=================  =========  ======  ========  ==============  ===========
+system             layout     rerank  entrance  cache           update path
+=================  =========  ======  ========  ==============  ===========
+freshdiskann       packed     full    static    none            buffered
+odinann            packed     full    static    none            inplace
+odinann_cache      packed     full    static    navis (packed)  inplace
+layout_only        decoupled  full    static    none            inplace
+sel_vec            decoupled  casr    static    none            inplace
+navis              decoupled  casr    dynamic   navis           inplace
+=================  =========  ======  ========  ==============  ===========
+
+``Engine(preset(name, dim=768)).build(key, vectors)`` builds the index;
+``build(key, vectors, shared=other.bundle(state))`` adopts another
+engine's graph and re-pages it for this engine's layout.  Then, as in
+the reference:
 
 - ``search_many(state, queries)`` runs a wave of queries against one
   snapshot and replays their page traces into the shared cache in query
@@ -17,11 +31,19 @@ Then, as in the reference:
   through the cache page by page.
 - ``delete`` / ``delete_many`` tombstone ids and scrub dropped entrance
   members' reciprocal edges.
+- The buffered path (FreshDiskANN) appends inserts to an in-memory
+  buffer with no I/O; searches merge exact buffer hits (virtual ids
+  ``n_max + slot``); ``merge`` inserts the buffered vectors in place, one
+  after another through one shared page buffer, then charges the
+  stream rewrite of the whole index.  ``needs_merge`` says when.
+- The full-rerank baselines rerank every pool candidate and move the
+  useful share of their vector bytes, by the CASR classifier, from
+  wasted to useful (Fig. 4a).  ``calibrate`` sets the CASR group sizes
+  from warm-up queries.
 
 Every operation leaves its input state untouched and returns a new one:
 it copies the tensors it mutates once per call, then writes them in
-place.  The packed and full-rerank presets, the buffered path and
-maintenance come in later slices and raise ``NotImplementedError``.
+place.  Maintenance comes in a later slice.
 """
 from __future__ import annotations
 
@@ -29,6 +51,7 @@ import dataclasses
 import time
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import random as jr
@@ -39,11 +62,12 @@ from repro_torch.core import graph as graph_mod
 from repro_torch.core import insert as insert_mod
 from repro_torch.core import pq as pq_mod
 from repro_torch.core import search as search_mod
-from repro_torch.core import visited as visited_mod
-from repro_torch.core.iomodel import IOCounters, merge_counters, \
-    sum_counters
-from repro_torch.core.layout import GraphStore, LayoutSpec
+from repro_torch.core.iomodel import IOCounters, PAGE_BYTES, \
+    merge_counters, sum_counters
+from repro_torch.core.layout import GraphStore, LayoutSpec, \
+    assign_initial_pages
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
 
 INF = 3.4e38
 
@@ -177,6 +201,13 @@ def _delta_stats(before: IOCounters, after: IOCounters,
         dropped=dropped)
 
 
+def _zero_stats(dropped: torch.Tensor) -> OpStats:
+    """The stats of operations that did no I/O (buffered appends, skipped
+    lanes), shaped like ``dropped``."""
+    z = torch.zeros(dropped.shape, dtype=torch.int64, device=dropped.device)
+    return OpStats(z, z, z, z, z.to(torch.int32), z, z, dropped)
+
+
 def _stack_stats(stats: list[OpStats]) -> OpStats:
     return OpStats(*[torch.stack(f) for f in zip(*stats)])
 
@@ -215,15 +246,16 @@ class Engine:
         self.codec: Optional[pq_mod.PQCodec] = None
         self._sym: Optional[torch.Tensor] = None
         # host-clock seconds of the last wave.  search_many: traversal +
-        # rerank on the device (until its traces reach the host; the CASR
-        # stage alone, between two syncs, in casr_s), then the cache
-        # replay.  insert_many: seek_s (phase ① until its traces reach the
-        # host), replay_s, commit_s (phase ②, the cache packed)
+        # rerank on the device (until its traces reach the host; the rerank
+        # stage alone, classifier included, between two syncs, in
+        # rerank_s), then the cache replay.  insert_many: seek_s (phase ①
+        # until its traces reach the host), replay_s, commit_s (phase ②,
+        # the cache packed); append_s on the buffered path
         self.last_wave_timing: dict = {}
         # insert_many: RMW re-reads charged, entrance promotions and
         # priority admits of the last wave
         self.last_wave_counts: dict = {}
-        self.last_casr_s = 0.0
+        self.last_rerank_s = 0.0
 
     def set_codec(self, codec: pq_mod.PQCodec) -> None:
         self.codec = codec
@@ -233,9 +265,13 @@ class Engine:
 
     def build(self, key: torch.Tensor, base_vectors: torch.Tensor, *,
               build_block: int = 64, build_e_pos: int = 64,
-              alpha: float = 1.2, progress=None) -> EngineState:
-        """Build the base index over ``base_vectors`` [N, D] (fresh build;
-        adopting a ``shared`` bundle comes with a later slice)."""
+              alpha: float = 1.2, progress=None,
+              shared=None) -> EngineState:
+        """Build the base index over ``base_vectors`` [N, D], or adopt
+        ``shared``, a ``(codec, codes, store)`` bundle from another
+        engine's build on this device (:meth:`bundle`): the graph does not
+        depend on the layout, so sweeps build it once and re-page it for
+        each engine (``layout.assign_initial_pages``)."""
         spec = self.spec
         dev = self.device
         base_vectors = base_vectors.to(dev, torch.float32)
@@ -244,20 +280,26 @@ class Engine:
             raise ValueError(f"vectors have dim {dim}, the spec {spec.dim}")
         n_max = spec.n_max or n_base
         k_pq, k_ent, k_build = jr.split(key.cpu(), 3)
-        if self.codec is None:
-            pick = jr.choice(k_pq, n_base, (min(n_base, 4096),),
-                             replace=False).to(dev)
-            self.codec = pq_mod.train_pq(k_pq, base_vectors[pick], spec.pq_m)
-        self._sym = pq_mod.sym_tables(self.codec)
-        codes = torch.zeros((n_max, spec.pq_m), dtype=torch.uint8,
-                            device=dev)
-        codes[:n_base] = pq_mod.encode(self.codec, base_vectors)
-        padded = torch.zeros((n_max, dim), device=dev)
-        padded[:n_base] = base_vectors
-        store = graph_mod.build_graph(
-            k_build, padded, n_base, spec.lspec, self.codec, codes,
-            n_max=n_max, e_pos=build_e_pos, block=build_block, alpha=alpha,
-            progress=progress)
+        if shared is not None:
+            self.codec, codes, store = shared
+            self._sym = pq_mod.sym_tables(self.codec)
+            store = assign_initial_pages(store, spec.lspec)
+        else:
+            if self.codec is None:
+                pick = jr.choice(k_pq, n_base, (min(n_base, 4096),),
+                                 replace=False).to(dev)
+                self.codec = pq_mod.train_pq(k_pq, base_vectors[pick],
+                                             spec.pq_m)
+            self._sym = pq_mod.sym_tables(self.codec)
+            codes = torch.zeros((n_max, spec.pq_m), dtype=torch.uint8,
+                                device=dev)
+            codes[:n_base] = pq_mod.encode(self.codec, base_vectors)
+            padded = torch.zeros((n_max, dim), device=dev)
+            padded[:n_base] = base_vectors
+            store = graph_mod.build_graph(
+                k_build, padded, n_base, spec.lspec, self.codec, codes,
+                n_max=n_max, e_pos=build_e_pos, block=build_block,
+                alpha=alpha, progress=progress)
 
         c_max = max(int(spec.ent_frac * n_max * 2), 64)
         if spec.entrance == "none":
@@ -290,6 +332,11 @@ class Engine:
             young_mask=torch.zeros((n_max,), dtype=torch.bool, device=dev),
             ctr_maint=zeros())
 
+    def bundle(self, state: EngineState):
+        """(codec, codes, store): what another engine's ``build(shared=)``
+        adopts."""
+        return (self.codec, state.codes, state.store)
+
     # -- entry-point selection ----------------------------------------------
 
     def _entries(self, state: EngineState, lut: torch.Tensor):
@@ -303,26 +350,39 @@ class Engine:
                                device=lut.device))
         entries, e_ent, _ = search_mod.entrance_search(
             state.ent, lut, state.codes, n_entry=spec.n_entry,
-            pool_size=spec.ent_pool)
+            pool_size=spec.ent_pool, visited=spec.visited_impl)
         return entries, e_ent
+
+    # -- classification (Fig 4a) --------------------------------------------
+
+    def _reclassify(self, counters: IOCounters, qs: torch.Tensor,
+                    pool_ids: torch.Tensor, store: GraphStore
+                    ) -> IOCounters:
+        """Move the CASR classifier's useful share of each lane's
+        provisionally wasted vector bytes into the useful bucket (packed
+        piggybacking and the decoupled full rerank both charge them as
+        wasted): the s = 1 stop point of the lane's pool [B, P], at most
+        its valid count, times the vector size, at most what was charged
+        wasted.  One ``casr_rerank`` launch a wave."""
+        spec = self.spec
+        n_useful = casr_mod.casr_stop_point(qs, store.vectors, pool_ids,
+                                            k=spec.k, s=1)
+        n_useful = torch.minimum(n_useful, (pool_ids >= 0).sum(1))
+        moved = torch.minimum(n_useful * spec.lspec.vector_bytes,
+                              counters.wasted_vec_bytes_read)
+        return dataclasses.replace(
+            counters,
+            useful_vec_bytes_read=counters.useful_vec_bytes_read + moved,
+            wasted_vec_bytes_read=counters.wasted_vec_bytes_read - moved)
 
     # -- search --------------------------------------------------------------
 
-    def _check_sliced(self) -> None:
-        spec = self.spec
-        if (spec.layout, spec.rerank, spec.update_path,
-                spec.visited_impl) != ("decoupled", "casr", "inplace",
-                                       "hash"):
-            raise NotImplementedError(
-                "this port runs the decoupled + CASR + in-place path with "
-                "hashed visited sets; the other presets come later")
-
     def _search_core(self, state: EngineState, qs: torch.Tensor,
                      cache=None):
-        """Traverse + CASR, one lane per query: a wave against the frozen
-        snapshot ``state.cache``, or one query threaded through ``cache``
-        (a :class:`cache.HostCache`).  Returns (ids, dists, stats,
-        counters, traverse result)."""
+        """Traverse + rerank (+ the buffer's hits), one lane per query: a
+        wave against the frozen snapshot ``state.cache``, or one query
+        threaded through ``cache`` (a :class:`cache.HostCache`).  Returns
+        (ids, dists, stats, counters, traverse result)."""
         spec = self.spec
         b = qs.shape[0]
         ctr0 = IOCounters.zeros((b,), qs.device)
@@ -332,7 +392,7 @@ class Engine:
             state.store, spec.lspec, lut, state.codes,
             state.cache if cache is None else cache, ctr0,
             entries, pool_size=spec.e_search, beam_width=spec.beam_width,
-            max_hops=spec.max_hops)
+            max_hops=spec.max_hops, visited=spec.visited_impl)
         ctr = res.counters
         dead = (res.pool_ids >= 0) & \
             state.tombstone[res.pool_ids.clamp(min=0).long()]
@@ -341,20 +401,49 @@ class Engine:
         pool = torch.where(dead, -1, res.pool_ids)
         _sync(qs)
         t0 = time.perf_counter()
-        cres = casr_mod.casr_rerank(state.store, spec.lspec, qs, pool, ctr,
-                                    k=spec.k, s=spec.s_search)
+        if spec.rerank == "casr":
+            cres = casr_mod.casr_rerank(state.store, spec.lspec, qs, pool,
+                                        ctr, k=spec.k, s=spec.s_search)
+            ids, dists, ctr = cres.topk_ids, cres.topk_d, cres.counters
+            rounds = res.hops + cres.rerank_rounds
+        else:
+            ids, dists, _, ctr = search_mod.full_rerank(
+                state.store, spec.lspec, qs, res._replace(pool_ids=pool),
+                ctr, k=spec.k)
+            rounds = res.hops + (1 if spec.layout == "packed" else 2)
+            ctr = self._reclassify(ctr, qs, pool, state.store)
         _sync(qs)
-        self.last_casr_s = time.perf_counter() - t0
-        rounds = res.hops + cres.rerank_rounds
-        stats = _delta_stats(ctr0, cres.counters, rounds)
-        return cres.topk_ids, cres.topk_d, stats, cres.counters, res
+        self.last_rerank_s = time.perf_counter() - t0
+        if spec.update_path == "buffered":
+            ids, dists = self._merge_buffer_hits(state, qs, ids, dists)
+        stats = _delta_stats(ctr0, ctr, rounds)
+        return ids, dists, stats, ctr, res
+
+    def _merge_buffer_hits(self, state: EngineState, qs: torch.Tensor,
+                           ids: torch.Tensor, dists: torch.Tensor):
+        """FreshDiskANN: merge each lane's exact distances to the buffered
+        vectors (no I/O) into its top-k.  Buffer ids are virtual, ``n_max
+        + slot``: the vectors are not in the graph yet.  The buffer is
+        scored in place by slot (one ``rerank_l2_rows`` launch) and merged
+        in chunks that fit the merge kernel."""
+        spec = self.spec
+        b = qs.shape[0]
+        slots = torch.arange(spec.buffer_max, dtype=torch.int32,
+                             device=qs.device)
+        slots = torch.where(slots < state.buf_count, slots, -1)
+        bids = slots[None].expand(b, -1).contiguous()
+        bd = kernel_ops.rerank_l2_rows(qs.contiguous(), state.buf_vecs,
+                                       bids)
+        d, i = kernel_ops.pool_merge_chunked(
+            torch.where(ids >= 0, dists, INF), ids.contiguous(), bd,
+            torch.where(bids >= 0, bids + state.store.n_max, -1))
+        return torch.where(d < INF, i, -1), d
 
     def search_many(self, state: EngineState, queries: torch.Tensor):
         """Batch-parallel search fan-out: the whole wave runs against one
         snapshot, then the traces replay in query order into the shared
         cache and the per-query counters add up.  Returns (ids [Q, k],
         dists [Q, k], per-query OpStats, new state)."""
-        self._check_sliced()
         qs = queries.to(self.device, torch.float32)
         t0 = time.perf_counter()
         ids, dists, stats, ctrs, res = self._search_core(state, qs)
@@ -362,7 +451,7 @@ class Engine:
         t1 = time.perf_counter()
         _, cache = cache_mod.apply_traces(state.cache, traces)
         self.last_wave_timing = {"wave_s": t1 - t0,
-                                 "casr_s": self.last_casr_s,
+                                 "rerank_s": self.last_rerank_s,
                                  "replay_s": time.perf_counter() - t1}
         state = dataclasses.replace(
             state, cache=cache,
@@ -379,7 +468,6 @@ class Engine:
         """Searches one after another, the cache and the search counters
         threaded through them.  Returns (ids [Q, k], dists [Q, k],
         per-query OpStats, new state)."""
-        self._check_sliced()
         qs = queries.to(self.device, torch.float32)
         host = cache_mod.HostCache(state.cache)
         ids, dists, stats, ctrs = [], [], [], []
@@ -396,30 +484,27 @@ class Engine:
 
     # -- insert ---------------------------------------------------------------
 
-    def _empty_page_seen(self) -> visited_mod.HashVisited:
-        """What a skipped insert hands back for its traversal's pages."""
-        spec = self.spec
-        hv = visited_mod.make_hash(spec.max_hops * spec.beam_width, 1,
-                                   self.device)
-        return visited_mod.HashVisited(hv.keys[0], hv.count[0],
-                                       hv.overflow[0])
-
     def _insert_one(self, st: EngineState, v: torch.Tensor,
-                    host: cache_mod.HostCache):
-        """One sequential insertion (the reference's ``_insert_inplace``)
-        into ``st``, which the caller owns (written in place; the returned
-        state shares its tensors), its cache unpacked in ``host``.
-        Returns (stats, state, page_seen)."""
+                    host: cache_mod.HostCache,
+                    page_seen: torch.Tensor | None = None):
+        """One sequential in-place insertion (the reference's
+        ``_insert_inplace``) into ``st``, which the caller owns (written
+        in place; the returned state shares its tensors), its cache
+        unpacked in ``host``.  ``page_seen`` [P_max] seeds the traversal's
+        page buffer (a merge's shared one).  Returns (stats, state,
+        page_seen)."""
         spec = self.spec
         dev = self.device
         ctr0 = IOCounters.zeros((), dev)
         # capacity guard: with no free slot left past n_max the insertion
         # is skipped before it reserves a page, and flagged dropped
         if st.store.count >= st.store.n_max and st.free_count <= 0:
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            return (_delta_stats(ctr0, ctr0, zero, torch.ones(
-                (), dtype=torch.bool, device=dev)), st,
-                self._empty_page_seen())
+            if page_seen is None:
+                page_seen = search_mod.empty_page_seen(
+                    st.store, visited=spec.visited_impl,
+                    max_hops=spec.max_hops, beam_width=spec.beam_width)
+            return (_zero_stats(torch.ones((), dtype=torch.bool,
+                                           device=dev)), st, page_seen)
         lut = pq_mod.adc_lut(self.codec, v[None])
         entries, e_ent = self._entries(st, lut)
         # reclaimed slots are reused before fresh ones
@@ -431,8 +516,15 @@ class Engine:
         ires = insert_mod.insert_vertex(
             st.store, spec.lspec, self.codec, st.codes, self._sym, host,
             ctr0, v, entries[0], e_pos=spec.e_pos, k=spec.k, s=spec.s_pos,
-            beam_width=spec.beam_width, max_hops=spec.max_hops,
-            tombstone=st.tombstone, new_id=slot)
+            rerank=spec.rerank, beam_width=spec.beam_width,
+            max_hops=spec.max_hops, tombstone=st.tombstone,
+            page_seen=page_seen, visited=spec.visited_impl, new_id=slot)
+        ctr = ires.counters
+        if spec.rerank == "full":
+            # the classifier reads the post-commit store, as the reference
+            ctr = self._reclassify(
+                ctr.map(lambda x: x[None]), v[None], ires.pool_ids[None],
+                ires.store).map(lambda x: x[0])
         ent = st.ent
         if spec.entrance == "dynamic":
             count0 = ent.count
@@ -444,31 +536,57 @@ class Engine:
                 # entrance-aware hint (§7): a promoted member's edgelist
                 # page seeds future traversals
                 host.priority_admit(int(ires.store.edge_page[slot]))
-        stats = _delta_stats(ctr0, ires.counters,
-                             ires.hops + ires.rerank_rounds)
+        stats = _delta_stats(ctr0, ctr, ires.hops + ires.rerank_rounds)
         st.tombstone[slot] = False
         st.free_mask[slot] = False
         st.young_mask[slot] = True
         st = dataclasses.replace(
             st, store=ires.store, ent=ent,
             n_deleted=st.n_deleted - reuse, free_count=st.free_count - reuse,
-            ctr_insert=merge_counters(st.ctr_insert, ires.counters))
+            ctr_insert=merge_counters(st.ctr_insert, ctr))
         return stats, st, ires.page_seen
+
+    def _append_buffer(self, state: EngineState, vs: torch.Tensor,
+                       keep: list[bool]):
+        """FreshDiskANN's insert: append the kept vectors of ``vs`` [B, D]
+        to the in-memory buffer, in order, with no storage I/O; past the
+        buffer's capacity a vector is dropped.  Returns (per-insert
+        OpStats [B], new state); ``needs_merge`` says when to merge."""
+        cap = self.spec.buffer_max
+        count, lanes, dropped = state.buf_count, [], []
+        for i, k in enumerate(keep):
+            dropped.append(k and count >= cap)
+            if k and count < cap:
+                lanes.append(i)
+                count += 1
+        buf = state.buf_vecs
+        if lanes:
+            buf = buf.clone()
+            buf[state.buf_count:count] = vs[lanes]
+        stats = _zero_stats(torch.tensor(dropped, device=self.device))
+        return stats, dataclasses.replace(state, buf_vecs=buf,
+                                          buf_count=count)
 
     def insert(self, state: EngineState, v: torch.Tensor):
         """One sequential insertion.  Returns (stats, new state,
-        page_seen: the pages its traversal read)."""
-        self._check_sliced()
+        page_seen: the pages its traversal read; an all-false [P_max] map
+        on the buffered path, which reads none)."""
+        v = v.to(self.device, torch.float32)
+        if self.spec.update_path == "buffered":
+            stats, st = self._append_buffer(state, v[None], [True])
+            return (OpStats(*[f[0] for f in stats]), st,
+                    torch.zeros((state.store.p_max,), dtype=torch.bool,
+                                device=self.device))
         host = cache_mod.HostCache(state.cache)
-        stats, st, seen = self._insert_one(
-            _owned(state), v.to(self.device, torch.float32), host)
+        stats, st, seen = self._insert_one(_owned(state), v, host)
         return stats, dataclasses.replace(st, cache=host.state()), seen
 
     def insert_batch(self, state: EngineState, vectors: torch.Tensor):
         """Insertions one after another (the reference's scan).  Returns
         (per-insert OpStats [B], new state)."""
-        self._check_sliced()
         vs = vectors.to(self.device, torch.float32)
+        if self.spec.update_path == "buffered":
+            return self._append_buffer(state, vs, [True] * vs.shape[0])
         host = cache_mod.HostCache(state.cache)
         st, stats = _owned(state), []
         for i in range(vs.shape[0]):
@@ -498,11 +616,15 @@ class Engine:
         order (no commit reads the cache), so the commits queue on the
         device without a sync.
 
+        On the buffered path there is nothing to fan out: the kept
+        vectors are appended to the buffer in order (no position seeking,
+        no kernels).
+
         ``valid`` [B] masks padding lanes: they charge nothing, replay
         nothing and commit nothing.  Returns (per-insert OpStats [B], new
-        state); ``last_wave_timing`` holds seek_s, replay_s and commit_s.
+        state); ``last_wave_timing`` holds seek_s, replay_s and commit_s
+        (append_s on the buffered path).
         """
-        self._check_sliced()
         spec = self.spec
         dev = self.device
         vs = vectors.to(dev, torch.float32)
@@ -510,6 +632,11 @@ class Engine:
         ok = (torch.ones((b,), dtype=torch.bool, device=dev) if valid is None
               else valid.to(dev, torch.bool))
         keep = ok.tolist()
+        if spec.update_path == "buffered":
+            t0 = time.perf_counter()
+            out = self._append_buffer(state, vs, keep)
+            self.last_wave_timing = {"append_s": time.perf_counter() - t0}
+            return out
 
         # -- phase ①: concurrent position seek on the frozen snapshot -----
         t0 = time.perf_counter()
@@ -519,10 +646,15 @@ class Engine:
         seek = insert_mod.position_seek(
             state.store, spec.lspec, self.codec, state.codes, state.cache,
             IOCounters.zeros((b,), dev), vs, entries, e_pos=spec.e_pos,
-            k=spec.k, s=spec.s_pos, beam_width=spec.beam_width,
-            max_hops=spec.max_hops, tombstone=state.tombstone)
+            k=spec.k, s=spec.s_pos, rerank=spec.rerank,
+            beam_width=spec.beam_width, max_hops=spec.max_hops,
+            tombstone=state.tombstone, visited=spec.visited_impl)
+        ctrs = seek.counters
+        if spec.rerank == "full":
+            # the classifier reads the snapshot, as the reference's wave
+            ctrs = self._reclassify(ctrs, vs, seek.pool_ids, state.store)
         # padding lanes charge nothing and replay nothing
-        ctrs = seek.counters.map(lambda x: torch.where(ok, x, 0))
+        ctrs = ctrs.map(lambda x: torch.where(ok, x, 0))
         rounds = torch.where(ok, seek.hops + seek.rerank_rounds, 0)
         traces = torch.where(ok[:, None], seek.trace, -1).cpu()
         t1 = time.perf_counter()
@@ -564,7 +696,8 @@ class Engine:
                                             vs[i], nbrs, st.codes,
                                             self._sym, slot)
             store = sres.store
-            hints.append(sres.dead_pages)
+            if sres.dead_pages is not None:      # decoupled layout only
+                hints.append(sres.dead_pages)
             insert_mod.mark_dirty_pages(dirty, store, slot, nbrs,
                                         sres.modified)
             promoted = False
@@ -585,7 +718,9 @@ class Engine:
         # the commits' cache effects in commit order: eviction hints, then
         # the promoted member's admit
         if plan and host.policy != cache_mod.POLICIES["none"]:
-            for dead, page in zip(torch.stack(hints).tolist(), admits):
+            dead_lists = (torch.stack(hints).tolist() if hints
+                          else [[]] * len(admits))
+            for dead, page in zip(dead_lists, admits):
                 for p in dead:
                     if p >= 0:
                         host.invalidate(p)
@@ -610,6 +745,74 @@ class Engine:
             "promotions": ent.count - state.ent.count,
             "priority_admits": sum(p >= 0 for p in admits)}
         return stats, st
+
+    # -- FreshDiskANN's merge ------------------------------------------------
+
+    def needs_merge(self, state: EngineState) -> bool:
+        """The buffer holds at least ``buffer_frac`` of the index (float32
+        arithmetic, as the reference), or is full, and is not empty."""
+        frac = np.float32(self.spec.buffer_frac) * np.float32(
+            state.store.count)
+        thresh = max(int(frac), 1)
+        return (state.buf_count >= min(thresh, self.spec.buffer_max) and
+                state.buf_count > 0)
+
+    def merge(self, state: EngineState):
+        """FreshDiskANN StreamingMerge: insert every buffered vector in
+        place, one after another through the threaded cache, their
+        traversals sharing one dense page buffer (a page one of them read
+        is free for the rest: the batched reads of a merge), then charge
+        the stream rewrite of the whole index (every page read once and
+        written once) and empty the buffer.  Returns (merge OpStats, new
+        state)."""
+        spec = self.spec
+        host = cache_mod.HostCache(state.cache)
+        st = _owned(state)
+        page_seen = torch.zeros((st.store.p_max,), dtype=torch.bool,
+                                device=self.device)
+        for i in range(state.buf_count):
+            _, st, seen = self._insert_one(st, state.buf_vecs[i], host,
+                                           page_seen=page_seen)
+            page_seen = page_seen | seen
+        n_pages = -(-st.store.count // spec.lspec.per_page)
+        ctr = st.ctr_insert
+        ctr = dataclasses.replace(
+            ctr, read_requests=ctr.read_requests + n_pages,
+            write_requests=ctr.write_requests + n_pages,
+            pad_bytes_read=ctr.pad_bytes_read + n_pages * PAGE_BYTES,
+            pad_bytes_written=ctr.pad_bytes_written + n_pages * PAGE_BYTES)
+        stats = _delta_stats(state.ctr_insert, ctr, torch.zeros(
+            (), dtype=torch.int32, device=self.device))
+        return stats, dataclasses.replace(st, cache=host.state(),
+                                          ctr_insert=ctr, buf_count=0)
+
+    # -- calibration (paper §5.2 warm-up) ----------------------------------
+
+    def calibrate(self, state: EngineState, queries: torch.Tensor
+                  ) -> EngineSpec:
+        """Set ``s_search`` / ``s_pos`` from the 25th percentile of the
+        vectors-to-converge distribution over warm-up queries (~100), for
+        pools of ``e_search`` and ``e_pos``.  Pools do not depend on the
+        cache, so one frozen wave per pool size gives the reference's
+        (whose threaded cache it throws away).  Installs and returns the
+        new spec."""
+        spec = self.spec
+        qs = queries.to(self.device, torch.float32)
+        b = qs.shape[0]
+        lut = pq_mod.adc_lut(self.codec, qs)
+        entries, _ = self._entries(state, lut)
+        s_vals = {}
+        for name, pool_size in (("s_search", spec.e_search),
+                                ("s_pos", spec.e_pos)):
+            res = search_mod.disk_traverse(
+                state.store, spec.lspec, lut, state.codes, state.cache,
+                IOCounters.zeros((b,), self.device), entries,
+                pool_size=pool_size, beam_width=spec.beam_width,
+                max_hops=spec.max_hops, visited=spec.visited_impl)
+            s_vals[name] = max(casr_mod.calibrate_group_size(
+                state.store.vectors, res.pool_ids, qs, k=spec.k), 1)
+        self.spec = spec.with_(**s_vals)
+        return self.spec
 
     # -- delete (paper §11) ---------------------------------------------------
 

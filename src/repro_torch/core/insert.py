@@ -3,10 +3,12 @@
 
 Position seeking is a full graph traversal with a large explored pool
 (|E_pos| ≫ |E_search|) whose only job is to surface ~R adequate neighbors
-for the new vertex; it reuses :func:`search.disk_traverse` and CASR at
-``s_pos``.  :func:`position_seek` runs a wave of seeks batch-first against
-a frozen snapshot (``insert_many``'s phase ①) or one seek threaded through
-a :class:`cache.HostCache` (the sequential insert).
+for the new vertex; it reuses :func:`search.disk_traverse` and reranks
+with CASR at ``s_pos`` or, in the baselines, with the full rerank (the
+whole pool by exact distance, then the first R).  :func:`position_seek`
+runs a wave of seeks batch-first against a frozen snapshot
+(``insert_many``'s phase ①) or one seek threaded through a
+:class:`cache.HostCache` (the sequential insert).
 
 The structural update wires the new vertex to its neighbors, adds
 reciprocal edges (pruning the farthest edge by symmetric-PQ distance when
@@ -397,7 +399,7 @@ class SeekResult(NamedTuple):
     hops: torch.Tensor            # [B] int32
     rerank_rounds: torch.Tensor   # [B] int32
     counters: IOCounters          # [B]
-    page_seen: visited_mod.HashVisited
+    page_seen: visited_mod.VisitedSet | torch.Tensor
     trace: torch.Tensor | None = None     # frozen mode only
     trace_n: torch.Tensor | None = None
 
@@ -407,18 +409,25 @@ def position_seek(store: GraphStore, spec: LayoutSpec,
                   cache: cache_mod.CacheState | cache_mod.HostCache,
                   counters: IOCounters, new_vecs: torch.Tensor,
                   entry_ids: torch.Tensor, *, e_pos: int, k: int, s: int,
-                  beam_width: int = 4, max_hops: int = 512,
-                  tombstone: torch.Tensor | None = None) -> SeekResult:
+                  rerank: str = "casr", beam_width: int = 4,
+                  max_hops: int = 512,
+                  tombstone: torch.Tensor | None = None, page_seen=None,
+                  visited: str = "hash") -> SeekResult:
     """① Position seeking for ``new_vecs`` [B, D]: traverse with a pool of
-    ``e_pos``, mask tombstoned ids out of it, CASR-rerank it in groups of
-    ``s`` (one ``casr_rerank`` launch for the wave on the card) and select
-    the neighbors.  No structural mutation.  A snapshot ``cache`` runs the
-    wave frozen (each lane records its trace); a :class:`cache.HostCache`
-    runs one seek threaded through it (the sequential insert)."""
+    ``e_pos``, mask tombstoned ids out of it, rerank it and select the
+    neighbors.  ``rerank="casr"`` reranks in groups of ``s`` (one
+    ``casr_rerank`` launch for the wave on the card) and orders the pool
+    by :func:`select_neighbors`; ``"full"`` reranks the whole pool (one
+    ``rerank_l2_rows`` launch) and takes its first R, in one rerank
+    round.  No structural mutation.  A snapshot ``cache`` runs the wave
+    frozen (each lane records its trace); a :class:`cache.HostCache` runs
+    one seek threaded through it (the sequential insert).  ``page_seen``
+    and ``visited`` go to the traversal."""
     lut = pq_mod.adc_lut(codec, new_vecs)
     res = search_mod.disk_traverse(
         store, spec, lut, codes, cache, counters, entry_ids,
-        pool_size=e_pos, beam_width=beam_width, max_hops=max_hops)
+        pool_size=e_pos, beam_width=beam_width, max_hops=max_hops,
+        page_seen=page_seen, visited=visited)
     counters = res.counters
     pool_ids = res.pool_ids
     if tombstone is not None:
@@ -426,13 +435,22 @@ def position_seek(store: GraphStore, spec: LayoutSpec,
         counters = dataclasses.replace(
             counters, tombstone_skips=counters.tombstone_skips + dead.sum(1))
         pool_ids = torch.where(dead, -1, pool_ids)
-    cres = casr_mod.casr_rerank(store, spec, new_vecs, pool_ids, counters,
-                                k=k, s=s)
-    return SeekResult(nbrs=select_neighbors(pool_ids, cres, store.r),
-                      pool_ids=pool_ids, hops=res.hops,
-                      rerank_rounds=cres.rerank_rounds,
-                      counters=cres.counters, page_seen=res.page_seen,
-                      trace=res.trace, trace_n=res.trace_n)
+    if rerank == "casr":
+        cres = casr_mod.casr_rerank(store, spec, new_vecs, pool_ids,
+                                    counters, k=k, s=s)
+        counters = cres.counters
+        nbrs = select_neighbors(pool_ids, cres, store.r)
+        rounds = cres.rerank_rounds
+    else:
+        ids, _, _, counters = search_mod.full_rerank(
+            store, spec, new_vecs, res._replace(pool_ids=pool_ids),
+            counters, k=pool_ids.shape[1])
+        nbrs = ids[:, :store.r]      # the reference's full_pool_neighbors
+        rounds = torch.ones_like(res.hops)
+    return SeekResult(nbrs=nbrs, pool_ids=pool_ids, hops=res.hops,
+                      rerank_rounds=rounds, counters=counters,
+                      page_seen=res.page_seen, trace=res.trace,
+                      trace_n=res.trace_n)
 
 
 def commit_insert(store: GraphStore, spec: LayoutSpec,
@@ -456,7 +474,9 @@ class InsertResult(NamedTuple):
     pool_ids: torch.Tensor        # [e_pos] E_pos, reused by NAVIS-update
     hops: torch.Tensor            # scalar int32
     rerank_rounds: torch.Tensor   # scalar int32
-    page_seen: visited_mod.HashVisited   # this insert's pages (one lane)
+    # this insert's pages: one lane's visited set, or a raw [P_max] map
+    # (seeded raw, or bitmap mode)
+    page_seen: visited_mod.VisitedSet | torch.Tensor
 
 
 def insert_vertex(store: GraphStore, spec: LayoutSpec,
@@ -464,25 +484,33 @@ def insert_vertex(store: GraphStore, spec: LayoutSpec,
                   sym_tables: torch.Tensor, cache: cache_mod.HostCache,
                   counters: IOCounters, new_vec: torch.Tensor,
                   entry_ids: torch.Tensor, *, e_pos: int, k: int, s: int,
-                  beam_width: int = 4, max_hops: int = 512,
+                  rerank: str = "casr", beam_width: int = 4,
+                  max_hops: int = 512,
                   tombstone: torch.Tensor | None = None,
+                  page_seen: torch.Tensor | None = None,
+                  visited: str = "hash",
                   new_id: int | None = None) -> InsertResult:
     """One sequential in-place insertion of ``new_vec`` [D] from
     ``entry_ids`` [n_entry]: a threaded seek through ``cache`` (advanced
     in place, the commit's eviction hints included), then the commit at
     ``new_id`` (default ``store.count``).  The caller writes the new
-    vector's code into ``codes`` first; ``counters`` is a scalar tally."""
+    vector's code into ``codes`` first; ``counters`` is a scalar tally.
+    ``page_seen`` [P_max] bool seeds the seek's page buffer (a merge
+    shares one across its inserts); the pages it ends with come back."""
     seek = position_seek(
         store, spec, codec, codes, cache, counters.map(lambda x: x[None]),
         new_vec[None], entry_ids[None], e_pos=e_pos, k=k, s=s,
-        beam_width=beam_width, max_hops=max_hops, tombstone=tombstone)
+        rerank=rerank, beam_width=beam_width, max_hops=max_hops,
+        tombstone=tombstone,
+        page_seen=None if page_seen is None else page_seen[None],
+        visited=visited)
     nid = store.count if new_id is None else int(new_id)
     sres = commit_insert(store, spec, cache, seek.counters.map(
         lambda x: x[0]), new_vec, seek.nbrs[0], codes, sym_tables, nid)
-    ps = seek.page_seen
+    ps = seek.page_seen             # lane 0 of a raw map or a visited set
+    ps = (ps[0] if isinstance(ps, torch.Tensor) else type(ps)(
+        *[getattr(ps, f.name)[0] for f in dataclasses.fields(ps)]))
     return InsertResult(
         store=sres.store, counters=sres.counters, new_id=nid,
         pool_ids=seek.pool_ids[0], hops=seek.hops[0],
-        rerank_rounds=seek.rerank_rounds[0],
-        page_seen=visited_mod.HashVisited(ps.keys[0], ps.count[0],
-                                          ps.overflow[0]))
+        rerank_rounds=seek.rerank_rounds[0], page_seen=ps)

@@ -22,6 +22,17 @@ an earlier access of the same traversal evicted misses as it does in the
 reference.  That mode syncs with the host once a hop.  Per hop the ADC
 scoring and the pool merge go through the kernel layer
 (:mod:`repro_torch.kernels.ops`).
+
+Both layouts are ported.  Under the packed layout every page read drags
+its records' vectors along: they are charged as wasted vector bytes (the
+engine's classifier moves the useful share later) and the beam's vectors
+are marked in ``vec_loaded``.  :func:`full_rerank` is the non-CASR
+baseline: it scores every pool candidate by id through
+``rerank_l2_rows`` (one launch a wave) and charges the decoupled
+layout's vector reads.  ``visited="bitmap"`` swaps the hash sets for the
+reference's bitmaps, and a caller may seed the page buffer with a raw
+``[B, P_max]`` bool map (a merge shares one across its inserts), which
+comes back raw.
 """
 from __future__ import annotations
 
@@ -48,10 +59,13 @@ def _lut_adc(lut: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor):
 
 def entrance_search(ent: EntranceGraph, lut: torch.Tensor,
                     codes: torch.Tensor, *, n_entry: int,
-                    pool_size: int = 32, max_hops: int = 64):
+                    pool_size: int = 32, max_hops: int = 64,
+                    visited: str = "hash"):
     """In-memory beam search over the entrance graph, one lane per LUT
     (``lut`` [B, M, 256]).  Returns (entry ids [B, n_entry] into the main
-    graph, explored main ids E_ent [B, pool_size], their PQ distances)."""
+    graph, explored main ids E_ent [B, pool_size], their PQ distances).
+    ``visited="bitmap"`` keeps the expanded set as a dense bitmap (the
+    same answers: the hash set never overflows here)."""
     b = lut.shape[0]
     dev = lut.device
     c = ent.c_max
@@ -65,7 +79,8 @@ def entrance_search(ent: EntranceGraph, lut: torch.Tensor,
         seed_ids = torch.full((b, 1), seed_main, dtype=torch.int32,
                               device=dev)
         pool_d[:, :1] = _lut_adc(lut, codes, seed_ids)
-    expanded = visited_mod.make_hash(min(max_hops, c), b, dev)
+    expanded = (visited_mod.make_dense(c, b, dev) if visited == "bitmap"
+                else visited_mod.make_hash(min(max_hops, c), b, dev))
     unexp = pool_idx >= 0
     hops = torch.zeros((b,), dtype=torch.int32, device=dev)
     active = unexp.any(1) & (max_hops > 0)
@@ -105,16 +120,33 @@ class TraverseResult(NamedTuple):
     pool_dists: torch.Tensor     # [B, pool]
     hops: torch.Tensor           # [B] int32
     counters: IOCounters         # [B]
-    page_seen: visited_mod.HashVisited
+    # pages this traversal read: a visited set, or a raw [B, P_max] bool
+    # map when the caller seeded one (or in bitmap mode)
+    page_seen: visited_mod.VisitedSet | torch.Tensor
     # frozen mode only (None in the threaded mode): charged page accesses
     trace: torch.Tensor | None   # [B, max_hops * W] int32, -1 padded
     trace_n: torch.Tensor | None  # [B] int32 valid trace entries
+    vec_loaded: visited_mod.VisitedSet   # vectors dragged in (packed)
 
 
 def _charge_page_read(counters: IOCounters, spec: LayoutSpec,
                       n: torch.Tensor) -> IOCounters:
-    """Account ``n`` 4 KiB edge-page reads (decoupled layout) from the
-    slow tier."""
+    """Account ``n`` 4 KiB page reads from the slow tier.  A packed page
+    carries ``packed_per_page`` records: their vectors are charged as
+    wasted, provisionally (the engine's classifier reclassifies the useful
+    share)."""
+    if spec.kind == "packed":
+        per = spec.packed_per_page
+        payload = per * spec.packed_record_bytes
+        return dataclasses.replace(
+            counters,
+            read_requests=counters.read_requests + n,
+            edge_bytes_read=counters.edge_bytes_read +
+            n * (per * spec.edgelist_bytes),
+            wasted_vec_bytes_read=counters.wasted_vec_bytes_read +
+            n * (per * spec.vector_bytes),
+            pad_bytes_read=counters.pad_bytes_read +
+            n * (PAGE_BYTES - payload))
     per = spec.edgelists_per_page
     payload = per * spec.edgelist_bytes
     return dataclasses.replace(
@@ -127,7 +159,7 @@ def _charge_page_read(counters: IOCounters, spec: LayoutSpec,
 def fetch_edgelists(store: GraphStore, spec: LayoutSpec,
                     cache: cache_mod.CacheState | cache_mod.HostCache,
                     counters: IOCounters,
-                    page_seen: visited_mod.HashVisited, ids: torch.Tensor,
+                    page_seen: visited_mod.VisitedSet, ids: torch.Tensor,
                     valid: torch.Tensor, trace: torch.Tensor | None,
                     trace_n: torch.Tensor | None):
     """Read the edge pages backing each lane's beam ``ids`` [B, W].
@@ -176,20 +208,55 @@ def fetch_edgelists(store: GraphStore, spec: LayoutSpec,
 
 
 def make_traversal_state(*, beam_width: int, max_hops: int, batch: int,
-                         device,
+                         device, pool_size: int = 0, visited: str = "hash",
+                         n_max: int = 0, p_max: int = 0,
                          visited_capacity: int | None = None):
     """The per-lane state ``disk_traverse`` carries, and the one place its
     capacity recipe lives: expansion marks at most ``beam_width`` ids and
     pages per hop for at most ``max_hops`` hops, so ``max_hops *
-    beam_width`` bounds ``expanded`` and ``page_seen`` exactly.  Returns
-    (expanded, page_seen, trace [B, max_hops * beam_width + 1]); the
-    trace's last column takes the writes of uncharged slots."""
+    beam_width`` bounds ``expanded`` and ``page_seen`` exactly;
+    ``vec_loaded`` also takes the pool a full rerank marks.  Bitmap mode
+    uses ``[B, n_max]`` / ``[B, p_max]`` bitmaps instead.  Returns
+    (expanded, vec_loaded, page_seen, trace [B, max_hops * beam_width +
+    1]); the trace's last column takes the writes of uncharged slots."""
     cap = (visited_capacity if visited_capacity is not None
            else max_hops * beam_width)
-    return (visited_mod.make_hash(cap, batch, device),
-            visited_mod.make_hash(cap, batch, device),
-            torch.full((batch, max_hops * beam_width + 1), -1,
-                       dtype=torch.int32, device=device))
+    if visited == "bitmap":
+        sets = (visited_mod.make_dense(n_max, batch, device),
+                visited_mod.make_dense(n_max, batch, device),
+                visited_mod.make_dense(p_max, batch, device))
+    else:
+        sets = (visited_mod.make_hash(cap, batch, device),
+                visited_mod.make_hash(cap + pool_size, batch, device),
+                visited_mod.make_hash(cap, batch, device))
+    return sets + (torch.full((batch, max_hops * beam_width + 1), -1,
+                              dtype=torch.int32, device=device),)
+
+
+def _wrap_page_seen(page_seen, default: visited_mod.VisitedSet,
+                    visited: str):
+    """The caller's page buffer as a visited set, and whether the result
+    goes back raw (a seeded raw ``[B, P_max]`` map, or bitmap mode)."""
+    if page_seen is None:
+        return default, visited == "bitmap"
+    if isinstance(page_seen, (visited_mod.DenseVisited,
+                              visited_mod.HashVisited)):
+        return page_seen, False
+    return visited_mod.DenseVisited(page_seen), True
+
+
+def empty_page_seen(store: GraphStore, *, visited: str = "hash",
+                    max_hops: int, beam_width: int):
+    """One lane's empty page buffer, of the kind ``disk_traverse`` would
+    create (a raw ``[P_max]`` bitmap in bitmap mode), for a caller that
+    hands one back for an operation that traversed nothing."""
+    _, _, ps, _ = make_traversal_state(
+        beam_width=beam_width, max_hops=max_hops, batch=1,
+        device=store.device, visited=visited, n_max=store.n_max,
+        p_max=store.p_max)
+    if visited == "bitmap":
+        return ps.bits[0]
+    return visited_mod.HashVisited(ps.keys[0], ps.count[0], ps.overflow[0])
 
 
 def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
@@ -197,6 +264,7 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
                   cache: cache_mod.CacheState | cache_mod.HostCache,
                   counters: IOCounters, entry_ids: torch.Tensor, *,
                   pool_size: int, beam_width: int = 4, max_hops: int = 512,
+                  page_seen=None, visited: str = "hash",
                   visited_capacity: int | None = None) -> TraverseResult:
     """Greedy beam search, one lane per LUT.
 
@@ -205,13 +273,13 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
     ``frozen_cache=False``: one lane, the cache evolves in place, no
     trace).  ``entry_ids`` [B, n_entry] main ids (-1 padded);
     ``counters`` [B].  A lane converges when no unexpanded candidate
-    remains in its top ``pool_size``.  ``visited_capacity`` overrides the
-    exact mark bound ``max_hops * beam_width`` (smaller values saturate: a
-    lane may re-expand vertices, counted in ``visited_overflow``).
+    remains in its top ``pool_size``.  ``page_seen`` seeds the page buffer
+    (a visited set, or a raw ``[B, P_max]`` bool map, handed back raw).
+    ``visited`` picks hash sets or bitmaps; ``visited_capacity`` overrides
+    the exact mark bound ``max_hops * beam_width`` (smaller values
+    saturate: a lane may re-expand vertices, counted in
+    ``visited_overflow``).
     """
-    if spec.kind != "decoupled":
-        raise NotImplementedError("the packed layout's traversal (vector "
-                                  "piggybacking) comes with a later slice")
     b, n_entry = entry_ids.shape
     threaded = isinstance(cache, cache_mod.HostCache)
     if threaded and b != 1:
@@ -229,9 +297,12 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
                                   entry_ids.gather(1, top), -1)
     pool_d[:, :k] = e_d.gather(1, top)
 
-    expanded, page_seen, trace = make_traversal_state(
+    expanded, vec_loaded, default_ps, trace = make_traversal_state(
         beam_width=beam_width, max_hops=max_hops, batch=b, device=dev,
-        visited_capacity=visited_capacity)
+        pool_size=pool_size, visited=visited, n_max=store.n_max,
+        p_max=store.p_max, visited_capacity=visited_capacity)
+    page_seen, raw_pages = _wrap_page_seen(page_seen, default_ps, visited)
+    ovf0 = visited_mod.overflow(page_seen)
     t = max_hops * beam_width
     trace_n = torch.zeros((b,), dtype=torch.int32, device=dev)
     if threaded:
@@ -250,6 +321,8 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
         edges, counters, page_seen, trace, trace_n = fetch_edgelists(
             store, spec, cache, counters, page_seen, beam, beam_valid,
             trace, trace_n)
+        if spec.kind == "packed":
+            vec_loaded = visited_mod.add(vec_loaded, beam, beam_valid)
 
         # the explored pool is a set: candidates evicted from it may be
         # re-scored later; only expansion is permanent (Vamana semantics)
@@ -276,9 +349,48 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
         counters = dataclasses.replace(counters, hops=counters.hops + step)
         hops += active.to(hops.dtype)
         active = (hops < max_hops) & unexp.any(1)
-    ovf = (visited_mod.overflow(expanded) +
-           visited_mod.overflow(page_seen)).to(torch.int64)
+    ovf = (visited_mod.overflow(expanded) + visited_mod.overflow(vec_loaded)
+           + visited_mod.overflow(page_seen) - ovf0).to(torch.int64)
     counters = dataclasses.replace(
         counters, visited_overflow=counters.visited_overflow + ovf)
-    return TraverseResult(pool_ids, pool_d, hops, counters, page_seen,
-                          None if threaded else trace[:, :t], trace_n)
+    return TraverseResult(pool_ids, pool_d, hops, counters,
+                          page_seen.bits if raw_pages else page_seen,
+                          None if threaded else trace[:, :t], trace_n,
+                          vec_loaded)
+
+
+# ---------------------------------------------------------------------------
+# Full-rerank baseline
+# ---------------------------------------------------------------------------
+
+def full_rerank(store: GraphStore, spec: LayoutSpec, q: torch.Tensor,
+                res: TraverseResult, counters: IOCounters, *, k: int):
+    """Exact-rerank every candidate of each lane's pool ``res.pool_ids``
+    [B, P] (the non-CASR baseline) -> (ids [B, k], dists [B, k],
+    vec_loaded, counters).
+
+    Under the packed layout the vectors rode along with the edge pages (no
+    extra I/O); under the decoupled layout each valid candidate costs one
+    vector read, charged as wasted until the classifier moves the useful
+    share (the naive-unpacking strawman of §3.1), and the pool joins
+    ``vec_loaded``.  The rows are scored by id in one ``rerank_l2_rows``
+    launch, then sorted stably (ties keep pool order)."""
+    ids = res.pool_ids
+    vec_loaded = res.vec_loaded
+    if spec.kind == "decoupled":
+        valid = ids >= 0
+        n = valid.sum(1)
+        counters = dataclasses.replace(
+            counters, read_requests=counters.read_requests + n,
+            wasted_vec_bytes_read=counters.wasted_vec_bytes_read +
+            n * (spec.vector_pages_per_read * PAGE_BYTES))
+        marked = visited_mod.add(vec_loaded, ids, valid)
+        ovf = visited_mod.overflow(marked) - visited_mod.overflow(vec_loaded)
+        counters = dataclasses.replace(
+            counters, visited_overflow=counters.visited_overflow +
+            ovf.to(torch.int64))
+        vec_loaded = marked
+    d = kernel_ops.rerank_l2_rows(q.contiguous(), store.vectors,
+                                  ids.contiguous())
+    d, order = torch.sort(d, dim=1, stable=True)
+    return ids.gather(1, order)[:, :k], d[:, :k], vec_loaded, counters

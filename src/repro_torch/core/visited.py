@@ -15,6 +15,11 @@ change while one key probes.  One chunk almost always settles every lane
 (load factor <= 0.5), so :func:`add` probes all keys of a call at once,
 checks once, and redoes the call key by key (the reference's order) only
 where the shortcut could differ.  Lanes run in parallel.
+
+:class:`DenseVisited` is the reference's bitmap behind the same
+``contains`` / ``add`` API, one ``[n]`` row per lane: the
+``visited_impl="bitmap"`` ablation, and the raw page buffer a merge seeds
+its inserts' traversals with.  It never overflows.
 """
 from __future__ import annotations
 
@@ -40,6 +45,21 @@ class HashVisited:
     @property
     def size(self) -> int:
         return self.keys.shape[1]
+
+
+@dataclasses.dataclass
+class DenseVisited:
+    """Bitmaps, one per lane: O(n) state, O(1) ops."""
+
+    bits: torch.Tensor         # [B, n] bool
+
+
+VisitedSet = DenseVisited | HashVisited
+
+
+def make_dense(n: int, batch: int, device=None) -> DenseVisited:
+    return DenseVisited(bits=torch.zeros((batch, n), dtype=torch.bool,
+                                         device=resolve_device(device)))
 
 
 def table_size(capacity: int) -> int:
@@ -86,9 +106,13 @@ def _probe(table: torch.Tensor, h: torch.Tensor, keys: torch.Tensor,
             slots.gather(-1, fidx)[..., 0])
 
 
-def contains(vs: HashVisited, keys: torch.Tensor) -> torch.Tensor:
+def contains(vs: VisitedSet, keys: torch.Tensor) -> torch.Tensor:
     """Membership of ``keys`` [B, K] in each lane's set -> [B, K] bool
-    (negative keys are never members)."""
+    (negative keys, and keys past a bitmap, are never members)."""
+    if isinstance(vs, DenseVisited):
+        n = vs.bits.shape[1]
+        ok = (keys >= 0) & (keys < n)
+        return vs.bits.gather(1, keys.clamp(0, n - 1).long()) & ok
     size = vs.size
     h = _hash(keys, size)
     found = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
@@ -131,8 +155,8 @@ def _add_key(table, count, overflow, k, ok) -> None:
     overflow += probing.to(overflow.dtype)
 
 
-def add(vs: HashVisited, keys: torch.Tensor, mask: torch.Tensor
-        ) -> HashVisited:
+def add(vs: VisitedSet, keys: torch.Tensor, mask: torch.Tensor
+        ) -> VisitedSet:
     """Insert ``keys[mask]`` ([B, K] or [B]; idempotent, the keys of a lane
     in order).  A lane whose table is full drops the key and bumps
     ``overflow``.
@@ -146,6 +170,13 @@ def add(vs: HashVisited, keys: torch.Tensor, mask: torch.Tensor
     If either case occurs in any lane, the call is redone key by key."""
     if keys.dim() == 1:
         keys, mask = keys[:, None], mask[:, None]
+    if isinstance(vs, DenseVisited):
+        n = vs.bits.shape[1]
+        ok = mask & (keys >= 0) & (keys < n)
+        # masked keys write their slot's own value (a max of False)
+        bits = vs.bits.view(torch.uint8).scatter_reduce(
+            1, keys.clamp(0, n - 1).long(), ok.to(torch.uint8), "amax")
+        return DenseVisited(bits=bits.view(torch.bool))
     size, k = vs.size, keys.shape[1]
     ok = mask & (keys >= 0)
     ar = torch.arange(k, device=keys.device)
@@ -177,5 +208,9 @@ def add(vs: HashVisited, keys: torch.Tensor, mask: torch.Tensor
     return HashVisited(keys=table, count=count, overflow=ovf)
 
 
-def overflow(vs: HashVisited) -> torch.Tensor:
+def overflow(vs: VisitedSet) -> torch.Tensor:
+    """Dropped inserts per lane (always 0 for a bitmap)."""
+    if isinstance(vs, DenseVisited):
+        return torch.zeros((vs.bits.shape[0],), dtype=torch.int32,
+                           device=vs.bits.device)
     return vs.overflow

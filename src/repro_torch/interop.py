@@ -122,6 +122,15 @@ def spec_from(ref) -> engine_mod.EngineSpec:
         for f in dataclasses.fields(engine_mod.EngineSpec)})
 
 
+def bundle_from(ref_bundle, device=None):
+    """The reference's ``Engine.bundle`` ``(codec, codes, store)`` as the
+    port's, for ``Engine.build(shared=...)``."""
+    codec, codes, store = ref_bundle
+    return (codec_from(codec, device),
+            _t(np.asarray(codes), device, torch.uint8),
+            store_from(store, device))
+
+
 def engine_from(ref_engine, device=None) -> engine_mod.Engine:
     """A port engine with the reference engine's spec and codec."""
     eng = engine_mod.Engine(spec_from(ref_engine.spec), device=device)

@@ -34,6 +34,7 @@ SIGNATURES = {
     "pool_merge_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "adc_distance_launch": [_P, _P, _P, _I, _I, _I, _P],
     "rerank_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "rerank_l2_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "casr_rerank_launch": [_P] * 9 + [_I] * 6 + [_P],
 }
 

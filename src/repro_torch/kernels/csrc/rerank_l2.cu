@@ -1,10 +1,17 @@
-// rerank_l2: exact squared L2, d[b, s] = sum_k (xs[b, s, k] - q[b, k])^2.
+// rerank_l2: exact squared L2, d[b, s] = sum_k (xs[b, s, k] - q[b, k])^2,
+// and rerank_l2_rows, the same with the rows read in place by id:
+// d[b, s] = sum_k (vectors[ids[b, s], k] - q[b, k])^2, INF where the id is
+// -1 (NaN where it is past the store, a caller's fault made visible).
 //
 // Replaces the TPU kernel `_rerank_kernel` / `rerank_l2_pallas`
 // (src/repro/kernels/rerank_l2.py), which streams CASR groups of s rows
 // through VMEM and computes ||q||^2 - 2 q.x + ||x||^2 with q.x on the MXU.
-// The main path's CASR stage runs casr_rerank.cu instead; this kernel
-// serves callers that rerank rows they already hold (a full rerank).
+// The CASR stage runs casr_rerank.cu instead.  rerank_l2_rows carries the
+// full rerank (search.full_rerank) and FreshDiskANN's buffer scan, which
+// score a pool of ids or the whole buffer: gathering those rows into a
+// [B, S, D] temporary first would move every byte twice (50 MB for a wave
+// of 256 pools of 64 at D = 768; 3.2 GB for 256 lanes against a buffer of
+// 4,096).  rerank_l2 stays for callers that hold the rows already.
 //
 // What bounds it on an H100: device-memory bytes.  Every candidate row is
 // read once (D * 4 bytes: 3 KiB at D = 768) for 3 flops per element, far
@@ -13,7 +20,9 @@
 //
 // Design: one warp per (lane, row), summing the row with the shared
 // difference-form body in l2_row.cuh.  The sum order differs from the
-// plain version's, hence the rtol 1e-5 / atol 1e-3 grade.
+// plain version's, hence the rtol 1e-5 / atol 1e-3 grade.  Both kernels
+// and casr_rerank.cu run the same body on the same row, so a row's value
+// does not depend on which of them computed it.
 #include "l2_row.cuh"
 
 __global__ void rerank_l2_kernel(const float* __restrict__ q,
@@ -36,5 +45,38 @@ extern "C" int rerank_l2_launch(const void* q, const void* xs, void* out,
   const long long blocks = (warps * 32 + threads - 1) / threads;
   rerank_l2_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)xs, (float*)out, B, S, D);
+  return (int)cudaGetLastError();
+}
+
+__global__ void rerank_l2_rows_kernel(const float* __restrict__ q,
+                                      const float* __restrict__ vectors,
+                                      const int* __restrict__ ids,
+                                      float* __restrict__ out, int B, int S,
+                                      int D, int N) {
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= (long long)B * S) return;
+  const long long b = warp / S;
+  const int id = ids[warp];
+  if (id < 0 || id >= N) {
+    if (lane == 0) out[warp] = id < 0 ? 3.4e38f : __int_as_float(0x7fc00000);
+    return;
+  }
+  const float acc = row_sqdist(vectors + (long long)id * D, q + b * D, D,
+                               lane);
+  if (lane == 0) out[warp] = acc;
+}
+
+extern "C" int rerank_l2_rows_launch(const void* q, const void* vectors,
+                                     const void* ids, void* out, int B,
+                                     int S, int D, int N, void* stream) {
+  const int threads = 256;
+  const long long warps = (long long)B * S;
+  const long long blocks = (warps * 32 + threads - 1) / threads;
+  rerank_l2_rows_kernel<<<(unsigned)blocks, threads, 0,
+                          (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)vectors, (const int*)ids, (float*)out,
+      B, S, D, N);
   return (int)cudaGetLastError();
 }

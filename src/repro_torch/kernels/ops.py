@@ -2,6 +2,12 @@
 ``repro/kernels/ops.py``; ``casr_rerank`` fuses the CASR loop of
 ``repro/core/casr.py`` around the reference's rerank and merge kernels).
 
+Entry points: ``adc_distance``, ``pool_merge`` (and
+``pool_merge_chunked``, successive merges within the kernel's width),
+``rerank_l2`` (rows the caller holds, ``[B, S, D]``), ``rerank_l2_rows``
+(rows read in place by id, ``[B, S]`` ids into ``[N, D]``) and
+``casr_rerank``.
+
 ==============  ===================================================
 tensor device   implementation
 ==============  ===================================================
@@ -32,7 +38,8 @@ import torch
 from repro_torch.kernels import ref
 
 launches = {"pool_merge": 0, "adc_distance": 0, "rerank_l2": 0,
-            "casr_rerank": 0}
+            "rerank_l2_rows": 0, "casr_rerank": 0}
+POOL_MERGE_MAX = 1024    # the merge kernel's width limit, P + Q
 _plain_on_device = False
 _entry: dict = {}       # C entry point name -> ctypes function
 _raw_stream = None      # device index -> its current stream's handle
@@ -131,6 +138,29 @@ def rerank_l2(q: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def rerank_l2_rows(q: torch.Tensor, vectors: torch.Tensor,
+                   ids: torch.Tensor) -> torch.Tensor:
+    """q [B, D] f32; vectors [N, D] f32 (read in place); ids [B, S] int32
+    -> [B, S] exact squared L2 of each lane's rows, INF where the id is
+    -1."""
+    if _use_plain(q, vectors, ids):
+        return ref.rerank_l2_rows_ref(q, vectors, ids)
+    _check(q, "q", torch.float32, 2)
+    _check(vectors, "vectors", torch.float32, 2)
+    _check(ids, "ids", torch.int32, 2)
+    b, s = ids.shape
+    n, d = vectors.shape
+    if q.shape != (b, d):
+        raise ValueError(f"rerank_l2_rows shapes: q {tuple(q.shape)}, "
+                         f"vectors {(n, d)}, ids {(b, s)}")
+    out = q.new_empty((b, s))
+    if b and s:
+        _call("rerank_l2_rows_launch", q, q.data_ptr(), vectors.data_ptr(),
+              ids.data_ptr(), out.data_ptr(), b, s, d, n)
+        launches["rerank_l2_rows"] += 1
+    return out
+
+
 def pool_merge(pool_d, pool_ids, new_d, new_ids):
     """Per lane, keep the P smallest of pool [B, P] ∪ new [B, Q], ascending
     and stable on ties -> (d [B, P] f32, ids [B, P] int32)."""
@@ -146,8 +176,8 @@ def pool_merge(pool_d, pool_ids, new_d, new_ids):
     if pool_ids.shape != (b, p) or new_d.shape[0] != b or \
             new_ids.shape != (b, q):
         raise ValueError("pool_merge: mismatched shapes")
-    if p + q > 1024:
-        raise ValueError(f"pool_merge: P + Q = {p + q} > 1024")
+    if p + q > POOL_MERGE_MAX:
+        raise ValueError(f"pool_merge: P + Q = {p + q} > {POOL_MERGE_MAX}")
     out_d = pool_d.new_empty((b, p))
     out_i = pool_ids.new_empty((b, p))
     if b and p:
@@ -156,6 +186,22 @@ def pool_merge(pool_d, pool_ids, new_d, new_ids):
               out_d.data_ptr(), out_i.data_ptr(), b, p, q)
         launches["pool_merge"] += 1
     return out_d, out_i
+
+
+def pool_merge_chunked(pool_d, pool_ids, new_d, new_ids):
+    """:func:`pool_merge` for any Q: the new block merges in successive
+    chunks of at most ``POOL_MERGE_MAX - P`` entries, in order.  Each merge
+    keeps its pool's entries before the chunk's on ties, so the chunks give
+    exactly what one stable merge of pool, then the whole block, gives."""
+    p, q = pool_d.shape[1], new_d.shape[1]
+    step = POOL_MERGE_MAX - p
+    if step <= 0:
+        raise ValueError(f"pool_merge_chunked: P = {p} leaves no room")
+    for lo in range(0, q, step):
+        pool_d, pool_ids = pool_merge(
+            pool_d, pool_ids, new_d[:, lo:lo + step].contiguous(),
+            new_ids[:, lo:lo + step].contiguous())
+    return pool_d, pool_ids
 
 
 def casr_rerank(q, vectors, pool_ids, *, k: int, s: int):

@@ -10,8 +10,9 @@ kernels against on the card.  They keep the input dtype.
 1, ...``, as the TPU kernel's ``fori_loop`` does and as the CUDA kernel
 does, so kernel and plain version agree bit for bit.  ``pool_merge_ref``
 is a stable argsort, the TPU kernel's rank definition.
-``casr_rerank_ref`` is the CASR loop written batch-first over the other
-two plain versions.
+``rerank_l2_rows_ref`` reranks rows gathered by id.  ``casr_rerank_ref``
+is the CASR loop written batch-first over the rerank and merge plain
+versions.
 """
 from __future__ import annotations
 
@@ -33,6 +34,14 @@ def rerank_l2_ref(q: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """q [B, D]; xs [B, S, D] -> [B, S] squared L2 (difference form)."""
     diff = xs - q[:, None]
     return (diff * diff).sum(-1)
+
+
+def rerank_l2_rows_ref(q: torch.Tensor, vectors: torch.Tensor,
+                       ids: torch.Tensor) -> torch.Tensor:
+    """q [B, D]; rows ``ids`` [B, S] of ``vectors`` [N, D] -> [B, S]
+    squared L2, INF where the id is -1."""
+    d = rerank_l2_ref(q, vectors[ids.clamp(min=0).long()])
+    return torch.where(ids >= 0, d, torch.full_like(d, INF))
 
 
 def pool_merge_ref(pool_d, pool_ids, new_d, new_ids):

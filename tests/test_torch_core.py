@@ -73,6 +73,29 @@ def test_hash_visited_matches_reference(cap, rounds, hi):
         _same(_jcontains(jv, jnp.asarray(probe[b])), found[b])
 
 
+@pytest.mark.parametrize("n,rounds", [(50, 20), (400, 60)])
+def test_dense_visited_matches_reference(n, rounds):
+    """The bitmap: keys out of range (negative or >= n) and masked keys
+    are dropped, repeats are idempotent, overflow is always 0."""
+    rng = np.random.default_rng(n + rounds)
+    lanes = 3
+    keys = rng.integers(-3, n + 5, (lanes, rounds, 4)).astype(np.int32)
+    mask = rng.random((lanes, rounds, 4)) < 0.8
+    tv = tvis.make_dense(n, lanes, device="cpu")
+    for t in range(rounds):
+        tv = tvis.add(tv, torch.from_numpy(keys[:, t]),
+                      torch.from_numpy(mask[:, t]))
+    probe = rng.integers(-3, n + 5, (lanes, 64)).astype(np.int32)
+    found = tvis.contains(tv, torch.from_numpy(probe)).numpy()
+    assert not tvis.overflow(tv).any()
+    for b in range(lanes):
+        jv = jvis.make_dense(n)
+        for t in range(rounds):
+            jv = _jadd(jv, jnp.asarray(keys[b, t]), jnp.asarray(mask[b, t]))
+        _same(jv.bits, tv.bits[b])
+        _same(_jcontains(jv, jnp.asarray(probe[b])), found[b])
+
+
 # ---------------------------------------------------------------------------
 # cache replay
 # ---------------------------------------------------------------------------

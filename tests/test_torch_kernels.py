@@ -213,6 +213,31 @@ def test_rerank_plain_matches_reference(d):
                                        atol=1e-3)
 
 
+@pytest.mark.parametrize("d", [48, 768])
+def test_rerank_rows_plain_matches_gathered(d):
+    """The by-id entry's plain version: each row's value is the gathered
+    rerank's (bit for bit) and within the rerank grade of the reference's;
+    -1 ids give INF."""
+    rng = np.random.default_rng(d + 1)
+    vectors = rng.standard_normal((300, d)).astype(np.float32)
+    ids = rng.integers(0, 300, (LANES, 37)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.3] = -1
+    ids[0, 3] = ids[0, 4]                                    # a repeat
+    q = vectors[ids[:, 0].clip(0)] + rng.standard_normal(
+        (LANES, d)).astype(np.float32)
+    tq, tv, ti = map(torch.from_numpy, (q, vectors, ids))
+    got = ops.rerank_l2_rows(tq, tv, ti).numpy()
+    gathered = ops.rerank_l2(tq, tv[ti.clamp(min=0).long()]).numpy()
+    ok = ids >= 0
+    np.testing.assert_array_equal(got[ok], gathered[ok])
+    assert (got[~ok] == INF).all()
+    for b in range(LANES):
+        want = jref.rerank_l2_ref(jnp.asarray(q[b]),
+                                  jnp.asarray(vectors[ids[b].clip(0)]))
+        np.testing.assert_allclose(got[b][ok[b]], np.asarray(want)[ok[b]],
+                                   rtol=1e-5, atol=1e-3)
+
+
 def test_plain_versions_keep_dtype():
     gen = torch.Generator().manual_seed(0)
     lut = torch.rand((2, 8, 256), dtype=torch.float64, generator=gen)
@@ -239,7 +264,8 @@ def test_cpu_tensors_never_launch():
                     torch.tensor([[0, 2, 1, -1]], dtype=torch.int32), k=2,
                     s=2)
     assert ops.launches == {"pool_merge": 0, "adc_distance": 0,
-                            "rerank_l2": 0, "casr_rerank": 0}
+                            "rerank_l2": 0, "rerank_l2_rows": 0,
+                            "casr_rerank": 0}
 
 
 def test_unsupported_devices_raise():
