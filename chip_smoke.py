@@ -8,7 +8,7 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives three paths, each with the launch counts
+main path's shapes, then drives four paths, each with the launch counts
 set to 0 just before it and read just after:
 
 - search: builds and searches a small index (the test suite's
@@ -18,14 +18,21 @@ set to 0 just before it and read just after:
 - presets: the five baselines (and navis with bitmap visited sets on the
   small index) adopting each index's build (``build(shared=...)``):
   search and insert waves, sequential searches, FreshDiskANN's buffer,
-  its search hits and ``merge``, and ``calibrate``.
+  its search hits and ``merge``, and ``calibrate``;
+- maintenance: on the small index, ``consolidate`` after deletes (navis,
+  odinann, FreshDiskANN), an insert wave into the freed slots and churn
+  at capacity; on the FineWeb-like index after the update path, a pass
+  over a fifth of it deleted, searches around it, insert waves drawn
+  from the free list and a profiled repair step.
 
 The search and update paths must launch ``pool_merge``, ``adc_distance``
 and ``casr_rerank`` (once per search or insert wave) and neither rerank
 entry; the presets path all of those and ``rerank_l2_rows`` (the full
-rerank and the buffer scan).  ``rerank_l2`` runs on no path (the kernel
-phase holds it).  After each path one search wave and one insert wave
-are repeated with the plain versions on the card (A/B).  Each phase
+rerank and the buffer scan); the maintenance path as the search path,
+and a pass itself launches no rerank kernel.  ``rerank_l2`` runs on no
+path (the kernel phase holds it).  After each path one search wave and
+one insert wave (after the maintenance path, one pass) are repeated with
+the plain versions on the card (A/B).  Each phase
 prints one JSON line; any failure exits non-zero without the final
 result line.  With no CUDA device, or without the repository beside it,
 it exits non-zero at once.
@@ -81,6 +88,11 @@ PATH_KERNELS = {
                ("rerank_l2", "rerank_l2_rows")),
     "presets": (("pool_merge", "adc_distance", "rerank_l2_rows",
                  "casr_rerank"), ("rerank_l2",)),
+    # refine's re-seek and the repair splice launch pool_merge and
+    # adc_distance; casr_rerank runs in the insert and search waves
+    # around the passes (a pass itself launches no rerank kernel)
+    "maintenance": (("pool_merge", "adc_distance", "casr_rerank"),
+                    ("rerank_l2", "rerank_l2_rows")),
 }
 # the five baselines; the presets path also runs navis with bitmaps
 BASELINES = ("freshdiskann", "odinann", "odinann_cache", "layout_only",
@@ -1220,6 +1232,236 @@ def _fineweb_merge(torch, eng, state, vs) -> dict:
     return out
 
 
+MAINT_IO = ("read_requests", "edge_bytes_read", "useful_vec_bytes_read",
+            "pad_bytes_read", "write_requests", "edge_bytes_written",
+            "wasted_vec_bytes_written", "pad_bytes_written", "hops",
+            "cache_hits")
+
+
+def _random_live(torch, state, n: int, gen):
+    """``n`` distinct live ids drawn with ``gen`` (int32, on the card)."""
+    live = torch.nonzero(state.live_mask)[:, 0]
+    pick = torch.randperm(live.shape[0], generator=gen, device="cuda")[:n]
+    return live[pick].to(torch.int32)
+
+
+def _consolidate(torch, eng, state) -> tuple:
+    """One timed ``consolidate`` with its own launches and I/O.  Returns
+    (OpStats, new state, a dict for the phase line)."""
+    from repro_torch.kernels import ops
+    before = dict(ops.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, st = eng.consolidate(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in ops.launches.items()}
+    io = {f: int(getattr(st.ctr_maint, f)) - int(getattr(state.ctr_maint, f))
+          for f in MAINT_IO}
+    out = dict(consolidate_s=wall, steps=int(stats.serial_rounds),
+               **{k: v for k, v in eng.last_maint_timing.items()},
+               maint_io=io, consolidate_launches=launched)
+    require(launched["casr_rerank"] == 0 and launched["rerank_l2"] == 0 and
+            launched["rerank_l2_rows"] == 0,
+            f"consolidate launched a rerank kernel: {launched}")
+    return stats, st, out
+
+
+def _consolidation_gates(torch, eng, st, victims, label: str) -> dict:
+    """After a pass: every invariant (``no_dead_refs`` included), the
+    victims and only they in the free list, live entrance members and
+    default entries, the page budget with ``page_live`` counting exactly
+    the holders (both layouts), the allocator reset to the holders'
+    pages, and the cursor back at 0."""
+    from repro_torch.core import check_invariants
+    inv = check_invariants(st.store, st.tombstone)
+    free = st.free_list[:st.free_count]
+    members = st.ent.ids[st.ent.ids >= 0].long()
+    holders = st.store.count - st.free_count
+    out = dict(
+        invariants=inv, free_count=st.free_count,
+        free_list_is_victims=bool(torch.equal(
+            torch.sort(free).values, torch.sort(victims).values)),
+        entrance_members=int(members.shape[0]),
+        entrance_live=not bool(st.tombstone[members].any()),
+        default_entries_live=not bool(
+            st.tombstone[st.default_entries.long()].any()),
+        page_budget_ok=_page_budget_ok(torch, st.store),
+        next_page=st.store.next_page, p_max=st.store.p_max,
+        next_page_is_holders_pages=st.store.next_page ==
+        -(-holders // eng.spec.lspec.per_page))
+    require(all(inv.values()), f"{label}: invariants {inv}")
+    require(st.free_count == victims.shape[0] and
+            out["free_list_is_victims"],
+            f"{label}: free list {st.free_count} of {victims.shape[0]}")
+    require(out["entrance_live"] and out["default_entries_live"] and
+            out["page_budget_ok"] and out["next_page_is_holders_pages"] and
+            st.maint_cursor == 0, f"{label}: {out}")
+    return out
+
+
+def phase_maintenance_small(torch, eng, state, qs, cents) -> None:
+    """Maintenance on the small index: navis after 60 deletes, one pass
+    (gates above), an insert wave of 64 reusing the slots; churn at
+    capacity (fill to n_max, then 3 rounds of delete 32 -> the lookahead
+    trigger -> consolidate -> an insert wave of 32; no drop, recall@10 >=
+    0.9 against the live-mask truth); one pass each of odinann (packed,
+    static top-up) and FreshDiskANN on the adopted build."""
+    from repro_torch import random as jr
+    from repro_torch.core import Engine, brute_force_topk, recall_at_k
+    from repro_torch.data import insert_stream
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    victims = _random_live(torch, state, 60, gen)
+    st = eng.delete_many(state, victims)
+    _, st, info = _consolidate(torch, eng, st)
+    gates = _consolidation_gates(torch, eng, st, victims, "maint:small")
+    count0 = st.store.count
+    stats, st = eng.insert_many(st, insert_stream(gen, cents, 64,
+                                                  drift=0.2))
+    dropped = int(stats.dropped.sum())
+    emit("maint:small:navis", deleted=60, **info, **gates,
+         reuse_wave=64, reuse_dropped=dropped,
+         count_growth=st.store.count - count0, free_after=st.free_count)
+    require(dropped == 0 and st.store.count == count0 + 4 and
+            st.free_count == 0, "maint:small: the reuse wave")
+
+    # churn at capacity
+    n_max = st.store.n_max
+    stats, st = eng.insert_many(st, insert_stream(
+        gen, cents, n_max - st.store.count, drift=0.2))
+    dropped = int(stats.dropped.sum())
+    require(st.store.count == n_max, "maint:small:churn: fill")
+    rounds = []
+    for _ in range(3):
+        victims = _random_live(torch, st, 32, gen)
+        st = eng.delete_many(st, victims)
+        due = eng.needs_consolidation(st, lookahead=32)
+        _, st, info = _consolidate(torch, eng, st)
+        freed = st.free_count
+        stats, st = eng.insert_many(st, insert_stream(gen, cents, 32,
+                                                      drift=0.2))
+        dropped += int(stats.dropped.sum())
+        rounds.append(dict(due=due, freed=freed,
+                           consolidate_s=info["consolidate_s"]))
+        require(due and freed == 32 and st.live_count == n_max,
+                f"maint:small:churn: {rounds[-1]}")
+    truth = brute_force_topk(qs, st.store.vectors, st.live_mask, 10)
+    ids, _, _, _ = eng.search_many(st, qs)
+    recall = recall_at_k(ids, truth)
+    emit("maint:small:churn", n_max=n_max, rounds=rounds, dropped=dropped,
+         recall_at_10=recall)
+    require(dropped == 0, f"maint:small:churn: {dropped} inserts dropped")
+    require(recall >= 0.9, f"maint:small:churn: recall@10 {recall}")
+
+    # the packed layout with a static top-up, and FreshDiskANN (no insert
+    # before: their full rerank would launch rerank_l2_rows on this path;
+    # the CPU tests refine young vertices under both layouts)
+    vecs = state.store.vectors[:1200]
+    for name in ("odinann", "freshdiskann"):
+        e = Engine(_spec_small(name))
+        s = e.build(jr.PRNGKey(2), vecs, shared=eng.bundle(state))
+        victims = _random_live(torch, s, 40, gen)
+        s = e.delete_many(s, victims)
+        _, s, info = _consolidate(torch, e, s)
+        emit(f"maint:small:{name}", deleted=40, **info,
+             **_consolidation_gates(torch, e, s, victims,
+                                    f"maint:small:{name}"))
+
+
+def phase_maintenance_fineweb(torch, eng, state, cents):
+    """Maintenance on the FineWeb-like index after the update path (its
+    insert waves left young vertices): ceil(0.2 * count) + 1 random live
+    deletes, so ``needs_consolidation`` fires on its fraction; a search
+    wave; one timed ``consolidate`` (its seconds by stage, steps, refine
+    blocks, I/O and launches) with the gates above; a search wave (no
+    tombstoned id, no tombstone skip) and recall@10 against the live-mask
+    truth before and after; two insert waves of WAVE drawn from the free
+    list only; one profiled repair step.  Returns (the state the pass
+    started from, its OpStats, the state it left) for the A/B."""
+    from repro_torch.core import brute_force_topk, recall_at_k
+    from repro_torch.data import insert_stream, query_stream
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    count = state.store.count
+    young = int((state.young_mask & state.live_mask).sum())
+    n_del = math.ceil(0.2 * count) + 1
+    victims = _random_live(torch, state, n_del, gen)
+    qs = query_stream(gen, cents, WAVE)
+    t0 = time.perf_counter()
+    deleted = eng.delete_many(state, victims)
+    delete_s = time.perf_counter() - t0
+    due = eng.needs_consolidation(deleted)
+    young_live = int((deleted.young_mask & deleted.live_mask).sum())
+    ids0, _, _, deleted = eng.search_many(deleted, qs)
+    stats, done, info = _consolidate(torch, eng, deleted)
+    gates = _consolidation_gates(torch, eng, done, victims,
+                                 "maint:fineweb_like")
+    skips0 = int(done.ctr_search.tombstone_skips)
+    ids1, d1, _, after = eng.search_many(done, qs)
+    skips = int(after.ctr_search.tombstone_skips) - skips0
+    truth = brute_force_topk(qs, done.store.vectors, done.live_mask, 10)
+    dead = [int(torch.isin(i, victims).sum()) for i in (ids0, ids1)]
+    emit("maint:fineweb_like", count=count, deleted=n_del, delete_s=delete_s,
+         needs_consolidation=due, young=young, young_live=young_live,
+         **info, **gates, stream_write_pages=done.store.next_page,
+         tombstoned_ids_returned=dead,
+         tombstone_skips_after=skips,
+         recall_at_10_before=recall_at_k(ids0, truth),
+         recall_at_10_after=recall_at_k(ids1, truth), recall_gated=False)
+    require(due, "maint:fineweb_like: needs_consolidation did not fire")
+    require(young_live > 0, "maint:fineweb_like: no young vertex to refine")
+    require(dead == [0, 0] and skips == 0,
+            f"maint:fineweb_like: tombstoned ids {dead}, skips {skips}")
+    require(bool(torch.isfinite(d1[ids1 >= 0]).all()),
+            "maint:fineweb_like: non-finite distance")
+
+    st, pages = after, [after.store.next_page]
+    for w in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wstats, st = eng.insert_many(st, insert_stream(gen, cents, WAVE,
+                                                       drift=0.2))
+        torch.cuda.synchronize()
+        pages.append(st.store.next_page)
+        emit(f"maint:fineweb_like:reuse{w}", inserts=WAVE,
+             wall_s=time.perf_counter() - t0,
+             dropped=int(wstats.dropped.sum()), count=st.store.count,
+             free_count=st.free_count, next_page=st.store.next_page)
+        require(int(wstats.dropped.sum()) == 0 and st.store.count == count
+                and st.free_count == n_del - (w + 1) * WAVE,
+                f"maint:fineweb_like: reuse wave {w}")
+    require(pages[0] < pages[1] < pages[2] <= st.store.p_max,
+            f"maint:fineweb_like: next_page {pages}")
+    import dataclasses
+    cursor = (count // 2) // eng.spec.maint_block * eng.spec.maint_block
+    emit("maint:fineweb_like:profile_repair_step", cursor=cursor,
+         **profile_window(torch, lambda: eng.maintenance_step(
+             dataclasses.replace(deleted, maint_cursor=cursor))))
+    return deleted, stats, done
+
+
+def phase_ab_maintenance(torch, eng, state, stats_k, st_k) -> None:
+    """The same pass under plain_on_device(), from the same state with the
+    deletes: every EngineState field and the OpStats identical to the
+    kernels' pass (the kernels' sums are the plain versions', bit for
+    bit)."""
+    from repro_torch.kernels import ops
+    before = dict(ops.launches)
+    t0 = time.perf_counter()
+    with ops.plain_on_device():
+        stats_p, st_p = eng.consolidate(state)
+    torch.cuda.synchronize()
+    flat = dict(ops.launches) == before
+    state_diff = _tree_diff(torch, st_k, st_p)
+    stats_same = not _tree_diff(torch, stats_k, stats_p)
+    emit("ab:maintenance", plain_consolidate_s=time.perf_counter() - t0,
+         state_diff=state_diff, opstats_identical=stats_same,
+         launch_counts_flat_under_plain=flat)
+    require(flat, "ab:maintenance: kernels launched under plain_on_device()")
+    require(not state_diff and stats_same,
+            f"ab:maintenance: the plain pass differs: {state_diff}, "
+            f"OpStats identical {stats_same}")
+
+
 def _pq_scan_recall(torch, eng, state, qs, truth, n: int, depth: int):
     """Share of the exact top-10 inside the top-``depth`` of a full PQ
     (ADC) scan of the corpus: the ceiling a PQ-guided search with a pool
@@ -1321,7 +1563,7 @@ def main() -> int:
         # the update path
         start("update")
         phase_small_update(torch, *small)
-        phase_fineweb_update(torch, fw_eng, fw_state, fw_cents)
+        fw_updated = phase_fineweb_update(torch, fw_eng, fw_state, fw_cents)
         update = path_counts("update")
         phase_ab_update(torch, fw_eng, fw_state, fw_cents)
         # the presets path
@@ -1334,10 +1576,18 @@ def main() -> int:
                  label="ab:presets:search")
         phase_ab_update(torch, ab_eng, ab_state, fw_cents,
                         label="ab:presets:insert", time_casr=False)
+        # the maintenance path
+        start("maintenance")
+        phase_maintenance_small(torch, *small)
+        ab_maint = phase_maintenance_fineweb(torch, fw_eng, fw_updated,
+                                             fw_cents)
+        maintenance = path_counts("maintenance")
+        phase_ab_maintenance(torch, fw_eng, *ab_maint)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    paths = {"search": search, "update": update, "presets": presets}
+    paths = {"search": search, "update": update, "presets": presets,
+             "maintenance": maintenance}
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths.values())
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}

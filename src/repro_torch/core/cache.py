@@ -282,3 +282,46 @@ def invalidate_pages(st: CacheState, pages: list[int]) -> CacheState:
     for p in pages:
         host.invalidate(p)
     return host.state()
+
+
+def invalidate_where(st: CacheState, drop: torch.Tensor) -> CacheState:
+    """The eviction hint applied to every page where ``drop`` [P_max] is
+    True, at once on the state's device (no host sync): a page's hint
+    touches only its own entries and its own region slot, so the order of
+    the pages does not matter.  Returns a new state."""
+    if st.policy == POLICIES["none"]:
+        return st
+    drop = drop & (st.status != NOT_CACHED)
+    in_window = drop & (st.status == IN_WINDOW)
+    in_frozen = drop & ~in_window
+    slot = st.slot_of.long()
+
+    def clear(region: torch.Tensor, which: torch.Tensor) -> torch.Tensor:
+        # pages not dropped write into a spare last entry
+        n = region.shape[0]
+        out = torch.cat([region, region[:1]])
+        out[torch.where(which, slot, n)] = -1
+        return out[:n]
+
+    return dataclasses.replace(
+        st, status=torch.where(drop, NOT_CACHED, st.status),
+        slot_of=torch.where(drop, -1, st.slot_of),
+        hits=torch.where(drop, 0, st.hits),
+        window_pages=clear(st.window_pages, in_window),
+        window_last=clear(st.window_last, in_window),
+        frozen_pages=clear(st.frozen_pages, in_frozen))
+
+
+def grow(st: CacheState, p_max: int) -> CacheState:
+    """The state with its page tables grown to ``p_max`` pages (new pages
+    not cached), beside ``layout.grow_pages``."""
+    n = st.status.shape[0]
+    if p_max <= n:
+        return st
+
+    def pad(t: torch.Tensor, fill: int) -> torch.Tensor:
+        return torch.cat([t, t.new_full((p_max - n,), fill)])
+
+    return dataclasses.replace(st, status=pad(st.status, NOT_CACHED),
+                               hits=pad(st.hits, 0),
+                               slot_of=pad(st.slot_of, -1))

@@ -41,9 +41,14 @@ the reference:
   wasted to useful (Fig. 4a).  ``calibrate`` sets the CASR group sizes
   from warm-up queries.
 
+- ``needs_consolidation``, ``maintenance_step`` and ``consolidate`` run
+  the maintenance pass (``core/maintenance.py``): repair blocks of
+  ``maint_block`` rows, then refine, reclaim into the free list, defrag
+  and the entrance refresh.
+
 Every operation leaves its input state untouched and returns a new one:
 it copies the tensors it mutates once per call, then writes them in
-place.  Maintenance comes in a later slice.
+place.
 """
 from __future__ import annotations
 
@@ -60,6 +65,8 @@ from repro_torch.core import casr as casr_mod
 from repro_torch.core import entrance as ent_mod
 from repro_torch.core import graph as graph_mod
 from repro_torch.core import insert as insert_mod
+from repro_torch.core import layout as layout_mod
+from repro_torch.core import maintenance as maint_mod
 from repro_torch.core import pq as pq_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core.iomodel import IOCounters, PAGE_BYTES, \
@@ -256,6 +263,9 @@ class Engine:
         # priority admits of the last wave
         self.last_wave_counts: dict = {}
         self.last_rerank_s = 0.0
+        # consolidate: repair_s (the sweep), then the finalization's
+        # refine_s (refine_blocks of 32), reclaim_defrag_s and refresh_s
+        self.last_maint_timing: dict = {}
 
     def set_codec(self, codec: pq_mod.PQCodec) -> None:
         self.codec = codec
@@ -852,3 +862,139 @@ class Engine:
         tomb[idx] = True
         return dataclasses.replace(state, ent=ent, tombstone=tomb,
                                    n_deleted=n_deleted)
+
+    # -- maintenance ----------------------------------------------------------
+
+    def needs_consolidation(self, state: EngineState,
+                            lookahead: int = 0) -> bool:
+        """A pass is due when tombstones wait to be reclaimed and either
+        their fraction of ``count`` reached ``consolidate_frac`` (float32,
+        as the reference) or fewer than ``max(lookahead, 1)`` insertable
+        slots remain (fresh headroom + free list); ``lookahead`` is the
+        coming insert demand, e.g. the next wave's size."""
+        pending = state.n_deleted - state.free_count
+        count = max(state.store.count, 1)
+        frac = np.float32(pending) / np.float32(count)
+        headroom = state.store.n_max - state.store.count + state.free_count
+        return pending > 0 and (
+            bool(frac >= np.float32(self.spec.consolidate_frac)) or
+            headroom < max(lookahead, 1))
+
+    def _with_pages(self, state: EngineState, n_new: int) -> EngineState:
+        """``state`` with room for ``n_new`` more fresh pages: the store's
+        and the cache's page tables grow when the bump allocator would
+        run past them (``layout.grow_pages``)."""
+        need = state.store.next_page + n_new
+        if need <= state.store.p_max:
+            return state
+        return dataclasses.replace(
+            state, store=layout_mod.grow_pages(state.store, need),
+            cache=cache_mod.grow(state.cache, need))
+
+    def maintenance_step(self, state: EngineState):
+        """One bounded increment of the consolidation cycle.
+
+        While the repair cursor is inside ``[0, count)``, repairs the next
+        ``maint_block`` rows (:func:`maintenance.repair_block`, no host
+        sync) and advances.  Then finalizes the cycle: refines the live
+        young vertices in blocks of 32 (``maint_refine``), reclaims every
+        tombstoned slot into the free list, clears the reclaimed rows,
+        defrags the edge pages (invalidating moved pages in the cache),
+        refreshes the entrance and the default entries over the live set
+        with the key ``fold_in(PRNGKey(1347), count * 131071 +
+        n_deleted)`` (the data taken mod 2**32, where the reference's
+        ``fold_in`` overflows past 32,768 vertices), priority-admits the
+        members' pages, and resets the cursor.  All I/O lands in
+        ``ctr_maint``.  Returns (new state, done: the cycle completed)."""
+        spec = self.spec
+        lspec = spec.lspec
+        cur = state.maint_cursor
+        if cur < state.store.count:
+            if spec.layout == "decoupled":
+                state = self._with_pages(
+                    state, -(-spec.maint_block // lspec.per_page))
+            st = _owned(state)
+            store, cache, ctr, _ = maint_mod.repair_block(
+                st.store, st.codes, self._sym, st.tombstone, st.cache,
+                st.ctr_maint, cur, spec=lspec, block=spec.maint_block)
+            return dataclasses.replace(
+                st, store=store, cache=cache, ctr_maint=ctr,
+                maint_cursor=cur + spec.maint_block), False
+
+        _sync(state.tombstone)
+        t0 = time.perf_counter()
+        yids = []
+        if spec.maint_refine:
+            # the live vertices inserted since the last pass, in id order
+            yids = torch.nonzero(state.young_mask & state.live_mask
+                                 )[:, 0].tolist()
+            if yids and spec.layout == "decoupled":
+                state = self._with_pages(
+                    state, len(yids) * insert_mod.pages_per_insert(lspec))
+        st = _owned(state)
+        if yids:
+            store, ctr = st.store, st.ctr_maint
+            for s in range(0, len(yids), 32):
+                store, ctr = maint_mod.refine_block(
+                    store, self.codec, st.codes, st.tombstone, st.cache, ctr,
+                    yids[s:s + 32], st.default_entries, spec=lspec,
+                    e_pos=spec.e_pos, beam_width=spec.beam_width,
+                    max_hops=spec.max_hops, visited=spec.visited_impl)
+            st.young_mask.zero_()
+            st = dataclasses.replace(st, store=store, ctr_maint=ctr)
+        _sync(st.tombstone)
+        t1 = time.perf_counter()
+
+        store, free_count, cache, ctr = maint_mod.reclaim_and_defrag(
+            st.store, st.tombstone, st.free_list, st.free_count,
+            st.free_mask, st.cache, st.ctr_maint, spec=lspec)
+        st = dataclasses.replace(st, store=store, free_count=free_count,
+                                 cache=cache, ctr_maint=ctr, maint_cursor=0)
+        _sync(st.tombstone)
+        t2 = time.perf_counter()
+
+        live_ids = torch.nonzero(st.live_mask)[:, 0].to(torch.int32)
+        key = jr.fold_in(jr.PRNGKey(1347),
+                         store.count * 131071 + st.n_deleted)
+        n_live = live_ids.shape[0]
+        ent = st.ent
+        if spec.entrance != "none" and n_live >= 2:
+            # a dynamic entrance tops itself back up through Algorithm 2 as
+            # inserts flow; a static one is refreshed only here
+            ent = maint_mod.refresh_entrance(
+                key, st.codes, self._sym, st.ent, st.tombstone,
+                live_ids.cpu().numpy(), sample_frac=spec.ent_frac,
+                r_ent=spec.r_ent, n_max=store.n_max,
+                top_up=spec.entrance != "dynamic")
+            cache = maint_mod.admit_entrance_pages(cache, store, ent)
+        default_entries = st.default_entries
+        if n_live > 0:
+            default_entries = maint_mod.refresh_default_entries(
+                jr.fold_in(key, 1), store.vectors, live_ids, spec.n_entry)
+        _sync(st.tombstone)
+        self.last_maint_timing = {
+            "refine_s": t1 - t0, "refine_blocks": -(-len(yids) // 32),
+            "reclaim_defrag_s": t2 - t1,
+            "refresh_s": time.perf_counter() - t2}
+        return dataclasses.replace(st, ent=ent, cache=cache,
+                                   default_entries=default_entries), True
+
+    def consolidate(self, state: EngineState):
+        """One full pass: the repair sweep over ``[0, count)``, then the
+        finalization.  Returns (OpStats of the pass from ``ctr_maint``,
+        ``serial_rounds`` = steps taken, new state)."""
+        ctr0 = state.ctr_maint
+        state = dataclasses.replace(state, maint_cursor=0)
+        steps = 0
+        t0 = time.perf_counter()
+        while state.maint_cursor < state.store.count:       # the sweep
+            state, _ = self.maintenance_step(state)
+            steps += 1
+        _sync(state.tombstone)
+        repair_s = time.perf_counter() - t0
+        state, _ = self.maintenance_step(state)             # finalization
+        steps += 1
+        self.last_maint_timing["repair_s"] = repair_s
+        stats = _delta_stats(ctr0, state.ctr_maint, torch.tensor(
+            steps, dtype=torch.int32, device=self.device))
+        return stats, state

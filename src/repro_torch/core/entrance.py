@@ -1,6 +1,6 @@
 """Entrance graph: build + NAVIS-update (port of
 ``repro/core/entrance.py``: ``build_entrance``, ``link_members``,
-``navis_update``).
+``navis_update``, ``add_member``).
 
 A small in-memory sample (~1%) of the proximity graph with reduced
 out-degree ``R_ent`` that seeds every traversal.  It is linked by
@@ -11,9 +11,9 @@ fresh by piggybacking each insertion's explored sets (Algorithm 2):
     q.nbr   = E_inter ⊕ E_ent       (fill to R_ent, E_inter first)
     reciprocal links + prune         (drop farthest by symmetric-PQ distance)
 
-:func:`navis_update` writes the entrance tensors in place (the insert
-that calls it owns its copy of the state).  ``add_member`` (maintenance's
-top-up) comes with the maintenance slice.
+:func:`navis_update` and :func:`add_member` (maintenance's top-up of a
+static entrance) write the entrance tensors in place (the operation that
+calls them owns its copy of the state).
 """
 from __future__ import annotations
 
@@ -115,9 +115,7 @@ def navis_update(ent: EntranceGraph, new_id: int, new_code: torch.Tensor,
     them on the host skip reading them from the tensors (two syncs on the
     card).  Returns the graph with ``count`` advanced when it promoted.
 
-    The reference wires the reciprocal links one neighbor at a time; the
-    neighbors are distinct slots, so each step reads and writes only its
-    own row, and the port wires them all at once."""
+    The reciprocal links are wired as in :func:`_join`."""
     if n_members is None:
         n_members = int((ent.ids >= 0).sum())
     if is_member is None:
@@ -145,14 +143,43 @@ def navis_update(ent: EntranceGraph, new_id: int, new_code: torch.Tensor,
     order = torch.sort(torch.where(keep, ar, big), stable=True).indices
     nbrs = torch.where(keep[order], cand[order], -1)[:ent.r_ent]
 
-    # line 6: G_ent ∪ q
-    slot = ent.count
-    ent.ids[slot] = new_id
-    m2e[new_id] = slot
-    ent.edges[slot] = nbrs
+    # line 6: G_ent ∪ q; lines 4-5, 7-8: reciprocal links
+    return _join(ent, new_id, nbrs, new_code, codes, sym_tables)
 
-    # lines 4-5, 7-8: reciprocal links, pruning the farthest edge of a
-    # full row when q is closer (codes are in host memory: no I/O)
+
+def add_member(ent: EntranceGraph, vid: int, codes: torch.Tensor,
+               sym_tables: torch.Tensor) -> EntranceGraph:
+    """Append the live vertex ``vid`` as a member, wired to its ``R_ent``
+    symmetric-PQ-nearest live members (stable order) with reciprocal links
+    + prune: maintenance's top-up of a static entrance (port of
+    ``repro/core/entrance.py`` ``add_member``).  No-op when ``vid`` is a
+    member already or the slot high-water mark reached ``c_max``.  Writes
+    the entrance tensors in place (the caller owns its copy)."""
+    if not (ent.count < ent.c_max and vid >= 0 and
+            int(ent.main_to_ent[vid]) < 0):
+        return ent
+    live = ent.ids >= 0
+    new_code = codes[vid]
+    d = pq_mod.sym_distance(sym_tables, new_code[None],
+                            codes[ent.ids.clamp(min=0).long()][None])[0]
+    order = torch.sort(torch.where(live, d, INF), stable=True).indices
+    nbrs = torch.where(live[order], order, -1)[:ent.r_ent].to(torch.int32)
+    return _join(ent, vid, nbrs, new_code, codes, sym_tables)
+
+
+def _join(ent: EntranceGraph, vid: int, nbrs: torch.Tensor,
+          new_code: torch.Tensor, codes: torch.Tensor,
+          sym_tables: torch.Tensor) -> EntranceGraph:
+    """Put ``vid`` (code ``new_code``) at slot ``count`` with edge slots
+    ``nbrs`` [R_ent], then add the slot to each neighbor's row, pruning
+    the farthest edge of a full row when the new member is closer (codes
+    are in host memory: no I/O).  The reference wires one neighbor at a
+    time; the neighbors are distinct slots, so each step reads and writes
+    only its own row, and the port wires them all at once."""
+    slot = ent.count
+    ent.ids[slot] = vid
+    ent.main_to_ent[vid] = slot
+    ent.edges[slot] = nbrs
     p = nbrs.long()
     do = (p >= 0) & (p != slot)
     safe = p.clamp(min=0)

@@ -163,9 +163,13 @@ def relocate_edgelists(store: GraphStore, vertex_ids: torch.Tensor,
 
     Fresh pages come from the bump allocator (row j at ``next_page + j *
     ceil(M / per)``, and ``next_page`` advances), or, when the caller has
-    reserved them, from ``first_pages`` [k].  Updates ``edge_page`` and
-    ``page_live`` in place; returns (store, pages_written int64 per row).
-    Raises if the fresh pages run past the page budget.
+    reserved them, from ``first_pages`` [k].  A valid slot's page is its
+    position's, ``first + i // per``, so a row's invalid slots leave holes
+    (the reference's page ids).  The valid ids of one call must be
+    distinct; any slot, the first included, may be invalid.  Updates
+    ``edge_page`` and ``page_live`` in place; returns (store,
+    pages_written int64 per row).  Raises if the fresh pages run past the
+    page budget.
     """
     squeeze = vertex_ids.dim() == 1
     if squeeze:
@@ -189,15 +193,63 @@ def relocate_edgelists(store: GraphStore, vertex_ids: torch.Tensor,
                                -dec_ok.to(torch.int32).reshape(-1))
     slot_page = first_pages.long()[:, None] + \
         torch.arange(m, device=dev) // per
-    # invalid slots repeat their row's first (always valid) write, so the
-    # duplicate indices of the scatter all carry the same value
-    tgt = torch.where(valid, ids, ids[:, :1])
-    val = torch.where(valid, slot_page, slot_page[:, :1])
-    store.edge_page.index_put_((tgt.reshape(-1),),
-                               val.reshape(-1).to(torch.int32))
+    # each valid slot adds (new - old) to its own pointer and an invalid
+    # one adds 0 to vertex 0's (the reference's scatter writes vertex 0's
+    # old value there and can lose vertex 0's own move, ROADMAP queue 3)
+    store.edge_page.index_add_(
+        0, torch.where(valid, ids, 0).reshape(-1),
+        torch.where(valid, slot_page - old, 0).reshape(-1).to(torch.int32))
     store.page_live.index_add_(0, slot_page.reshape(-1),
                                valid.to(torch.int32).reshape(-1))
     n_valid = valid.sum(1)
     written = torch.where(n_valid > 0, -(-n_valid // per), 0).to(torch.int64)
     return (dataclasses.replace(store, next_page=next_page),
             written[0] if squeeze else written)
+
+
+def grow_pages(store: GraphStore, p_max: int) -> GraphStore:
+    """The store with its page space grown to ``p_max`` pages (new pages
+    hold nothing).  :func:`page_budget` covers the build and one insert
+    per slot; a maintenance pass bump-allocates on top of that (a repair
+    block's ``ceil(block / per)`` pages, a refined vertex's ``ceil((1 +
+    r) / per)``) until its defrag resets the allocator."""
+    if p_max <= store.p_max:
+        return store
+    live = torch.zeros((p_max,), dtype=torch.int32, device=store.device)
+    live[:store.p_max] = store.page_live
+    return dataclasses.replace(store, page_live=live)
+
+
+# ---------------------------------------------------------------------------
+# Defragmentation (maintenance pass)
+# ---------------------------------------------------------------------------
+
+def defrag_edgelists(store: GraphStore, holders: torch.Tensor,
+                     spec: LayoutSpec):
+    """Re-pack every page-holding vertex's edgelist contiguously from page
+    0 (port of ``repro/core/layout.py`` ``defrag_edgelists``).
+
+    ``holders`` [N_max] bool: the vertices that keep an edge page (live
+    ones and tombstoned ones not reclaimed yet); every other vertex gets
+    ``edge_page = -1``.  Consecutive holder ids share pages, ``per_page``
+    to a page; ``page_live`` is rebuilt from scratch and ``next_page``
+    reset, so the page space stays bounded by the churn of one
+    maintenance cycle.  Returns (store, changed [P_max] bool: the old and
+    new pages of every moved vertex, which the caller invalidates in the
+    cache, n_pages: host int)."""
+    per = spec.per_page
+    p_max = store.p_max
+    rank = torch.cumsum(holders.to(torch.int64), 0) - 1
+    new_page = torch.where(holders, rank // per, -1)
+    n_hold = int(holders.sum())
+    n_pages = -(-n_hold // per)
+    page_live = torch.zeros_like(store.page_live).index_add_(
+        0, new_page.clamp(min=0), holders.to(torch.int32))
+    old = store.edge_page.long()
+    moved = old != new_page
+    hit = torch.zeros((p_max,), dtype=torch.int32, device=store.device)
+    for pages, ok in ((old, moved & (old >= 0)), (new_page, moved & holders)):
+        hit.index_add_(0, torch.where(ok, pages, 0), ok.to(torch.int32))
+    store = dataclasses.replace(store, edge_page=new_page.to(torch.int32),
+                                page_live=page_live, next_page=n_pages)
+    return store, hit > 0, n_pages

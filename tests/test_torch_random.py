@@ -68,3 +68,18 @@ def test_permutation_and_choice(seed, n):
         jr.choice(tk, n, (k,), replace=False).numpy())
     np.testing.assert_array_equal(
         _np(jax.random.choice(jk, n, (9,))), jr.choice(tk, n, (9,)).numpy())
+
+
+def test_fold_in_takes_data_mod_2_32():
+    """A maintenance pass folds ``count * 131071 + n_deleted`` into its
+    key, past 2**32 - 1 at any count from 32,769: ``jax.random.fold_in``
+    raises there (ROADMAP queue 3), and the port takes the data mod 2**32,
+    which is jax's key wherever jax has one."""
+    jk, tk = jax.random.PRNGKey(1347), jr.PRNGKey(1347)
+    assert 32_769 * 131071 > 2 ** 32 - 1 >= 32_768 * 131071 + 32_767
+    for data in (32_769 * 131071, 101_200 * 131071 + 20_241, 2 ** 32):
+        with pytest.raises(OverflowError):
+            jax.random.fold_in(jk, data)
+        np.testing.assert_array_equal(
+            _np(jax.random.fold_in(jk, data % 2 ** 32)),
+            jr.fold_in(tk, data).numpy())
