@@ -8,7 +8,7 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives four paths, each with the launch counts
+main path's shapes, then drives five paths, each with the launch counts
 set to 0 just before it and read just after:
 
 - search: builds and searches a small index (the test suite's
@@ -18,21 +18,28 @@ set to 0 just before it and read just after:
 - presets: the five baselines (and navis with bitmap visited sets on the
   small index) adopting each index's build (``build(shared=...)``):
   search and insert waves, sequential searches, FreshDiskANN's buffer,
-  its search hits and ``merge``, and ``calibrate``;
+  its search hits and ``merge``, and ``calibrate``; odinann's insert
+  wave into the slots a pass reclaimed;
 - maintenance: on the small index, ``consolidate`` after deletes (navis,
   odinann, FreshDiskANN), an insert wave into the freed slots and churn
   at capacity; on the FineWeb-like index after the update path, a pass
   over a fifth of it deleted, searches around it, insert waves drawn
-  from the free list and a profiled repair step.
+  from the free list and a profiled repair step;
+- sharded (``core/distributed.py``, all shards on the one card, the
+  merge's gather through a one-rank NCCL group): the reference test's
+  8 shards of 128, and the FineWeb-like corpus in 8 shards of 12,500
+  with a global codec: sharded search waves and a routed insert wave.
 
 The search and update paths must launch ``pool_merge``, ``adc_distance``
 and ``casr_rerank`` (once per search or insert wave) and neither rerank
 entry; the presets path all of those and ``rerank_l2_rows`` (the full
 rerank and the buffer scan); the maintenance path as the search path,
-and a pass itself launches no rerank kernel.  ``rerank_l2`` runs on no
-path (the kernel phase holds it).  After each path one search wave and
-one insert wave (after the maintenance path, one pass) are repeated with
-the plain versions on the card (A/B).  Each phase
+and a pass itself launches no rerank kernel; the sharded path as the
+search path, ``casr_rerank`` once per shard and wave.  ``rerank_l2``
+runs on no path (the kernel phase holds it).  After each path one search
+wave and one insert wave (after the maintenance path, one pass; after the
+sharded path, a sharded search and insert) are repeated with the plain
+versions on the card (A/B).  Each phase
 prints one JSON line; any failure exits non-zero without the final
 result line.  With no CUDA device, or without the repository beside it,
 it exits non-zero at once.
@@ -59,6 +66,12 @@ RERANK_RTOL, RERANK_ATOL = 1e-5, 1e-3
 # (tools/build_block_cut.py times both).
 FINEWEB_N = 100_000
 FINEWEB_BLOCK = 512
+# The sharded path: the FineWeb-like corpus range-sharded into SHARDS
+# shards of SHARD_N (the single engine's N in all), each with
+# SHARD_HEADROOM slots for inserts, all on the one card.
+SHARDS = 8
+SHARD_N = FINEWEB_N // SHARDS
+SHARD_HEADROOM = 1_200
 
 KERNELS = {
     "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
@@ -93,6 +106,9 @@ PATH_KERNELS = {
     # around the passes (a pass itself launches no rerank kernel)
     "maintenance": (("pool_merge", "adc_distance", "casr_rerank"),
                     ("rerank_l2", "rerank_l2_rows")),
+    # every shard runs the navis search and insert waves
+    "sharded": (("pool_merge", "adc_distance", "casr_rerank"),
+                ("rerank_l2", "rerank_l2_rows")),
 }
 # the five baselines; the presets path also runs navis with bitmaps
 BASELINES = ("freshdiskann", "odinann", "odinann_cache", "layout_only",
@@ -1096,6 +1112,37 @@ def phase_presets_small(torch, eng, state, qs, cents) -> None:
     require(new.s_search >= 1 and new.s_pos >= 1, "calibrate: s < 1")
 
 
+def phase_presets_reuse(torch, eng, state, cents) -> None:
+    """odinann on the small index after a pass: 40 deletes, ``consolidate``
+    (the maintenance path's gates), then an insert wave of 64 that takes
+    the 40 reclaimed slots and 24 fresh ones, its packed commits writing
+    into the defragged pages.  Its full rerank launches rerank_l2_rows,
+    so it runs on this path.  Gates: no drop, the free list used up,
+    every invariant and the packed page budget."""
+    from repro_torch import random as jr
+    from repro_torch.core import Engine, check_invariants
+    from repro_torch.data import insert_stream
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    label = "presets:small:odinann:reuse"
+    e = Engine(_spec_small("odinann"))
+    st = e.build(jr.PRNGKey(2), state.store.vectors[:1200],
+                 shared=eng.bundle(state))
+    victims = _random_live(torch, st, 40, gen)
+    _, st, info = _consolidate(torch, e, e.delete_many(st, victims))
+    gates = _consolidation_gates(torch, e, st, victims, label)
+    count0 = st.store.count
+    stats, st = e.insert_many(st, insert_stream(gen, cents, 64, drift=0.2))
+    inv = check_invariants(st.store, st.tombstone)
+    out = dict(reuse_wave=64, dropped=int(stats.dropped.sum()),
+               count_growth=st.store.count - count0,
+               free_after=st.free_count, invariants=all(inv.values()),
+               page_budget_ok=_page_budget_ok(torch, st.store, packed=True))
+    emit(label, deleted=40, **info, consolidation=gates, **out)
+    require(out["dropped"] == 0 and out["count_growth"] == 24 and
+            out["free_after"] == 0 and out["invariants"] and
+            out["page_budget_ok"], f"{label}: {out}")
+
+
 def phase_presets_fineweb(torch, eng, state, vecs, cents):
     """Every preset on the FineWeb-like index, adopting the navis build's
     bundle (the post-build state; the cell's buffer_max 256 and 256 cache
@@ -1462,6 +1509,271 @@ def phase_ab_maintenance(torch, eng, state, stats_k, st_k) -> None:
             f"OpStats identical {stats_same}")
 
 
+# ---------------------------------------------------------------------------
+# the sharded path
+# ---------------------------------------------------------------------------
+
+def _init_group(torch):
+    """A one-rank NCCL group through a ``file://`` store under ``build/``,
+    so the sharded merge's gather runs through NCCL on the card.  Without
+    NCCL the run fails."""
+    import os
+    import torch.distributed as dist
+    store = ROOT / "build" / f"nccl_store_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                world_size=1, rank=0)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"sharded: NCCL did not initialize: {exc}")
+    emit("sharded:group", backend=dist.get_backend(), world_size=1,
+         store=str(store.relative_to(ROOT)))
+    return dist.group.WORLD
+
+
+def _merge_restated(ids, dists, n_per: int):
+    """distributed.py:120-137 restated in numpy on per-shard results
+    [S, Q, k]: globalise, INF-pad, then the k smallest per query with the
+    lower flat index first among equal distances (``lax.top_k``'s
+    order)."""
+    import numpy as np
+    inf = np.float32(3.4e38)
+    s, q, k = ids.shape
+    gids = np.where(ids >= 0, ids + np.arange(s)[:, None, None] * n_per, -1)
+    d = np.where(ids >= 0, dists, inf).astype(np.float32)
+    d = d.transpose(1, 0, 2).reshape(q, s * k)
+    gids = gids.transpose(1, 0, 2).reshape(q, s * k)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    d = np.take_along_axis(d, order, 1)
+    return np.where(d < inf, np.take_along_axis(gids, order, 1), -1), d
+
+
+def phase_dist_small(torch, group) -> None:
+    """The reference test's own configuration (tests/test_distributed.py:
+    18-47): N 1,024 at D 32 in 8 shards of 128, a sharded search of 16
+    queries (recall@10 >= 0.75, its bar; the merge equal, bit for bit, to
+    the reference's restated in numpy on the same per-shard results), then
+    8 vectors routed with bucket 4 and a sharded insert (counts sum to
+    1,032)."""
+    import numpy as np
+    from repro_torch import random as jr
+    from repro_torch.core import (Engine, brute_force_topk,
+                                  check_invariants, preset, recall_at_k)
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.data import make_clustered, query_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vecs, _, cents = make_clustered(gen, 1024, 32, n_clusters=8, noise=1.0)
+    qs = query_stream(gen, cents, 16)
+    eng = Engine(preset("navis", dim=32, r=12, n_max=144, e_search=32,
+                        e_pos=40, pq_m=16, cache_capacity_pages=64,
+                        max_hops=48, buffer_max=32, ent_frac=0.10))
+    t0 = time.perf_counter()
+    states = dist_mod.build_sharded_state(eng, jr.PRNGKey(2), vecs, 8,
+                                          group=group)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    search = dist_mod.make_sharded_search(eng, 128, group=group)
+    ids, dists, _ = search(states, qs)
+    per = [eng.search_many(st, qs)[:2] for st in states]
+    want_i, want_d = _merge_restated(
+        np.stack([i.cpu().numpy() for i, _ in per]),
+        np.stack([d.cpu().numpy() for _, d in per]), 128)
+    merge_equal = (np.array_equal(ids.cpu().numpy(), want_i) and
+                   np.array_equal(dists.cpu().numpy(), want_d))
+    recall = recall_at_k(ids, brute_force_topk(qs, vecs, 1024, 10))
+    routed, valid = dist_mod.route_inserts(
+        vecs[:8] + 0.01, torch.arange(8), 8, 4)
+    states = dist_mod.make_sharded_insert(eng, 4, group=group)(
+        states, routed, valid)
+    counts = [st.store.count for st in states]
+    inv = all(all(check_invariants(st.store).values()) for st in states)
+    emit("dist:small", n=1024, shards=8, n_per=128, build_s=build_s,
+         recall_at_10=recall, merge_equals_restated=merge_equal,
+         counts=counts, invariants=inv, timing=search.last_timing)
+    require(recall >= 0.75, f"dist:small: recall@10 {recall} < 0.75")
+    require(merge_equal, "dist:small: the merge differs from the "
+            "reference's restated on the same per-shard results")
+    require(sum(counts) == 1024 + 8 and inv,
+            f"dist:small: counts {counts}, invariants {inv}")
+
+
+def _sharded_wave(torch, search, states, qs) -> tuple:
+    """One timed sharded search wave with its launches and its I/O per
+    query summed over the shards.  Returns (ids, dists, states, fields)."""
+    from repro_torch.kernels import ops
+    launched = dict(ops.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists, after = search(states, qs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    io = {f: sum(int(getattr(a.ctr_search, f)) - int(getattr(b.ctr_search, f))
+                 for a, b in zip(after, states)) / qs.shape[0]
+          for f in IO_FIELDS}
+    fields = dict(queries=int(qs.shape[0]), wall_s=wall,
+                  qps=qs.shape[0] / wall, **search.last_timing,
+                  io_per_query=io,
+                  launches={k: v - launched[k]
+                            for k, v in ops.launches.items()})
+    return ids, dists, after, fields
+
+
+def _sharded_result_gates(torch, ids, dists, states, qs, n_per: int,
+                          label: str) -> dict:
+    """Global ids in range (a live local id of a shard) and unique per
+    query, distances ascending, each within 1e-3 of the exact L2 to its
+    id's vector (float64)."""
+    q, k = ids.shape
+    held = ids >= 0
+    shard, local = (ids // n_per).long(), (ids % n_per).long()
+    counts = torch.tensor([st.store.count for st in states],
+                          device=ids.device)
+    in_range = bool(((shard < len(states)) & (local < counts[
+        shard.clamp(max=len(states) - 1)]))[held].all())
+    srt = torch.sort(ids, dim=1).values
+    unique = bool(((srt[:, 1:] != srt[:, :-1]) | (srt[:, 1:] < 0)).all())
+    ascending = bool((dists[:, 1:] >= dists[:, :-1]).all())
+    vecs = torch.zeros((q, k, qs.shape[1]), device=qs.device)
+    for s, st in enumerate(states):
+        m = held & (shard == s)
+        vecs[m] = st.store.vectors[local[m]]
+    exact = ((vecs.double() - qs[:, None].double()) ** 2).sum(-1)
+    err = (dists.double() - exact).abs()[held]
+    out = dict(ids_in_range=in_range, ids_unique=unique,
+               dists_ascending=ascending, held_slots=int(held.sum()),
+               max_abs_err_to_exact_l2=float(err.max()),
+               exact_l2_within_1e_3=bool((err <= 1e-3).all()))
+    require(in_range and unique and ascending and
+            out["exact_l2_within_1e_3"], f"{label}: {out}")
+    return out
+
+
+def phase_dist_fineweb(torch, group, vecs, cents):
+    """The FineWeb-like cell sharded: the corpus in SHARDS shards of
+    SHARD_N (n_max SHARD_N + SHARD_HEADROOM, build block FINEWEB_BLOCK),
+    one global codec; a sharded search wave of WAVE (QPS, seconds in the
+    shard searches, the gather and the merge, I/O per query summed over
+    the shards, recall@10 against brute force over the whole corpus;
+    casr_rerank once per shard); a routed insert wave of WAVE (ids count
+    .. count + WAVE - 1, WAVE / SHARDS a shard, no drop, invariants and
+    page budget on every shard); a search wave after it.  Global ids use
+    n_per = the shard's capacity, so inserted vertices keep unique ids.
+    Returns (engine, post-build states, queries, routed, valid) for the
+    A/B."""
+    from repro_torch import random as jr
+    from repro_torch.core import (Engine, brute_force_topk,
+                                  check_invariants, recall_at_k)
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.data import insert_stream, query_stream
+    n = SHARDS * SHARD_N
+    n_max = SHARD_N + SHARD_HEADROOM
+    eng = Engine(_spec_fineweb("navis", n_max))
+    t0 = time.perf_counter()
+    states = dist_mod.build_sharded_state(
+        eng, jr.PRNGKey(42), vecs[:n], SHARDS, group=group,
+        build_block=FINEWEB_BLOCK, build_e_pos=64)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    inv = [all(check_invariants(st.store).values()) for st in states]
+    budget = [_page_budget_ok(torch, st.store) for st in states]
+    emit("dist:fineweb_like:build", n=n, shards=SHARDS, shard_n=SHARD_N,
+         n_max=n_max, build_block=FINEWEB_BLOCK, build_s=build_s,
+         invariants=inv, page_budget_ok=budget)
+    require(all(inv) and all(budget),
+            f"dist:fineweb_like: invariants {inv}, page budget {budget}")
+
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    qs = query_stream(gen, cents, WAVE)
+    search = dist_mod.make_sharded_search(eng, n_max, group=group)
+    ids, dists, searched, wave = _sharded_wave(torch, search, states, qs)
+    gates = _sharded_result_gates(torch, ids, dists, searched, qs, n_max,
+                                  "dist:fineweb_like")
+    corpus = torch.where(ids >= 0, ids // n_max * SHARD_N + ids % n_max, -1)
+    recall = recall_at_k(corpus, brute_force_topk(qs, vecs[:n], n, 10))
+    emit("dist:fineweb_like:search", **wave, **gates, recall_at_10=recall,
+         recall_gated=False)
+    require(wave["launches"]["casr_rerank"] == SHARDS,
+            f"dist:fineweb_like: casr_rerank launched "
+            f"{wave['launches']['casr_rerank']} times for {SHARDS} shards")
+
+    count = n
+    vs = insert_stream(gen, cents, WAVE, drift=0.2)
+    bucket = WAVE // SHARDS
+    routed, valid = dist_mod.route_inserts(
+        vs, torch.arange(count, count + WAVE), SHARDS, bucket)
+    insert = dist_mod.make_sharded_insert(eng, bucket, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inserted = insert(searched, routed, valid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dropped = int(sum(s.dropped.sum() for s in insert.last_stats))
+    inv = [all(check_invariants(st.store).values()) for st in inserted]
+    budget = [_page_budget_ok(torch, st.store) for st in inserted]
+    emit("dist:fineweb_like:insert", inserts=WAVE, bucket=bucket,
+         routed=int(valid.sum()), wall_s=wall, inserts_per_s=WAVE / wall,
+         dropped=dropped, counts=[st.store.count for st in inserted],
+         invariants=inv, page_budget_ok=budget)
+    require(int(valid.sum()) == WAVE and dropped == 0,
+            f"dist:fineweb_like: {WAVE - int(valid.sum())} routed entries "
+            f"lost, {dropped} inserts dropped")
+    require(all(inv) and all(budget),
+            f"dist:fineweb_like: after the insert, invariants {inv}, page "
+            f"budget {budget}")
+
+    ids, dists, _, wave = _sharded_wave(torch, search, inserted, qs)
+    gates = _sharded_result_gates(torch, ids, dists, inserted, qs, n_max,
+                                  "dist:fineweb_like:search_after_insert")
+    emit("dist:fineweb_like:search_after_insert", **wave, **gates)
+    return eng, states, qs, routed, valid
+
+
+def phase_ab_sharded(torch, group, eng, states, qs, routed, valid) -> None:
+    """The FineWeb-like sharded search and insert with the kernels, then
+    under plain_on_device(), from the same post-build states: ids and
+    every field of every shard's state identical after the search and
+    after the insert (the insert starts from the kernels' searched
+    states in both runs); distances within the rerank grade (the CASR
+    kernel sums in another order than the plain version), and whether
+    they are identical too."""
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels import ops
+    n_max = SHARD_N + SHARD_HEADROOM
+    search = dist_mod.make_sharded_search(eng, n_max, group=group)
+    insert = dist_mod.make_sharded_insert(eng, routed.shape[1], group=group)
+    ids_k, d_k, searched_k = search(states, qs)
+    inserted_k = insert(searched_k, routed, valid)
+    torch.cuda.synchronize()
+    before = dict(ops.launches)
+    t0 = time.perf_counter()
+    with ops.plain_on_device():
+        ids_p, d_p, searched_p = search(states, qs)
+        inserted_p = insert(searched_k, routed, valid)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    flat = dict(ops.launches) == before
+    diff = {f"search:shard{s}": _tree_diff(torch, a, b)
+            for s, (a, b) in enumerate(zip(searched_k, searched_p))}
+    diff.update({f"insert:shard{s}": _tree_diff(torch, a, b)
+                 for s, (a, b) in enumerate(zip(inserted_k, inserted_p))})
+    diff = {k: v for k, v in diff.items() if v}
+    ids_same = bool(torch.equal(ids_k, ids_p))
+    held = ids_k >= 0
+    d_ok = bool(torch.allclose(d_k[held], d_p[held], rtol=RERANK_RTOL,
+                               atol=RERANK_ATOL))
+    emit("ab:sharded", queries=int(qs.shape[0]), inserts=int(valid.sum()),
+         plain_s=plain_s, ids_identical=ids_same,
+         dists_identical=bool(torch.equal(d_k, d_p)),
+         dists_within_tolerance=d_ok, state_diff=diff,
+         launch_counts_flat_under_plain=flat)
+    require(flat, "ab:sharded: kernels launched under plain_on_device()")
+    require(ids_same and d_ok and not diff,
+            f"ab:sharded: the plain run differs: ids identical {ids_same}, "
+            f"dists within the grade {d_ok}, state fields {diff}")
+
+
 def _pq_scan_recall(torch, eng, state, qs, truth, n: int, depth: int):
     """Share of the exact top-10 inside the top-``depth`` of a full PQ
     (ADC) scan of the corpus: the ceiling a PQ-guided search with a pool
@@ -1569,6 +1881,7 @@ def main() -> int:
         # the presets path
         start("presets")
         phase_presets_small(torch, *small)
+        phase_presets_reuse(torch, small[0], small[1], small[3])
         ab_eng, ab_state, ab_qs = phase_presets_fineweb(
             torch, fw_eng, fw_state, fw_vecs, fw_cents)
         presets = path_counts("presets")
@@ -1583,11 +1896,21 @@ def main() -> int:
                                              fw_cents)
         maintenance = path_counts("maintenance")
         phase_ab_maintenance(torch, fw_eng, *ab_maint)
+        # the sharded path, its merge gathered through a one-rank NCCL group
+        group = _init_group(torch)
+        try:
+            start("sharded")
+            phase_dist_small(torch, group)
+            ab_shard = phase_dist_fineweb(torch, group, fw_vecs, fw_cents)
+            sharded = path_counts("sharded")
+            phase_ab_sharded(torch, group, *ab_shard)
+        finally:
+            torch.distributed.destroy_process_group()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     paths = {"search": search, "update": update, "presets": presets,
-             "maintenance": maintenance}
+             "maintenance": maintenance, "sharded": sharded}
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths.values())
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}

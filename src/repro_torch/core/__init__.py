@@ -6,7 +6,10 @@ Public API:
     build_graph / brute_force_topk / recall_at_k / check_invariants /
         medoid / robust_prune
     IOCounters / SSDModel / merge_counters / sum_counters
+    distributed: build_sharded_state / route_inserts / make_sharded_search /
+        make_sharded_insert / state_shapes
 """
+from repro_torch.core import distributed
 from repro_torch.core.engine import (Engine, EngineSpec, EngineState, OpStats,
                                      PRESETS, preset)
 from repro_torch.core.graph import (brute_force_topk, build_graph,
@@ -18,7 +21,8 @@ from repro_torch.core.layout import (GraphStore, LayoutSpec, empty_store,
                                      page_budget)
 
 __all__ = [
-    "Engine", "EngineSpec", "EngineState", "OpStats", "PRESETS", "preset",
+    "distributed", "Engine", "EngineSpec", "EngineState", "OpStats",
+    "PRESETS", "preset",
     "brute_force_topk", "build_graph", "check_invariants", "medoid",
     "recall_at_k", "robust_prune", "IOCounters", "PAGE_BYTES", "SSDModel",
     "merge_counters", "sum_counters", "GraphStore", "LayoutSpec",

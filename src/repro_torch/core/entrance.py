@@ -49,6 +49,14 @@ class EntranceGraph:
         return self.edges.shape[1]
 
 
+def entrance_hop_stats(ent: EntranceGraph) -> dict:
+    """Diagnostics: the live member count and the members' mean degree."""
+    live = ent.ids >= 0
+    deg = (ent.edges >= 0).sum(1) * live
+    return {"count": ent.count,
+            "mean_degree": float(deg.sum()) / max(int(live.sum()), 1)}
+
+
 def empty_entrance(c_max: int, r_ent: int, n_max: int,
                    device=None) -> EntranceGraph:
     device = resolve_device(device)

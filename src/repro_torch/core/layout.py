@@ -104,6 +104,9 @@ class LayoutSpec:
     def vector_pages_per_read(self) -> int:
         return -(-self.vector_bytes // PAGE_BYTES)
 
+    def read_pad_bytes(self, kind_pages: int, payload: int) -> int:
+        return kind_pages * PAGE_BYTES - payload
+
     @property
     def per_page(self) -> int:
         return (self.packed_per_page if self.kind == "packed"

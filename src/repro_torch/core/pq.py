@@ -85,6 +85,20 @@ def adc_lut(codec: PQCodec, q: torch.Tensor) -> torch.Tensor:
     return ((codec.codebooks - qs) ** 2).sum(-1)
 
 
+def adc_distance(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """One query's LUT [M, 256] at codes [B, M] uint8 -> squared-L2
+    estimates [B] (through the ADC kernel, as a wave of one)."""
+    return kernel_ops.adc_distance(lut[None].contiguous(),
+                                   codes[None].contiguous())[0]
+
+
+def decode_codes(codec: PQCodec, codes: torch.Tensor) -> torch.Tensor:
+    """Reconstruct PQ codes [N, M] into approximate vectors [N, M * dsub]:
+    each subspace's centroid at its code."""
+    ar = torch.arange(codec.m, device=codes.device)
+    return codec.codebooks[ar, codes.long()].reshape(codes.shape[0], -1)
+
+
 def exact_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Squared L2 between q [..., D] and rows of x [..., B, D]."""
     diff = x - q.unsqueeze(-2)

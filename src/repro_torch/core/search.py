@@ -259,6 +259,24 @@ def empty_page_seen(store: GraphStore, *, visited: str = "hash",
     return visited_mod.HashVisited(ps.keys[0], ps.count[0], ps.overflow[0])
 
 
+def traversal_state_bytes(*, n_max: int, p_max: int, pool_size: int,
+                          beam_width: int, max_hops: int,
+                          visited: str = "hash",
+                          frozen: bool = False) -> int:
+    """Bytes of one lane's traversal state: ``expanded``, ``vec_loaded``
+    and ``page_seen``, plus the trace in frozen (fan-out) mode, accounted
+    over the structures :func:`make_traversal_state` hands the traversal,
+    built on the meta device (nothing is allocated).  The port's trace
+    has one column more than the reference's (the sink for uncharged
+    slots), so in frozen mode this is 4 bytes above the reference's."""
+    *sets, trace = make_traversal_state(
+        beam_width=beam_width, max_hops=max_hops, batch=1,
+        device=torch.device("meta"), pool_size=pool_size, visited=visited,
+        n_max=n_max, p_max=p_max)
+    total = sum(visited_mod.nbytes(vs) for vs in sets)
+    return total + (trace[0].numel() * trace.element_size() if frozen else 0)
+
+
 def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
                   codes: torch.Tensor,
                   cache: cache_mod.CacheState | cache_mod.HostCache,

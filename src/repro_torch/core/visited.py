@@ -208,6 +208,13 @@ def add(vs: VisitedSet, keys: torch.Tensor, mask: torch.Tensor
     return HashVisited(keys=table, count=count, overflow=ovf)
 
 
+def nbytes(vs: VisitedSet) -> int:
+    """One lane's state footprint of this set (shape math only)."""
+    fields = ((vs.bits,) if isinstance(vs, DenseVisited)
+              else (vs.keys, vs.count, vs.overflow))
+    return sum(t[0].numel() * t.element_size() for t in fields)
+
+
 def overflow(vs: VisitedSet) -> torch.Tensor:
     """Dropped inserts per lane (always 0 for a bitmap)."""
     if isinstance(vs, DenseVisited):

@@ -116,6 +116,33 @@ def engine_state_from(ref, device=None) -> engine_mod.EngineState:
         ctr_maint=counters_from(ref.ctr_maint, device))
 
 
+class _ShardView:
+    """Shard ``s`` of a stacked state object: array fields indexed at
+    ``s`` on their leading axis, host values as they are, nested state
+    objects viewed the same way."""
+
+    def __init__(self, obj, s: int):
+        self._obj, self._s = obj, s
+
+    def __getattr__(self, name: str):
+        v = getattr(self._obj, name)
+        if hasattr(v, "shape"):
+            return np.asarray(v)[self._s]
+        if isinstance(v, (bool, int, float, str)):
+            return v
+        return _ShardView(v, self._s)
+
+
+def sharded_state_from(ref_stacked, device=None
+                       ) -> list[engine_mod.EngineState]:
+    """The reference's stacked sharded state (a leading shard axis on
+    every array, as its ``build_sharded_state`` returns it) as one port
+    ``EngineState`` per shard, in shard order."""
+    n = np.asarray(ref_stacked.store.count).shape[0]
+    return [engine_state_from(_ShardView(ref_stacked, s), device)
+            for s in range(n)]
+
+
 def spec_from(ref) -> engine_mod.EngineSpec:
     return engine_mod.EngineSpec(**{
         f.name: getattr(ref, f.name)

@@ -14,6 +14,7 @@ from repro.core import entrance as jent
 from repro.core import graph as jgraph
 from repro.core import iomodel as jio
 from repro.core import pq as jpq
+from repro.core import search as jsearch
 from repro.core import visited as jvis
 from repro.core.layout import LayoutSpec as JLayoutSpec
 from repro_torch import interop
@@ -24,6 +25,7 @@ from repro_torch.core import graph as tgraph
 from repro_torch.core import iomodel as tio
 from repro_torch.core import layout as tlayout
 from repro_torch.core import pq as tpq
+from repro_torch.core import search as tsearch
 from repro_torch.core import visited as tvis
 from repro_torch.core.engine import Engine, preset
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -348,3 +350,70 @@ def test_state_constructors_default_to_cuda(make):
     else:
         with pytest.raises(RuntimeError, match="CUDA device"):
             make()
+
+
+# ---------------------------------------------------------------------------
+# small helpers: ADC of one query, decoding, footprints, diagnostics
+# ---------------------------------------------------------------------------
+
+def test_adc_distance_and_decode_codes_match_reference(pq_case):
+    """One query's ADC over a set of codes (1e-4, the ADC grade) and the
+    decoded vectors (exact: a gather of centroids)."""
+    x, codec = pq_case
+    tc = interop.codec_from(codec, device="cpu")
+    codes = jpq.encode(codec, jnp.asarray(x[:300]))
+    tcodes = torch.from_numpy(np.array(codes))
+    for q in x[-3:]:
+        lut = jpq.adc_lut(codec, jnp.asarray(q))
+        got = tpq.adc_distance(torch.from_numpy(np.array(lut)), tcodes)
+        np.testing.assert_allclose(got.numpy(), jpq.adc_distance(lut, codes),
+                                   rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(tpq.decode_codes(tc, tcodes).numpy(),
+                                  jpq.decode_codes(codec, codes))
+
+
+@pytest.mark.parametrize("visited", ["hash", "bitmap"])
+@pytest.mark.parametrize("frozen", [False, True])
+def test_traversal_state_bytes_matches_reference(visited, frozen):
+    """The per-lane traversal footprint, and each visited set's ``nbytes``,
+    equal the reference's; in frozen mode the port's trace carries one
+    more int32 column (the sink for uncharged slots)."""
+    kw = dict(n_max=5000, p_max=9000, pool_size=40, beam_width=4,
+              max_hops=96, visited=visited, frozen=frozen)
+    want = jsearch.traversal_state_bytes(**kw)
+    assert tsearch.traversal_state_bytes(**kw) == want + 4 * frozen
+    for jset, tset in ((jvis.make_hash(384), tvis.make_hash(384, 3, "cpu")),
+                       (jvis.make_dense(700), tvis.make_dense(700, 3, "cpu"))):
+        assert tvis.nbytes(tset) == jvis.nbytes(jset)
+
+
+def test_entrance_hop_stats_matches_reference(pq_case):
+    """The member count and the mean degree of a linked entrance graph,
+    with two members dropped."""
+    x, codec = pq_case
+    codes = jpq.encode(codec, jnp.asarray(x))
+    tables = jpq.sym_tables(codec)
+    members = np.random.default_rng(5).permutation(900)[:50].astype(np.int32)
+    want = jent.link_members(jnp.asarray(members), codes, tables, c_max=64,
+                             r_ent=32, n_max=900)
+    want = dataclasses.replace(want,
+                               ids=want.ids.at[jnp.array([3, 7])].set(-1))
+    got = interop.entrance_from(want, device="cpu")
+    w, g = jent.entrance_hop_stats(want), tent.entrance_hop_stats(got)
+    assert g["count"] == int(w["count"])
+    assert g["mean_degree"] == pytest.approx(float(w["mean_degree"]),
+                                             rel=1e-6)
+
+
+@pytest.mark.parametrize("kind,dim,r", [("packed", 48, 16),
+                                        ("decoupled", 768, 48),
+                                        ("packed", 1536, 96)])
+def test_read_pad_bytes_matches_reference(kind, dim, r):
+    """The padding of a read of whole pages around its payload."""
+    want, got = JLayoutSpec(kind, dim, r), tlayout.LayoutSpec(kind, dim, r)
+    for pages, payload in ((1, want.edgelist_bytes),
+                           (want.vector_pages_per_read, want.vector_bytes),
+                           (want.packed_pages_per_vertex,
+                            want.packed_record_bytes)):
+        assert got.read_pad_bytes(pages, payload) == \
+            want.read_pad_bytes(pages, payload)
