@@ -8,7 +8,7 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives five paths, each with the launch counts
+main path's shapes, then drives six paths, each with the launch counts
 set to 0 just before it and read just after:
 
 - search: builds and searches a small index (the test suite's
@@ -28,18 +28,28 @@ set to 0 just before it and read just after:
 - sharded (``core/distributed.py``, all shards on the one card, the
   merge's gather through a one-rank NCCL group): the reference test's
   8 shards of 128, and the FineWeb-like corpus in 8 shards of 12,500
-  with a global codec: sharded search waves and a routed insert wave.
+  with a global codec: sharded search waves and a routed insert wave;
+- serving (the LM substrate, ``repro_torch.launch.serve``): qwen2-0.5b at
+  its published width (24 x 896, vocab 151,936, bf16, seeded random
+  weights) serving batch 4 x 64 prompt tokens + 32 decode steps and
+  batch 32 x 512 + 64, a float32 run against the same model on the host,
+  and chunked against dense attention at 2 x 4,096 tokens; then RAG
+  (``examples/rag_serving_torch.py``): the LM embeds 512 documents, the
+  navis index is built over them on the card and a wave of 256 embedded
+  queries retrieves from it (its counts are read apart, as ``rag``).
 
 The search and update paths must launch ``pool_merge``, ``adc_distance``
 and ``casr_rerank`` (once per search or insert wave) and neither rerank
 entry; the presets path all of those and ``rerank_l2_rows`` (the full
 rerank and the buffer scan); the maintenance path as the search path,
 and a pass itself launches no rerank kernel; the sharded path as the
-search path, ``casr_rerank`` once per shard and wave.  ``rerank_l2``
-runs on no path (the kernel phase holds it).  After each path one search
-wave and one insert wave (after the maintenance path, one pass; after the
-sharded path, a sharded search and insert) are repeated with the plain
-versions on the card (A/B).  Each phase
+search path, ``casr_rerank`` once per shard and wave; the serving path
+none of the port's kernels (its products are ``torch.matmul``), and its
+RAG wave as the search path.  ``rerank_l2`` runs on no path (the kernel
+phase holds it).  After each engine path one search wave and one insert
+wave (after the maintenance path, one pass; after the sharded path, a
+sharded search and insert) are repeated with the plain versions on the
+card (A/B).  Each phase
 prints one JSON line; any failure exits non-zero without the final
 result line.  With no CUDA device, or without the repository beside it,
 it exits non-zero at once.
@@ -72,6 +82,18 @@ FINEWEB_BLOCK = 512
 SHARDS = 8
 SHARD_N = FINEWEB_N // SHARDS
 SHARD_HEADROOM = 1_200
+# The serving path (the LM substrate): qwen2-0.5b at its published widths
+# (src/repro/configs/qwen2_0_5b.py), bf16, weights drawn from a seed.
+# SERVE_LOADS are (batch, prompt tokens, decode steps): the reference
+# launcher's defaults, then a larger batch and prompt.  FP32_LOAD is the
+# card-against-host check's, CHUNK_LOAD the (batch, tokens) of the
+# chunked-attention check; RAG_QUERIES embedded queries make a RAG wave.
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_LOADS = ((4, 64, 32), (32, 512, 64))
+SERVE_MEM_BUDGET = 16 << 30   # bytes a serve may add to what is live
+FP32_LOAD = (4, 64, 8)
+CHUNK_LOAD = (2, 4096)
+RAG_QUERIES = 256
 
 KERNELS = {
     "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
@@ -109,6 +131,12 @@ PATH_KERNELS = {
     # every shard runs the navis search and insert waves
     "sharded": (("pool_merge", "adc_distance", "casr_rerank"),
                 ("rerank_l2", "rerank_l2_rows")),
+    # the LM serves with torch.matmul and plain torch ops: no kernel of the
+    # port (the reference reaches no Pallas kernel there) ...
+    "serving": ((), tuple(KERNELS)),
+    # ... and the RAG wave runs the navis search
+    "rag": (("pool_merge", "adc_distance", "casr_rerank"),
+            ("rerank_l2", "rerank_l2_rows")),
 }
 # the five baselines; the presets path also runs navis with bitmaps
 BASELINES = ("freshdiskann", "odinann", "odinann_cache", "layout_only",
@@ -170,6 +198,12 @@ def device_ms(torch, fn, iters: int = 20) -> float | str:
 
 
 def _self_device_us(event) -> float:
+    """A kernel row's device time.  An operator's row (``aten::mm``) also
+    carries the time of the kernels it launched, which have rows of their
+    own, so only rows on the CUDA device count: summing both would count
+    a PyTorch operator's device time twice."""
+    if getattr(event.device_type, "name", None) != "CUDA":
+        return 0.0
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
             return float(getattr(event, name))
@@ -197,8 +231,8 @@ def device_ms_cold(torch, fn, kernel: str, iters: int = 20) -> float:
 
 def profile_window(torch, fn) -> dict:
     """Device busy share of one call of ``fn`` (host clock around it), its
-    five largest kernels by device time, and the port's kernels in it
-    (device ms, launches)."""
+    kernel launches, its five largest kernels by device time, and the
+    port's kernels in it (device ms, launches)."""
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
@@ -214,6 +248,7 @@ def profile_window(torch, fn) -> dict:
             if k.startswith(name + "_kernel(")}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms if wall_ms else None,
+            "kernel_launches": sum(r[2] for r in rows),
             "top_kernels": [[k, ms, n] for k, ms, n in rows[:5]],
             "port_kernels": port}
 
@@ -1832,6 +1867,311 @@ def phase_ab(torch, eng, state, qs, vecs, label: str = "ab") -> None:
             "path")
 
 
+# ---------------------------------------------------------------------------
+# the serving path: the LM substrate (qwen2-0.5b at full width) and RAG
+# ---------------------------------------------------------------------------
+
+class Paths:
+    """Each path's launch counts: set to 0 when it starts, read, printed
+    and held to ``PATH_KERNELS`` when it ends."""
+
+    def __init__(self, ops):
+        self.ops, self.started = ops, {}
+
+    def start(self, path: str) -> None:
+        self.ops.reset_launches()
+        self.started[path] = time.perf_counter()
+
+    def end(self, path: str) -> dict:
+        counts = dict(self.ops.launches)
+        emit("kernels" if path == "search" else f"kernels:{path}",
+             launches=counts,
+             path_s=time.perf_counter() - self.started[path])
+        on, off = PATH_KERNELS[path]
+        require(all(counts[k] > 0 for k in on) and
+                all(counts[k] == 0 for k in off),
+                f"{path} path launches: want {on} launched and {off} not, "
+                f"got {counts}")
+        return counts
+
+
+def serving_path(torch, paths: Paths) -> tuple[dict, dict]:
+    """The LM alone (its counts read as ``serving``), then RAG, where the
+    LM embeds and the navis engine retrieves (read as ``rag``)."""
+    paths.start("serving")
+    cfg, params = phase_serving(torch)
+    params32 = phase_serving_fp32(torch)
+    phase_serving_chunked(torch, params32, params)
+    del params32
+    serving = paths.end("serving")
+    paths.start("rag")
+    phase_serving_rag(torch, cfg, params)
+    return serving, paths.end("rag")
+
+
+def _serve_cfg(dtype: str = "bfloat16"):
+    """The published qwen2-0.5b (``src/repro/configs/qwen2_0_5b.py``), in
+    ``dtype``; its widths are checked, never cut."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(C.get_arch(SERVE_ARCH).model,
+                              param_dtype=dtype)
+    widths = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+              cfg.d_ff, cfg.vocab_size, cfg.qkv_bias, cfg.tie_embeddings)
+    require(widths == (24, 896, 14, 2, 4864, 151_936, True, True),
+            f"serving: {SERVE_ARCH} widths {widths}")
+    return cfg, T.param_count(cfg)
+
+
+def _rel_l2(torch, got, want) -> float:
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want) /
+                 torch.linalg.vector_norm(want))
+
+
+def _prefill_then_decode(torch, cfg, params, tokens) -> float:
+    """Relative L2 error between the prefill of ``tokens[:, :S-1]`` then
+    one decode of ``tokens[:, S-1]`` at ``pos = S-1``, and the last logits
+    of the prefill of ``tokens``."""
+    from repro_torch.models import transformer as T
+    S = tokens.shape[1]
+    with torch.inference_mode():
+        _, cache = T.prefill_step(cfg, params, tokens[:, :S - 1],
+                                  max_seq=S)
+        got, _ = T.decode_step(cfg, params, cache, tokens[:, S - 1:], S - 1)
+        want, _ = T.prefill_step(cfg, params, tokens)
+    return _rel_l2(torch, got, want)
+
+
+def phase_serving(torch):
+    """``launch.serve.serve`` with qwen2-0.5b at full width (bf16, seeded
+    random weights, synthetic prompts) at each of SERVE_LOADS, after one
+    warm-up run of the same load; then a profiled decode step and prefill
+    (device idle share)."""
+    from repro_torch.launch.serve import prompt_tokens, serve
+    from repro_torch.models import transformer as T
+    cfg, n_params = _serve_cfg()
+    t0 = time.perf_counter()
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    emit(f"serving:{SERVE_ARCH}:init", params=n_params,
+         dtype=str(cfg.dtype), seconds=time.perf_counter() - t0,
+         bytes=n_params * cfg.dtype.itemsize)
+    for batch, prompt, gen in SERVE_LOADS:
+        serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0,
+              device="cuda", params=params)                   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()   # the weights, earlier paths
+        res = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0,
+                    device="cuda", params=params)
+        peak = torch.cuda.max_memory_allocated()
+        tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
+        rel = _prefill_then_decode(torch, cfg, params, tokens)
+        toks = res["tokens"]
+        out = dict(batch=batch, prompt_len=prompt, decode_steps=gen,
+                   prefill_s=res["prefill_s"],
+                   prefill_tokens_s=batch * prompt / res["prefill_s"],
+                   decode_s=res["decode_s"],
+                   decode_tokens_s=batch * gen / res["decode_s"],
+                   decode_ms_per_step=res["decode_s"] / gen * 1e3,
+                   peak_mem_bytes=peak, live_before_bytes=live,
+                   serve_peak_bytes=peak - live,
+                   logits_finite=bool(torch.isfinite(res["logits"]).all()),
+                   tokens_in_vocab=bool(((toks >= 0) &
+                                         (toks < cfg.vocab_size)).all()),
+                   prefill_then_decode_rel_l2=rel,
+                   sample=toks[0, :8].tolist())
+        emit(f"serving:{SERVE_ARCH}", **out)
+        require(tuple(toks.shape) == (batch, gen + 1) and
+                out["logits_finite"] and out["tokens_in_vocab"],
+                f"serving: bad output {out}")
+        require(rel <= 2e-2, f"serving: prefill-then-decode rel L2 {rel}")
+        require(peak - live <= SERVE_MEM_BUDGET,
+                f"serving: peak memory {peak - live} > {SERVE_MEM_BUDGET}")
+    _profile_serving(torch, cfg, params)
+    return cfg, params
+
+
+def _profile_serving(torch, cfg, params) -> None:
+    """One decode step and one prefill at the largest load under the
+    profiler: the device's busy share and its largest kernels."""
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import transformer as T
+    batch, prompt, gen = SERVE_LOADS[-1]
+    tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
+    with torch.inference_mode():
+        logits, cache = T.prefill_step(cfg, params, tokens,
+                                       max_seq=prompt + gen)
+        cur = logits.argmax(-1)[:, None]
+        T.decode_step(cfg, params, cache, cur, prompt)
+        win = profile_window(torch, lambda: T.decode_step(
+            cfg, params, cache, cur, prompt + 1))
+        emit(f"serving:{SERVE_ARCH}:profile_decode_step", batch=batch,
+             **win)
+        win = profile_window(torch, lambda: T.prefill_step(
+            cfg, params, tokens, max_seq=prompt + gen))
+        emit(f"serving:{SERVE_ARCH}:profile_prefill", batch=batch,
+             prompt_len=prompt, **win)
+
+
+def phase_serving_fp32(torch) -> dict:
+    """The card against the host: qwen2-0.5b at full width in float32,
+    the same seeded weights on the card and in the port on the CPU
+    (matmul precision "highest": no TF32), prefill of FP32_LOAD's prompts
+    then teacher-forced decode steps, both sides decoding the CPU run's
+    greedy tokens.  Logits within 1e-3 absolute at every step; the argmax
+    equal wherever the CPU's top-2 gap exceeds 2e-3."""
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import transformer as T
+    torch.set_float32_matmul_precision("highest")
+    cfg, _ = _serve_cfg("float32")
+    batch, prompt, steps = FP32_LOAD
+    t0 = time.perf_counter()
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    p_gpu = T.Transformer(cfg, p_cpu).to("cuda").tree()
+    init_s = time.perf_counter() - t0
+    tokens = prompt_tokens(cfg, batch, prompt, 1, "cpu")
+    max_err, checked, flips, worst_gap = 0.0, 0, 0, None
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lc, cc = T.prefill_step(cfg, p_cpu, tokens, max_seq=prompt + steps)
+        lg, cg = T.prefill_step(cfg, p_gpu, tokens.cuda(),
+                                max_seq=prompt + steps)
+        for i in range(steps + 1):
+            lg_h = lg.cpu()
+            max_err = max(max_err, float((lg_h - lc).abs().max()))
+            top2 = lc.topk(2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            clear = gap > 2e-3
+            checked += int(clear.sum())
+            flips += int((lg_h.argmax(-1) != lc.argmax(-1))[clear].sum())
+            worst_gap = float(gap.min()) if worst_gap is None else \
+                min(worst_gap, float(gap.min()))
+            if i == steps:
+                break
+            nxt = lc.argmax(-1)[:, None]          # the CPU run's tokens
+            lc, cc = T.decode_step(cfg, p_cpu, cc, nxt, prompt + i)
+            lg, cg = T.decode_step(cfg, p_gpu, cg, nxt.cuda(), prompt + i)
+    out = dict(batch=batch, prompt_len=prompt, decode_steps=steps,
+               matmul_precision=torch.get_float32_matmul_precision(),
+               matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               init_s=init_s, run_s=time.perf_counter() - t0,
+               max_abs_err=max_err, argmax_checked=checked,
+               argmax_flips=flips, min_top2_gap=worst_gap)
+    emit(f"serving:{SERVE_ARCH}:fp32", **out)
+    require(max_err <= 1e-3, f"serving fp32: logits differ {out}")
+    require(flips == 0, f"serving fp32: argmax differs {out}")
+    return p_gpu
+
+
+def phase_serving_chunked(torch, params32, params) -> None:
+    """Layer 0's q, k, v (GQA repeated) of a CHUNK_LOAD forward, above the
+    forward's 2,048-token threshold: ``chunked_attention`` against
+    ``attention_core`` in float32 on the card, within 1e-4; then the bf16
+    forward at that length (its attention goes chunked) is finite."""
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg32, _ = _serve_cfg("float32")
+    cfg, _ = _serve_cfg()
+    batch, seq = CHUNK_LOAD
+    tokens = prompt_tokens(cfg, batch, seq, 2, "cuda")
+    lp = T._layer(params32["blocks"][0][0], 0, 0)
+    with torch.inference_mode():
+        x = L.embed(params32["embed"], tokens, scale=cfg32.embed_scale)
+        h = T._norm(lp["ln1"], x, cfg32)
+        q, k, v = L._qkv(lp["attn"], h, n_heads=cfg32.num_heads,
+                         n_kv=cfg32.num_kv_heads, head_dim=cfg32.hd,
+                         qkv_bias=cfg32.qkv_bias)
+        pos = torch.arange(seq, device="cuda")
+        q = L.rope(q, pos, cfg32.rope_theta)
+        k = L._repeat_kv(L.rope(k, pos, cfg32.rope_theta), cfg32.num_heads)
+        v = L._repeat_kv(v, cfg32.num_heads)
+        dense = L.attention_core(q, k, v, causal=True)
+        chunked = L.chunked_attention(q, k, v, causal=True)
+        err = float((dense - chunked).abs().max())
+        dense_ms = time_ms(torch, lambda: L.attention_core(
+            q, k, v, causal=True), iters=5, warmup=1)
+        chunked_ms = time_ms(torch, lambda: L.chunked_attention(
+            q, k, v, causal=True), iters=5, warmup=1)
+        t0 = time.perf_counter()
+        hidden = T.forward(cfg, params, tokens)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    out = dict(batch=batch, seq=seq, heads=cfg32.num_heads,
+               max_abs_err=err, attention_core_ms=dense_ms,
+               chunked_attention_ms=chunked_ms, bf16_forward_s=fwd_s,
+               forward_finite=bool(torch.isfinite(hidden).all()))
+    emit("serving:chunked", **out)
+    require(err <= 1e-4, f"serving:chunked: {out}")
+    require(out["forward_finite"] and
+            tuple(hidden.shape) == (batch, seq, cfg.d_model),
+            f"serving:chunked: forward {out}")
+
+
+def phase_serving_rag(torch, cfg, params) -> None:
+    """``examples/rag_serving_torch.py`` with qwen2-0.5b at full width: the
+    512 documents' 896-d embeddings, the navis index built on the card,
+    a wave of RAG_QUERIES embedded queries through ``search_many`` (a
+    second wave timed warm).  Ids valid and unique per query, distances
+    ascending and within 1e-3 relative of the exact L2; recall@5 against
+    brute force over the 512 embeddings printed."""
+    import importlib.util
+    from repro_torch import random as jr
+    from repro_torch.core import brute_force_topk, recall_at_k
+    spec = importlib.util.spec_from_file_location(
+        "rag_serving_torch", ROOT / "examples" / "rag_serving_torch.py")
+    rag = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rag)
+    key = jr.PRNGKey(0)
+    t0 = time.perf_counter()
+    docs = rag.embed_queries(cfg, params,
+                             rag.document_tokens(cfg, key, "cuda"))
+    torch.cuda.synchronize()
+    embed_docs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng, state = rag.build_index(docs, key, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qs = rag.embed_queries(cfg, params,
+                           [rag.query_tokens(cfg, key, RAG_QUERIES, "cuda")])
+    torch.cuda.synchronize()
+    embed_q_s = time.perf_counter() - t0
+    waves = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ids, dists, stats, state = eng.search_many(state, qs)
+        torch.cuda.synchronize()
+        waves.append(time.perf_counter() - t0)
+    n = docs.shape[0]
+    top = rag.TOP
+    held = ids >= 0
+    srt = torch.sort(ids, dim=1).values
+    exact = ((docs[ids.clamp(min=0).long()].double() -
+              qs[:, None].double()) ** 2).sum(-1)
+    rel = ((dists.double() - exact).abs() / exact.clamp(min=1e-12))[held]
+    truth = brute_force_topk(qs, docs, n, top)
+    out = dict(arch=SERVE_ARCH, dim=int(docs.shape[1]), docs=n,
+               queries=RAG_QUERIES, embed_docs_s=embed_docs_s,
+               build_s=build_s, embed_queries_s=embed_q_s,
+               wave_s=waves, queries_s=[RAG_QUERIES / w for w in waves],
+               reads_per_query=float(stats.read_requests.double().mean()),
+               recall_at_5=recall_at_k(ids[:, :top], truth),
+               ids_valid=bool(held.all() & (ids < n).all()),
+               ids_unique=bool((srt[:, 1:] != srt[:, :-1]).all()),
+               dists_ascending=bool((dists[:, 1:] >= dists[:, :-1]).all()),
+               max_rel_err_to_exact_l2=float(rel.max()))
+    emit("serving:rag", **out)
+    require(tuple(docs.shape) == (512, 896) and
+            bool(torch.isfinite(docs).all()), "serving:rag: embeddings")
+    require(out["ids_valid"] and out["ids_unique"] and
+            out["dists_ascending"] and out["max_rel_err_to_exact_l2"] <= 1e-3,
+            f"serving:rag: {out}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1845,23 +2185,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    started = {}
-
-    def start(path: str) -> None:
-        ops.reset_launches()
-        started[path] = time.perf_counter()
-
-    def path_counts(path: str) -> dict:
-        counts = dict(ops.launches)
-        emit("kernels" if path == "search" else f"kernels:{path}",
-             launches=counts,
-             path_s=time.perf_counter() - started[path])
-        on, off = PATH_KERNELS[path]
-        require(all(counts[k] > 0 for k in on) and
-                all(counts[k] == 0 for k in off),
-                f"{path} path launches: want {on} launched and {off} not, "
-                f"got {counts}")
-        return counts
+    paths = Paths(ops)
+    start, path_counts = paths.start, paths.end
 
     try:
         env = phase_env(torch)
@@ -1906,11 +2231,13 @@ def main() -> int:
             phase_ab_sharded(torch, group, *ab_shard)
         finally:
             torch.distributed.destroy_process_group()
+        serving, rag = serving_path(torch, paths)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     paths = {"search": search, "update": update, "presets": presets,
-             "maintenance": maintenance, "sharded": sharded}
+             "maintenance": maintenance, "sharded": sharded,
+             "serving": serving, "rag": rag}
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths.values())
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}

@@ -4,7 +4,10 @@ Turns the reference's state objects (``EngineState``, ``GraphStore``,
 ``PQCodec``, ``EntranceGraph``, ``CacheState``, ``IOCounters`` and the
 engine's spec and codec) into the port's, and any state object of either
 package into nested dicts of numpy arrays keyed by the reference's field
-names.  It reads the reference's objects only by field name through
+names.  The LM substrate's trees (a parameter tree, a KV cache: nested
+dicts and lists of arrays) go across leaf for leaf (``params_from``,
+``kv_cache_from``; ``to_numpy`` turns either package's tree back).  It
+reads the reference's objects only by field name through
 ``np.asarray(getattr(obj, name))``, so tests can hand JAX objects in
 directly while this package imports no JAX.
 
@@ -32,7 +35,13 @@ def _a(obj, name: str) -> np.ndarray:
 
 
 def _t(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.array(arr, copy=True))
+    """One array as a tensor.  A bfloat16 array (``ml_dtypes``, which
+    ``torch.from_numpy`` rejects) goes across bit for bit as int16."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
     return t.to(device=resolve_device(device), dtype=dtype or t.dtype)
 
 
@@ -165,14 +174,44 @@ def engine_from(ref_engine, device=None) -> engine_mod.Engine:
     return eng
 
 
+def _tree_from(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_from(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from(v, device, dtype) for v in tree]
+    return _t(tree, device, dtype)
+
+
+def params_from(ref_params, device=None, dtype=None) -> dict:
+    """The reference's LM parameter tree (``repro.models.transformer``
+    ``init_params``: dicts, lists of patterns of stages, stacked
+    ``[repeats, count, ...]`` leaves) as the port's, leaf for leaf, cast
+    to ``dtype`` where given."""
+    return _tree_from(ref_params, device, dtype)
+
+
+def kv_cache_from(ref_cache, device=None) -> list:
+    """The reference's KV cache (a list of patterns of stages of
+    ``{"k", "v"}``, ``[repeats, count, B, slen, KV, hd]``) as the port's."""
+    return _tree_from(ref_cache, device, None)
+
+
 def to_numpy(obj):
     """Any state object of either package -> nested dicts of numpy arrays
-    keyed by field name (NamedTuples by their fields)."""
+    keyed by field name (NamedTuples by their fields); an LM tree's dicts
+    and lists stay dicts and lists.  bfloat16 leaves come back as float32
+    (exact)."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+        obj = obj.detach().cpu()
+        return (obj.float() if obj.dtype == torch.bfloat16 else obj).numpy()
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [to_numpy(v) for v in obj]
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {f.name: to_numpy(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return {k: to_numpy(v) for k, v in obj._asdict().items()}
-    return np.asarray(obj)
+    arr = np.asarray(obj)
+    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
