@@ -33,7 +33,13 @@ set to 0 just before it and read just after:
   its published width (24 x 896, vocab 151,936, bf16, seeded random
   weights) serving batch 4 x 64 prompt tokens + 32 decode steps and
   batch 32 x 512 + 64, a float32 run against the same model on the host,
-  and chunked against dense attention at 2 x 4,096 tokens; then RAG
+  and chunked against dense attention at 2 x 4,096 tokens; then each
+  other architecture at its published widths, one at a time
+  (``SERVE_MODELS``: the MoE moonshot-v1-16b-a3b whole, 56.1 GB;
+  falcon-mamba-7b, hymba-1.5b and whisper-medium whole;
+  llama-3.2-vision-90b at one period of its pattern and arctic-480b at one
+  layer) at the launcher's load and a larger one, and a float32 run
+  against the host of each new layer kind at 2 layers; then RAG
   (``examples/rag_serving_torch.py``): the LM embeds 512 documents, the
   navis index is built over them on the card and a wave of 256 embedded
   queries retrieves from it (its counts are read apart, as ``rag``).
@@ -57,6 +63,7 @@ It takes no options: every run is the whole smoke.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -94,6 +101,39 @@ SERVE_MEM_BUDGET = 16 << 30   # bytes a serve may add to what is live
 FP32_LOAD = (4, 64, 8)
 CHUNK_LOAD = (2, 4096)
 RAG_QUERIES = 256
+# Then the serving path's other architectures, one at a time (each one's
+# weights freed before the next), bf16, seeded random weights, at their
+# published widths (src/repro/configs/<arch>.py), pinned by their
+# parameter counts (the reference's T.param_count).  (arch, layers kept,
+# loads): depth is cut only where the weights exceed the card,
+# llama-3.2-vision-90b to one period of its pattern (4 attn + 1 cross
+# layers; 175 GB in bf16 whole) and arctic-480b to 1 of its 35 layers
+# (954 GB whole).  The loads are the launcher's 4 x 64 + 32 and a larger
+# one under SERVE_MEM_BUDGET: 32 x 512 + 64, but 4 x 512 for llama-vision,
+# whose float32 cross-attention scores over 6,404 patches are [B, 64, S,
+# 6404] (26.9 GB at 32 x 512); hymba adds 2 x 1,536 + 32, past its
+# 1,024-slot rings in prefill and in decode.
+SERVE_MODELS = (
+    ("moonshot-v1-16b-a3b", None, ((4, 64, 32), (32, 512, 64))),
+    ("falcon-mamba-7b", None, ((4, 64, 32), (32, 512, 64))),
+    ("hymba-1.5b", None, ((4, 64, 32), (32, 512, 64), (2, 1536, 32))),
+    ("whisper-medium", None, ((4, 64, 32), (32, 512, 64))),
+    ("llama-3.2-vision-90b", 5, ((4, 64, 32), (4, 512, 64))),
+    ("arctic-480b", 1, ((4, 64, 32), (32, 512, 64))),
+)
+PUBLISHED_PARAMS = {
+    "moonshot-v1-16b-a3b": 28_057_995_264, "falcon-mamba-7b": 7_272_665_088,
+    "hymba-1.5b": 1_611_062_400, "whisper-medium": 846_202_880,
+    "llama-3.2-vision-90b": 87_666_794_536, "arctic-480b": 476_850_275_328,
+}
+# The float32 card-against-host check of each new layer kind (MoE, mamba,
+# hybrid, attn_cross) at full width, FP32_LAYERS deep, at FP32_LOAD.
+FP32_MODELS = ("moonshot-v1-16b-a3b", "falcon-mamba-7b", "hymba-1.5b",
+               "whisper-medium")
+FP32_LAYERS = 2
+# tanh gates of llama-vision's cross layers: zero at init, where a cross
+# layer adds nothing, so the smoke opens them
+CROSS_GATES = (0.7, -0.4)
 
 KERNELS = {
     "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
@@ -1896,13 +1936,21 @@ class Paths:
 
 
 def serving_path(torch, paths: Paths) -> tuple[dict, dict]:
-    """The LM alone (its counts read as ``serving``), then RAG, where the
-    LM embeds and the navis engine retrieves (read as ``rag``)."""
+    """The LMs alone (their counts read as ``serving``): qwen2-0.5b, then
+    the other architectures of SERVE_MODELS and the float32 checks of
+    FP32_MODELS; then RAG, where qwen2-0.5b embeds and the navis engine
+    retrieves (read as ``rag``)."""
     paths.start("serving")
     cfg, params = phase_serving(torch)
     params32 = phase_serving_fp32(torch)
     phase_serving_chunked(torch, params32, params)
     del params32
+    for arch, layers, loads in SERVE_MODELS:
+        phase_serving_model(torch, arch, layers, loads)
+        torch.cuda.empty_cache()
+    for arch in FP32_MODELS:
+        phase_serving_fp32(torch, arch, FP32_LAYERS)
+        torch.cuda.empty_cache()
     serving = paths.end("serving")
     paths.start("rag")
     phase_serving_rag(torch, cfg, params)
@@ -1924,24 +1972,196 @@ def _serve_cfg(dtype: str = "bfloat16"):
     return cfg, T.param_count(cfg)
 
 
+def _published(arch: str, dtype: str = "bfloat16", layers=None):
+    """The published configuration of ``arch`` in ``dtype``, its widths
+    pinned by its parameter count, and cut to its first ``layers`` layers
+    where given (whisper's encoder to as many).  Returns (cfg, the cuts
+    made, as ``reduced``)."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    cfg = C.get_arch(arch).model
+    n = T.param_count(cfg)
+    require(n == PUBLISHED_PARAMS[arch],
+            f"serving: {arch} has {n} parameters, published "
+            f"{PUBLISHED_PARAMS[arch]}")
+    cfg = dataclasses.replace(cfg, param_dtype=dtype)
+    if layers is None or layers >= cfg.num_layers:
+        return cfg, []
+    stages, left = [], layers
+    for pat in cfg.patterns:
+        for _ in range(pat.repeats):
+            for st in pat.stages:
+                if left > 0:
+                    stages.append(T.StageSpec(st.kind, min(st.count, left),
+                                              st.window))
+                    left -= stages[-1].count
+    reduced = [f"depth: {layers} of {cfg.num_layers} layers"]
+    if cfg.encoder_layers:
+        reduced.append(f"encoder depth: {layers} of {cfg.encoder_layers}")
+    cfg = dataclasses.replace(
+        cfg, num_layers=layers, patterns=(T.Pattern(1, tuple(stages)),),
+        encoder_layers=min(cfg.encoder_layers, layers))
+    return cfg, reduced
+
+
 def _rel_l2(torch, got, want) -> float:
     got, want = got.double(), want.double()
     return float(torch.linalg.vector_norm(got - want) /
                  torch.linalg.vector_norm(want))
 
 
-def _prefill_then_decode(torch, cfg, params, tokens) -> float:
+def _prefill_then_decode(torch, cfg, params, tokens, cross=None) -> float:
     """Relative L2 error between the prefill of ``tokens[:, :S-1]`` then
     one decode of ``tokens[:, S-1]`` at ``pos = S-1``, and the last logits
-    of the prefill of ``tokens``."""
+    of the prefill of ``tokens`` (``cross``: the cross layers' source)."""
     from repro_torch.models import transformer as T
     S = tokens.shape[1]
     with torch.inference_mode():
         _, cache = T.prefill_step(cfg, params, tokens[:, :S - 1],
-                                  max_seq=S)
+                                  max_seq=S, cross_src=cross)
         got, _ = T.decode_step(cfg, params, cache, tokens[:, S - 1:], S - 1)
-        want, _ = T.prefill_step(cfg, params, tokens)
+        del cache
+        want, _ = T.prefill_step(cfg, params, tokens, cross_src=cross)
     return _rel_l2(torch, got, want)
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Every ``moe_router`` call's expert ids, in call order, while the
+    context is open."""
+    from repro_torch.models import layers as L
+    routes, router = [], L.moe_router
+
+    def record(wg, x, top_k):
+        gates, idx = router(wg, x, top_k)
+        routes.append(idx)
+        return gates, idx
+    L.moe_router = record
+    try:
+        yield routes
+    finally:
+        L.moe_router = router
+
+
+def _no_drop(cfg):
+    """A MoE configuration at the capacity factor E / k, where capacity =
+    T and no assignment drops; other configurations as they are."""
+    import dataclasses
+    if not cfg.moe_experts:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+
+
+def _route_flips(routes, n_layers: int, batch: int) -> list[int]:
+    """Per MoE layer, the rows whose expert set for the last token differs
+    between the decode and the longer prefill of ``_prefill_then_decode``
+    (its router calls: the shorter prefill's, the decode's, the longer
+    prefill's, one per layer each)."""
+    dec, full = routes[n_layers:2 * n_layers], routes[2 * n_layers:]
+    return [int((d.sort(-1).values != f.reshape(batch, -1, f.shape[-1])
+                 [:, -1].sort(-1).values).any(-1).sum())
+            for d, f in zip(dec, full)]
+
+
+def _has_mamba(cfg) -> bool:
+    return any(st.kind in ("mamba", "hybrid") for pat in cfg.patterns
+               for st in pat.stages)
+
+
+def _serve_load(torch, cfg, params, label: str, batch: int, prompt: int,
+                gen: int) -> dict:
+    """``launch.serve.serve`` at one load after a short warm-up of it (2
+    decode steps): the phases' times, the memory the serve adds to what
+    is live, the output gates and the prefill-then-decode error in bf16,
+    gated at 2e-2 relative L2 where the two sides compute the same
+    function in the same way; ``prefill_then_decode_gated`` says whether
+    it was.  Where they do not, the error is printed, and a float32 check
+    on the card gates the same property:
+
+    - A MoE's capacity binds at its published factor, so the prefill of
+      S-1 tokens, the decode of one and the prefill of S drop different
+      assignments (the reference's semantics).  The caches are checked
+      at a factor where nothing drops (``_no_drop``), on the load's first
+      4 rows (the buffers grow with T); even then a router logit rounded
+      to bf16 that moves by an ulp between the decode's and the prefill's
+      products can change a token's experts, so the error is gated only
+      where every layer routed the last token alike (the layers where it
+      did not are printed).  ``phase_serving_fp32`` gates it in float32.
+    - The Mamba mixer's decode rounds otherwise than its prefill by the
+      reference's definition (the conv as one product, ``y + x * D``
+      summed in float32 before the cast), so in bf16 the two differ by
+      more with each layer; ``_prefill_then_decode_fp32`` gates it at
+      full depth in float32."""
+    from repro_torch.launch.serve import cross_source, prompt_tokens, serve
+    serve(cfg, batch=batch, prompt_len=prompt, gen=min(gen, 2), seed=0,
+          device="cuda", params=params)                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()       # the weights, earlier paths
+    res = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0,
+                device="cuda", params=params)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
+    cross = cross_source(cfg, batch, 0, "cuda")
+    rel = gate_rel = _prefill_then_decode(torch, cfg, params, tokens, cross)
+    toks = res["tokens"]
+    out = dict(batch=batch, prompt_len=prompt, decode_steps=gen,
+               prefill_s=res["prefill_s"],
+               prefill_tokens_s=batch * prompt / res["prefill_s"],
+               decode_s=res["decode_s"],
+               decode_tokens_s=batch * gen / res["decode_s"],
+               decode_ms_per_step=res["decode_s"] / gen * 1e3,
+               peak_mem_bytes=peak, live_before_bytes=live,
+               serve_peak_bytes=peak - live,
+               logits_finite=bool(torch.isfinite(res["logits"]).all()),
+               tokens_in_vocab=bool(((toks >= 0) &
+                                     (toks < cfg.vocab_size)).all()),
+               prefill_then_decode_rel_l2=rel,
+               sample=toks[0, :8].tolist())
+    gated = not _has_mamba(cfg)
+    if cfg.moe_experts:
+        rows = min(batch, 4)
+        with _recorded_routes() as routes:
+            gate_rel = _prefill_then_decode(
+                torch, _no_drop(cfg), params, tokens[:rows],
+                None if cross is None else cross[:rows])
+        flips = _route_flips(routes, cfg.num_layers, rows)
+        gated = not any(flips)
+        out.update(prefill_then_decode_rel_l2_no_drop=gate_rel,
+                   route_flips_by_layer=flips,
+                   layers_routed_apart=sum(f > 0 for f in flips))
+    out["prefill_then_decode_gated"] = gated
+    emit(f"serving:{label}", **out)
+    require(tuple(toks.shape) == (batch, gen + 1) and
+            out["logits_finite"] and out["tokens_in_vocab"],
+            f"serving {label}: bad output {out}")
+    require(not gated or gate_rel <= 2e-2,
+            f"serving {label}: prefill-then-decode rel L2 {gate_rel}")
+    require(peak - live <= SERVE_MEM_BUDGET,
+            f"serving {label}: peak memory {peak - live} > "
+            f"{SERVE_MEM_BUDGET}")
+    return out
+
+
+def _prefill_then_decode_fp32(torch, arch: str, layers, load) -> None:
+    """The prefill-then-decode property of ``arch`` in float32 on the
+    card, at the depth served, on ``load``'s prompts (a MoE at a factor
+    where nothing drops): within 1e-3 relative L2."""
+    from repro_torch.launch.serve import cross_source, prompt_tokens
+    from repro_torch.models import transformer as T
+    cfg, reduced = _published(arch, "float32", layers)
+    batch, prompt, _ = load
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rel = _prefill_then_decode(
+        torch, _no_drop(cfg), params, prompt_tokens(cfg, batch, prompt, 0,
+                                                    "cuda"),
+        cross_source(cfg, batch, 0, "cuda"))
+    emit(f"serving:{arch}:fp32_prefill_then_decode", batch=batch,
+         prompt_len=prompt, layers=cfg.num_layers, reduced=reduced,
+         rel_l2=rel)
+    require(rel <= 1e-3, f"serving {arch}: float32 prefill-then-decode {rel}")
 
 
 def phase_serving(torch):
@@ -1949,7 +2169,6 @@ def phase_serving(torch):
     random weights, synthetic prompts) at each of SERVE_LOADS, after one
     warm-up run of the same load; then a profiled decode step and prefill
     (device idle share)."""
-    from repro_torch.launch.serve import prompt_tokens, serve
     from repro_torch.models import transformer as T
     cfg, n_params = _serve_cfg()
     t0 = time.perf_counter()
@@ -1960,85 +2179,107 @@ def phase_serving(torch):
          dtype=str(cfg.dtype), seconds=time.perf_counter() - t0,
          bytes=n_params * cfg.dtype.itemsize)
     for batch, prompt, gen in SERVE_LOADS:
-        serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0,
-              device="cuda", params=params)                   # warm-up
-        torch.cuda.reset_peak_memory_stats()
-        live = torch.cuda.memory_allocated()   # the weights, earlier paths
-        res = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0,
-                    device="cuda", params=params)
-        peak = torch.cuda.max_memory_allocated()
-        tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
-        rel = _prefill_then_decode(torch, cfg, params, tokens)
-        toks = res["tokens"]
-        out = dict(batch=batch, prompt_len=prompt, decode_steps=gen,
-                   prefill_s=res["prefill_s"],
-                   prefill_tokens_s=batch * prompt / res["prefill_s"],
-                   decode_s=res["decode_s"],
-                   decode_tokens_s=batch * gen / res["decode_s"],
-                   decode_ms_per_step=res["decode_s"] / gen * 1e3,
-                   peak_mem_bytes=peak, live_before_bytes=live,
-                   serve_peak_bytes=peak - live,
-                   logits_finite=bool(torch.isfinite(res["logits"]).all()),
-                   tokens_in_vocab=bool(((toks >= 0) &
-                                         (toks < cfg.vocab_size)).all()),
-                   prefill_then_decode_rel_l2=rel,
-                   sample=toks[0, :8].tolist())
-        emit(f"serving:{SERVE_ARCH}", **out)
-        require(tuple(toks.shape) == (batch, gen + 1) and
-                out["logits_finite"] and out["tokens_in_vocab"],
-                f"serving: bad output {out}")
-        require(rel <= 2e-2, f"serving: prefill-then-decode rel L2 {rel}")
-        require(peak - live <= SERVE_MEM_BUDGET,
-                f"serving: peak memory {peak - live} > {SERVE_MEM_BUDGET}")
-    _profile_serving(torch, cfg, params)
+        _serve_load(torch, cfg, params, SERVE_ARCH, batch, prompt, gen)
+    _profile_serving(torch, cfg, params, SERVE_ARCH, SERVE_LOADS[-1])
     return cfg, params
 
 
-def _profile_serving(torch, cfg, params) -> None:
-    """One decode step and one prefill at the largest load under the
-    profiler: the device's busy share and its largest kernels."""
-    from repro_torch.launch.serve import prompt_tokens
+def phase_serving_model(torch, arch: str, layers, loads) -> None:
+    """One architecture of SERVE_MODELS: init on the card from a seeded
+    generator (cross gates set to CROSS_GATES), ``serve`` at each of
+    ``loads`` (after a warm-up of each),
+    a profiled decode step and prefill at the largest load; every weight
+    byte is read once a decode step (a MoE computes all its experts at
+    decode), which bounds the step from below.  A model with Mamba layers
+    then gates prefill-then-decode in float32 at its full depth."""
     from repro_torch.models import transformer as T
-    batch, prompt, gen = SERVE_LOADS[-1]
+    cfg, reduced = _published(arch, layers=layers)
+    t0 = time.perf_counter()
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for stage in (st for pat in params["blocks"] for st in pat):
+        if "gate_attn" in stage:
+            stage["gate_attn"].fill_(CROSS_GATES[0])
+            stage["gate_mlp"].fill_(CROSS_GATES[1])
+    leaves = list(T._leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    expert_bytes = sum(
+        t.numel() * t.element_size() for pat in params["blocks"]
+        for stage in pat for t in stage.get("moe", {}).values())
+    emit(f"serving:{arch}:init", params=sum(t.numel() for t in leaves),
+         active_params=T.active_param_count(cfg), layers=cfg.num_layers,
+         reduced=reduced, dtype=str(cfg.dtype), seconds=init_s,
+         bytes=n_bytes, weights_read_bound_ms=n_bytes / PEAK_BYTES_S * 1e3,
+         expert_bytes=expert_bytes,
+         expert_read_bound_ms=expert_bytes / PEAK_BYTES_S * 1e3)
+    for batch, prompt, gen in loads:
+        _serve_load(torch, cfg, params, arch, batch, prompt, gen)
+    _profile_serving(torch, cfg, params, arch,
+                     max(loads, key=lambda ld: ld[0] * ld[1]))
+    if _has_mamba(cfg):
+        del params, leaves
+        torch.cuda.empty_cache()
+        _prefill_then_decode_fp32(torch, arch, layers, loads[0])
+
+
+def _profile_serving(torch, cfg, params, label: str, load) -> None:
+    """One decode step and one prefill at ``load`` under the profiler: the
+    device's busy share, its kernel launches and its largest kernels."""
+    from repro_torch.launch.serve import cross_source, prompt_tokens
+    from repro_torch.models import transformer as T
+    batch, prompt, gen = load
     tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
+    cross = cross_source(cfg, batch, 0, "cuda")
     with torch.inference_mode():
         logits, cache = T.prefill_step(cfg, params, tokens,
-                                       max_seq=prompt + gen)
+                                       max_seq=prompt + gen, cross_src=cross)
         cur = logits.argmax(-1)[:, None]
         T.decode_step(cfg, params, cache, cur, prompt)
         win = profile_window(torch, lambda: T.decode_step(
             cfg, params, cache, cur, prompt + 1))
-        emit(f"serving:{SERVE_ARCH}:profile_decode_step", batch=batch,
-             **win)
+        emit(f"serving:{label}:profile_decode_step", batch=batch, **win)
+        del cache
         win = profile_window(torch, lambda: T.prefill_step(
-            cfg, params, tokens, max_seq=prompt + gen))
-        emit(f"serving:{SERVE_ARCH}:profile_prefill", batch=batch,
+            cfg, params, tokens, max_seq=prompt + gen, cross_src=cross))
+        emit(f"serving:{label}:profile_prefill", batch=batch,
              prompt_len=prompt, **win)
 
 
-def phase_serving_fp32(torch) -> dict:
-    """The card against the host: qwen2-0.5b at full width in float32,
-    the same seeded weights on the card and in the port on the CPU
-    (matmul precision "highest": no TF32), prefill of FP32_LOAD's prompts
-    then teacher-forced decode steps, both sides decoding the CPU run's
-    greedy tokens.  Logits within 1e-3 absolute at every step; the argmax
-    equal wherever the CPU's top-2 gap exceeds 2e-3."""
-    from repro_torch.launch.serve import prompt_tokens
+def phase_serving_fp32(torch, arch: str = SERVE_ARCH, layers=None) -> dict:
+    """The card against the host: ``arch`` at full width in float32 (cut
+    to ``layers`` deep where given; qwen2-0.5b whole), the same seeded
+    weights (and frames) on the card and in the port on the CPU (matmul
+    precision "highest": no TF32), prefill of FP32_LOAD's prompts then
+    teacher-forced decode steps, both sides decoding the CPU run's greedy
+    tokens.  Logits within 1e-3 absolute at every step; the argmax equal
+    wherever the CPU's top-2 gap exceeds 2e-3.  Then on the card, the
+    prefill of S-1 prompt tokens and one decode against the prefill of S
+    (a MoE at a capacity that drops nothing): within 1e-3 relative L2.
+    Returns the card's weights."""
+    from repro_torch.launch.serve import cross_source, prompt_tokens
     from repro_torch.models import transformer as T
     torch.set_float32_matmul_precision("highest")
-    cfg, _ = _serve_cfg("float32")
+    if arch == SERVE_ARCH:
+        cfg, reduced = _serve_cfg("float32")[0], []
+    else:
+        cfg, reduced = _published(arch, "float32", layers)
     batch, prompt, steps = FP32_LOAD
     t0 = time.perf_counter()
     p_cpu = T.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     p_gpu = T.Transformer(cfg, p_cpu).to("cuda").tree()
     init_s = time.perf_counter() - t0
     tokens = prompt_tokens(cfg, batch, prompt, 1, "cpu")
+    x_cpu = cross_source(cfg, batch, 1, "cpu")
+    x_gpu = None if x_cpu is None else x_cpu.cuda()
     max_err, checked, flips, worst_gap = 0.0, 0, 0, None
     t0 = time.perf_counter()
     with torch.inference_mode():
-        lc, cc = T.prefill_step(cfg, p_cpu, tokens, max_seq=prompt + steps)
+        lc, cc = T.prefill_step(cfg, p_cpu, tokens, max_seq=prompt + steps,
+                                cross_src=x_cpu)
         lg, cg = T.prefill_step(cfg, p_gpu, tokens.cuda(),
-                                max_seq=prompt + steps)
+                                max_seq=prompt + steps, cross_src=x_gpu)
         for i in range(steps + 1):
             lg_h = lg.cpu()
             max_err = max(max_err, float((lg_h - lc).abs().max()))
@@ -2054,15 +2295,20 @@ def phase_serving_fp32(torch) -> dict:
             nxt = lc.argmax(-1)[:, None]          # the CPU run's tokens
             lc, cc = T.decode_step(cfg, p_cpu, cc, nxt, prompt + i)
             lg, cg = T.decode_step(cfg, p_gpu, cg, nxt.cuda(), prompt + i)
+    rel = _prefill_then_decode(torch, _no_drop(cfg), p_gpu, tokens.cuda(),
+                               x_gpu)
     out = dict(batch=batch, prompt_len=prompt, decode_steps=steps,
+               layers=cfg.num_layers, reduced=reduced,
+               prefill_then_decode_rel_l2=rel,
                matmul_precision=torch.get_float32_matmul_precision(),
                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                init_s=init_s, run_s=time.perf_counter() - t0,
                max_abs_err=max_err, argmax_checked=checked,
                argmax_flips=flips, min_top2_gap=worst_gap)
-    emit(f"serving:{SERVE_ARCH}:fp32", **out)
-    require(max_err <= 1e-3, f"serving fp32: logits differ {out}")
-    require(flips == 0, f"serving fp32: argmax differs {out}")
+    emit(f"serving:{arch}:fp32", **out)
+    require(max_err <= 1e-3, f"serving fp32 {arch}: logits differ {out}")
+    require(flips == 0, f"serving fp32 {arch}: argmax differs {out}")
+    require(rel <= 1e-3, f"serving fp32 {arch}: prefill-then-decode {out}")
     return p_gpu
 
 

@@ -28,6 +28,7 @@ from repro_torch.core import pq as pq_mod
 from repro_torch.core.iomodel import IOCounters
 from repro_torch.core.layout import GraphStore, page_budget
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import FLOAT32_LEAVES
 
 
 def _a(obj, name: str) -> np.ndarray:
@@ -174,11 +175,13 @@ def engine_from(ref_engine, device=None) -> engine_mod.Engine:
     return eng
 
 
-def _tree_from(tree, device, dtype):
+def _tree_from(tree, device, dtype, name=None):
     if isinstance(tree, dict):
-        return {k: _tree_from(v, device, dtype) for k, v in tree.items()}
+        return {k: _tree_from(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tree_from(v, device, dtype) for v in tree]
+    if dtype is not None and name in FLOAT32_LEAVES:
+        dtype = torch.float32
     return _t(tree, device, dtype)
 
 
@@ -186,13 +189,16 @@ def params_from(ref_params, device=None, dtype=None) -> dict:
     """The reference's LM parameter tree (``repro.models.transformer``
     ``init_params``: dicts, lists of patterns of stages, stacked
     ``[repeats, count, ...]`` leaves) as the port's, leaf for leaf, cast
-    to ``dtype`` where given."""
+    to ``dtype`` where given, except ``transformer.FLOAT32_LEAVES`` (the
+    SSM's constants and the cross gates), which stay float32 in a model of
+    any dtype, as in the reference."""
     return _tree_from(ref_params, device, dtype)
 
 
 def kv_cache_from(ref_cache, device=None) -> list:
-    """The reference's KV cache (a list of patterns of stages of
-    ``{"k", "v"}``, ``[repeats, count, B, slen, KV, hd]``) as the port's."""
+    """The reference's decode cache (a list of patterns of stages of leaf
+    dicts: ``k`` / ``v`` ``[repeats, count, B, slen, KV, hd]``, ``xk`` /
+    ``xv``, ``conv``, ``ssm``) as the port's, each leaf in its dtype."""
     return _tree_from(ref_cache, device, None)
 
 

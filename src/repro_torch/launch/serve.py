@@ -1,17 +1,18 @@
-"""Serving launcher: batched prefill + greedy decode on an assigned
+"""Serving launcher: batched prefill + greedy decode on any assigned
 architecture (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
-        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch falcon-mamba-7b --device cpu
 
 Runs the smoke (reduced) configuration, as the reference's launcher does:
-prefill the prompt batch, then greedy-decode ``--gen`` tokens with the KV
-cache, reporting per-phase latency and tokens/s.  It runs on ``cuda``
-unless ``--device cpu`` is given, and without a card it stops.  Prompts
-come from the port's bit-exact ``randint(PRNGKey(seed), ...)``, so both
-packages serve the same prompts; the weights are drawn from a
-``torch.Generator`` seeded with ``--seed``.
+prefill the prompt batch, then greedy-decode ``--gen`` tokens with the
+KV / SSM cache, reporting per-phase latency and tokens/s.  It runs on
+``cuda`` unless ``--device cpu`` is given, and without a card it stops.
+Prompts come from the port's bit-exact ``randint(PRNGKey(seed), ...)``, so
+both packages serve the same prompts; the weights, and for whisper and
+llama-vision the cross-attention source (frames, patches), are drawn from
+a ``torch.Generator`` seeded with ``--seed``.
 """
 from __future__ import annotations
 
@@ -42,25 +43,45 @@ def prompt_tokens(cfg: T.ModelConfig, batch: int, prompt_len: int,
     return toks.to(device=resolve_device(device), dtype=torch.int32)
 
 
+def cross_source(cfg: T.ModelConfig, batch: int, seed: int,
+                 device=None) -> torch.Tensor | None:
+    """The cross-attention source the reference launcher draws for a
+    model with cross layers (whisper's frames, llama-vision's patches):
+    standard normals [batch, cross_seq, d_model] in ``cfg.dtype``, here
+    from a ``torch.Generator`` seeded with ``seed`` (not JAX's stream);
+    None for the other models."""
+    if not cfg.cross_seq:
+        return None
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((batch, cfg.cross_seq, cfg.d_model), generator=gen,
+                       device=dev).to(cfg.dtype)
+
+
 def serve(cfg: T.ModelConfig, *, batch: int, prompt_len: int, gen: int,
-          seed: int = 0, device=None, params: dict | None = None) -> dict:
+          seed: int = 0, device=None, params: dict | None = None,
+          cross_src: torch.Tensor | None = None) -> dict:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     ``gen`` tokens greedily.  ``params=None`` draws the weights from
-    ``seed``.  Returns ``tokens`` (int32 [batch, gen + 1]: the prefill's
-    argmax, then one per decode step), the final ``logits`` ([batch, V]
-    float32) and the phases' seconds (``prefill_s``, ``decode_s``, host
-    clock around work that ends in a device synchronise)."""
+    ``seed``, and ``cross_src=None`` draws the source of a model with
+    cross layers (``cross_source``).  Returns ``tokens`` (int32 [batch,
+    gen + 1]: the prefill's argmax, then one per decode step), the final
+    ``logits`` ([batch, V] float32) and the phases' seconds
+    (``prefill_s``, ``decode_s``, host clock around work that ends in a
+    device synchronise)."""
     dev = resolve_device(device)
     if params is None:
         params = T.init_params(
             cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    if cross_src is None:
+        cross_src = cross_source(cfg, batch, seed, dev)
     tokens = prompt_tokens(cfg, batch, prompt_len, seed, dev)
     prefill = make_prefill_step(cfg, max_seq=prompt_len + gen)
     decode = make_decode_step(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, tokens)
+    logits, cache = prefill(params, tokens, cross_src)
     cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     _sync(dev)
     t_prefill = time.perf_counter() - t0

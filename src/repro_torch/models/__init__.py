@@ -2,5 +2,7 @@
 
 ``config`` holds the configuration types, ``layers`` the plain layer
 functions, ``transformer`` the parameter tree, the forward pass, prefill
-and decode.  Only the ``attn`` stage kind with a dense MLP is ported.
+and decode, for every stage kind (``attn``, ``attn_cross``, ``cross``,
+``mamba``, ``hybrid``, ``enc``) and FFN (dense, MoE, MoE + dense) of the
+ten assigned architectures.  Training waits (ROADMAP.md queue 1 item 5.4).
 """

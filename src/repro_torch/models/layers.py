@@ -1,23 +1,28 @@
-"""Model-layer primitives of the dense-attention stack (port of
-``repro/models/layers.py``: the basic blocks, attention and its decode
-path, embedding and the LM head).
+"""Model-layer primitives of every assigned architecture (port of
+``repro/models/layers.py``: the basic blocks, self- and cross-attention
+and the decode path, the MoE FFN, the Mamba-1 mixer, embedding and the
+LM head).
 
 Plain functions on tensors, ``(params, x, ...) -> y``, with the reference's
 parameter names and layouts (``x @ w`` with ``w`` ``[in, out]``; heads in
 ``[B, S, H, D]``).  The reference's ``rules`` / ``shard`` arguments are
-GSPMD placement hints only and are dropped here.  Attention is written in
-plain torch ops (matmul, ``where``, ``softmax``), as the reference writes
-it in ``jnp`` outside any Pallas kernel.
+GSPMD placement hints only and are dropped here.  Attention, the expert
+dispatch and the selective scan are written in plain torch ops (matmul,
+``where``, ``softmax``, sorts and gathers), as the reference writes them in
+``jnp`` outside any Pallas kernel.
 
 Precision follows the reference's order: attention logits in float32 from
 the input dtype's q and k (its ``preferred_element_type=float32``),
 probabilities cast back to the input dtype before the PV product, norms in
 float32, the LM head multiplied in the activation dtype and then cast to
-float32, the activations op for op as ``jax.nn`` writes them.  Masked
-logits are filled with -1e30, not -inf.
+float32, the activations and ``softplus`` op for op as ``jax.nn`` writes
+them, router logits and the SSM state in float32.  Masked logits are
+filled with -1e30, not -inf.
 
-Not ported yet: cross-attention, the MoE block and the Mamba mixer (the
-later stage kinds of ``ROADMAP.md`` queue 1 item 5).
+Not ported yet: the expert-parallel MoE over a mesh
+(``_moe_local_compute_2d``; ROADMAP.md queue 1 item 5.5) and the backward
+of the selective scan (the reference's custom VJP of ``linear_scan``;
+item 5.4, training).  Both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -236,6 +241,41 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     return o @ params["wo"]
 
 
+def cross_attention(params: dict, x: torch.Tensor, kv_src, *, n_heads: int,
+                    n_kv: int, head_dim: int, qkv_bias: bool
+                    ) -> torch.Tensor:
+    """Cross-attention (no mask, no rope).  ``kv_src`` is either the
+    encoder / patch sequence [B, Se, D] (keys projected here) or a
+    precomputed ``(k, v)`` tuple (decode)."""
+    B, Sq, _ = x.shape
+    q = x @ params["wq"]
+    if qkv_bias:
+        q = q + params["bq"]
+    q = q.reshape(B, Sq, n_heads, head_dim)
+    if isinstance(kv_src, tuple):
+        k, v = kv_src
+    else:
+        k, v = project_cross_kv(params, kv_src, n_kv=n_kv, head_dim=head_dim,
+                                qkv_bias=qkv_bias)
+    o = attention_core(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads),
+                       causal=False)
+    return o.reshape(B, Sq, n_heads * head_dim) @ params["wo"]
+
+
+def project_cross_kv(params: dict, kv_src: torch.Tensor, *, n_kv: int,
+                     head_dim: int, qkv_bias: bool):
+    """The cross-attention keys and values of ``kv_src`` [B, Se, D], each
+    [B, Se, n_kv, head_dim] (what prefill caches as ``xk`` / ``xv``)."""
+    B, Se, _ = kv_src.shape
+    k = kv_src @ params["wk"]
+    v = kv_src @ params["wv"]
+    if qkv_bias:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return (k.reshape(B, Se, n_kv, head_dim),
+            v.reshape(B, Se, n_kv, head_dim))
+
+
 # ---------------------------------------------------------------------------
 # Decode-path attention (KV cache, ring buffers for windows)
 # ---------------------------------------------------------------------------
@@ -279,6 +319,203 @@ def decode_self_attention(params: dict, x: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     o = _pv(probs, vf).permute(0, 2, 1, 3).reshape(B, 1, n_heads * head_dim)
     return o @ params["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (the single-device path)
+# ---------------------------------------------------------------------------
+
+def moe_router(wg: torch.Tensor, x: torch.Tensor, top_k: int):
+    """x: [T, D] -> (gates [T, k] float32, softmax over the top k; idx
+    [T, k] int64).  The logits are ``x @ wg`` in x's dtype, then float32.
+    ``lax.top_k`` puts the lower expert first among equal logits;
+    ``torch.topk`` promises no order among ties on CUDA, so a stable
+    descending sort gives the reference's."""
+    logits = (x @ wg).float()
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return torch.softmax(vals[:, :top_k], dim=-1), idx[:, :top_k]
+
+
+def _moe_local_compute(x, gates, idx, w_up, w_gate, w_down, *, top_k: int,
+                       capacity: int, activation: str, e_start: int = 0):
+    """Dense grouped compute at a fixed capacity for the experts
+    ``[e_start, e_start + E_loc)`` that ``w_*`` ([E_loc, ...]) hold.
+
+    Assignments are sorted stably by expert (``E_loc`` is the drop bin
+    for the experts held elsewhere); an assignment's position within its
+    expert comes from ``searchsorted``; those past ``capacity`` are
+    dropped, contribute nothing and leave the token's other gates as they
+    are.  Token rows go into an ``[E_loc * capacity + 1, D]`` buffer whose
+    last row is a sink for the dropped ones, and come back through
+    ``min(slot, E_loc * capacity - 1)`` times ``keep``.  x: [T, D];
+    returns the partial output [T, D]."""
+    T, D = x.shape
+    E_loc = w_up.shape[0]
+    dev = x.device
+    flat_e = idx.reshape(-1)
+    flat_g = gates.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(top_k)
+    local = (flat_e >= e_start) & (flat_e < e_start + E_loc)
+    loc_e = torch.where(local, flat_e - e_start, E_loc)
+    order = torch.argsort(loc_e, stable=True)
+    sorted_e = loc_e[order]
+    seg_first = torch.searchsorted(sorted_e,
+                                   torch.arange(E_loc + 1, device=dev))
+    pos_sorted = torch.arange(T * top_k, device=dev) - seg_first[sorted_e]
+    keep = (pos_sorted < capacity) & (sorted_e < E_loc)
+    keep_f = keep.to(x.dtype)
+    buf_slot = torch.where(keep, sorted_e * capacity + pos_sorted,
+                           E_loc * capacity)
+    tok_sorted = flat_t[order]
+    gate_sorted = flat_g[order]
+    x_buf = x.new_zeros((E_loc * capacity + 1, D))
+    x_buf[buf_slot] = x[tok_sorted] * keep_f[:, None]
+    xb = x_buf[:-1].reshape(E_loc, capacity, D)
+    h = torch.bmm(xb, w_up)
+    if w_gate is not None:
+        h = _act(activation, torch.bmm(xb, w_gate)) * h
+    else:
+        h = _act(activation, h)
+    y = torch.bmm(h, w_down).reshape(E_loc * capacity, D)
+    y_tok = y[buf_slot.clamp(max=E_loc * capacity - 1)] * keep_f[:, None]
+    out = x.new_zeros((T, D))
+    return out.index_add_(0, tok_sorted,
+                          y_tok * gate_sorted[:, None].to(x.dtype))
+
+
+def moe_block(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float, activation: str, glu: bool,
+              mesh=None) -> torch.Tensor:
+    """MoE FFN on one device.  x: [B, S, D].  Every expert is computed
+    over its ``capacity = max(int(T * k * cf / E), k)`` slots, T = B * S.
+    The expert-parallel path over a mesh is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "moe_block over a mesh (the expert-parallel path and "
+            "_moe_local_compute_2d) is not ported yet (ROADMAP.md queue 1 "
+            "item 5.5)")
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    gates, idx = moe_router(params["router"], xf, top_k)
+    capacity = max(int(T * top_k * capacity_factor / n_experts), top_k)
+    out = _moe_local_compute(
+        xf, gates, idx, params["up"], params.get("gate") if glu else None,
+        params["down"], top_k=top_k, capacity=capacity,
+        activation=activation)
+    return out.reshape(B, S, D)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective SSM
+# ---------------------------------------------------------------------------
+
+SCAN_CHUNK = 64     # time steps whose [B, chunk, d_inner, N] terms coexist
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)``:
+    ``max(x, 0) + log1p(exp(-|x|))``, op for op in x's dtype (``F.softplus``
+    rounds once and is linear above 20)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds.  x: [B, S, C]; w: [K, C]."""
+    K = w.shape[0]
+    out = x * w[K - 1]
+    for i in range(1, K):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :-i]
+        out = out + shifted * w[K - 1 - i]
+    return out + b
+
+
+def _ssm_params(params: dict, xc: torch.Tensor, *, d_state: int):
+    """Input-dependent dt, B, C.  xc: [B, S, d_inner].  dt is float32 (the
+    float32 ``dt_bias`` promotes it)."""
+    proj = xc @ params["x_proj"]                  # [B, S, dt_rank + 2N]
+    dt_rank = params["dt_proj"].shape[0]
+    dt, Bc, Cc = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
+    dt = softplus(dt @ params["dt_proj"] + params["dt_bias"])
+    return dt, Bc, Cc
+
+
+def selective_scan(xc, dt, Bc, Cc, A_log, D_skip, *, chunk: int = SCAN_CHUNK):
+    """Selective state-space scan (Mamba-1), forward only.
+
+    xc, dt: [B, S, di]; Bc, Cc: [B, S, N]; A_log: [di, N].  Returns (y
+    [B, S, di] in xc's dtype, h_last [B, di, N] float32).
+
+    The recurrence ``h[t] = exp(dt[t] A) h[t-1] + dt[t] x[t] B[t]`` runs in
+    float32 one time step at a time (one in-place multiply-add a step over
+    ``[B, di, N]``), where the reference runs an associative scan within
+    chunks of 512; the sums associate differently, within float32
+    rounding.  Only ``chunk`` steps' ``[B, chunk, di, N]`` terms are held
+    at once (the reference's chunk of 512 would hold 8.6 GB per term at
+    falcon-mamba's 32 x 512).  y is cast to xc's dtype before the skip term
+    ``(xc * D)`` is added in that dtype."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xc, dt, Bc, Cc, A_log, D_skip)):
+        raise NotImplementedError(
+            "the backward of selective_scan (the reference's custom VJP of "
+            "linear_scan) is not ported yet (ROADMAP.md queue 1 item 5.4, "
+            "training)")
+    B, S, di = xc.shape
+    A = -torch.exp(A_log.float())                            # [di, N]
+    h = torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
+                    device=xc.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        dtc = dt[:, c0:c0 + chunk]
+        dA = (dtc.float()[..., None] * A).exp_()             # [B, c, di, N]
+        hs = (dtc * xc[:, c0:c0 + chunk]).float()[..., None] * \
+            Bc[:, c0:c0 + chunk].float()[..., None, :]       # dt x B, then h
+        for t in range(hs.shape[1]):
+            h = hs[:, t].addcmul_(dA[:, t], h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs,
+                               Cc[:, c0:c0 + chunk].float()).to(xc.dtype))
+    y = torch.cat(ys, dim=1)
+    return y + (xc * D_skip).to(xc.dtype), h.contiguous()
+
+
+def mamba_mixer(params: dict, x: torch.Tensor, *, d_state: int
+                ) -> torch.Tensor:
+    """Full-sequence Mamba-1 mixer.  x: [B, S, D] -> [B, S, D]."""
+    xc, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    xc = _act("silu", _causal_conv(xc, params["conv_w"], params["conv_b"]))
+    dt, Bc, Cc = _ssm_params(params, xc, d_state=d_state)
+    y, _ = selective_scan(xc, dt, Bc, Cc, params["A_log"], params["D"])
+    return (y * _act("silu", z)) @ params["out_proj"]
+
+
+def mamba_decode(params: dict, x: torch.Tensor, conv_state: torch.Tensor,
+                 ssm_state: torch.Tensor, *, d_state: int):
+    """Single-token Mamba step.  x: [B, 1, D]; conv_state: [B, K-1, di]
+    (the last inputs before the conv); ssm_state: [B, di, N] float32.
+
+    Unlike the reference, which returns new states, both states are
+    written in place (and returned).  Returns (out [B, 1, D], conv_state,
+    ssm_state)."""
+    xc, z = (x[:, 0] @ params["in_proj"]).chunk(2, dim=-1)   # [B, di]
+    hist = torch.cat([conv_state, xc[:, None]], dim=1)        # [B, K, di]
+    conv = torch.einsum("bkd,kd->bd", hist, params["conv_w"]) + \
+        params["conv_b"]
+    conv_state.copy_(hist[:, 1:])
+    xc = _act("silu", conv)
+    proj = xc @ params["x_proj"]
+    dt_rank = params["dt_proj"].shape[0]
+    dt, Bc, Cc = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
+    dt = softplus(dt @ params["dt_proj"] + params["dt_bias"])
+    A = -torch.exp(params["A_log"].float())
+    dA = torch.exp(dt.float()[..., None] * A)                 # [B, di, N]
+    dBx = (dt * xc).float()[..., None] * Bc.float()[:, None, :]
+    h = dA * ssm_state + dBx
+    ssm_state.copy_(h)
+    y = torch.einsum("bdn,bn->bd", h, Cc.float())
+    y = (y + xc.float() * params["D"]).to(x.dtype)
+    y = y * _act("silu", z)
+    return (y @ params["out_proj"])[:, None], conv_state, ssm_state
 
 
 # ---------------------------------------------------------------------------

@@ -1,26 +1,30 @@
-"""The dense-attention transformer: parameters, forward, prefill and decode
-(port of ``repro/models/transformer.py`` for the ``attn`` stage kind with a
-dense MLP).
+"""The transformer / SSM model of every assigned architecture: parameters,
+forward, prefill and decode (port of ``repro/models/transformer.py``).
 
 A model is a sequence of :class:`Pattern` groups, each ``repeats`` copies
-of a stage list (gemma3 = 4×[5 local, 1 global] + [2 local]).  The
-parameter tree is the reference's, leaf for leaf: every stage leaf is
+of a stage list (gemma3 = 4×[5 local, 1 global] + [2 local]).  The stage
+kinds: ``attn``; ``attn_cross`` (self- then cross-attention, whisper's
+decoder); ``cross`` (tanh-gated cross-attention, llama-vision's image
+layers); ``mamba``; ``hybrid`` (attention and Mamba heads side by side,
+their outputs normalised and averaged, hymba); ``enc`` (whisper's
+bidirectional encoder).  The FFN is a dense MLP, the MoE block, or the
+MoE beside a dense MLP (arctic).
+
+The parameter tree is the reference's, leaf for leaf: every stage leaf is
 stacked ``[repeats, count, ...]``, so ``interop.params_from`` maps the
 reference's tree across and the layer loops index ``[r, c]``.  Where the
-reference scans over repeats and layers, the port loops in Python.
-Decode caches are stacked the same way, ``[repeats, count, B, slen, KV,
-hd]`` with ``slen = min(window, max_seq)``.
+reference scans over repeats and layers, the port loops in Python.  Decode
+caches are stacked the same way: ``k`` / ``v`` ``[repeats, count, B,
+slen, KV, hd]`` with ``slen = min(window, max_seq)``, ``xk`` / ``xv``
+``[..., B, cross_len, KV, hd]``, ``conv`` ``[..., B, K-1, d_inner]`` and
+``ssm`` ``[..., B, d_inner, N]`` in float32.
 
 The functions take the tree; :class:`Transformer` holds the same leaves as
 ``nn.Parameter``\\ s under the reference's names and calls them.
-
-Not ported yet (``ROADMAP.md`` queue 1 item 5): the MoE FFN, the mamba and
-hybrid stages, cross-attention and the encoder (``cross``,
-``attn_cross``, ``enc``) with its learned positions.  A configuration
-that needs one of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -34,32 +38,15 @@ from repro_torch.models.config import (ModelConfig, Pattern, StageSpec,
 
 __all__ = [
     "ModelConfig", "Pattern", "StageSpec", "uniform_pattern", "Transformer",
-    "init_params", "param_shapes", "param_count", "forward",
-    "logits_from_hidden", "init_cache", "prefill_step", "decode_step",
+    "FLOAT32_LEAVES", "init_params", "param_shapes", "param_count",
+    "active_param_count", "encode", "forward", "logits_from_hidden",
+    "init_cache", "prefill_step", "decode_step",
 ]
 
-_TODO = "is not ported yet (ROADMAP.md queue 1 item 5: {})"
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a part of ``cfg`` this port lacks."""
-    if cfg.moe_experts:
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN " +
-                                  _TODO.format("the MoE FFN"))
-    if cfg.encoder_layers or cfg.max_position:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder with learned positions " +
-            _TODO.format("cross-attention and the encoder"))
-    for pat in cfg.patterns:
-        for st in pat.stages:
-            if st.kind in ("mamba", "hybrid"):
-                raise NotImplementedError(
-                    f"{cfg.name}: stage kind {st.kind!r} " +
-                    _TODO.format("mamba and hybrid stages"))
-            if st.kind != "attn":
-                raise NotImplementedError(
-                    f"{cfg.name}: stage kind {st.kind!r} " +
-                    _TODO.format("cross-attention and the encoder"))
+# Leaves the reference keeps in float32 in a model of any dtype: the SSM's
+# A_log, D and dt_bias, and the cross layers' tanh gates.
+FLOAT32_LEAVES = frozenset({"A_log", "D", "dt_bias", "gate_attn",
+                            "gate_mlp"})
 
 
 # ---------------------------------------------------------------------------
@@ -80,20 +67,28 @@ class _Maker:
         return _Maker(self.cfg, self.mode, self.gen, self.device, dims)
 
     def __call__(self, shape: tuple[int, ...], scale: float | None = None,
-                 fill: float | None = None) -> torch.Tensor:
-        """A normal draw times ``scale`` (default ``1/sqrt(fan_in)``), or a
-        constant ``fill`` (no draw)."""
+                 fill: float | None = None, dtype=None) -> torch.Tensor:
+        """A normal draw times ``scale`` (default ``1/sqrt(shape[0])``), or
+        a constant ``fill`` (no draw), in ``dtype`` (default the model's).
+
+        The draw is made in float32 one stacked slice at a time on the
+        generator's device, so the float32 transient is one layer's leaf
+        (moonshot's stacked expert leaf is 8.86e9 values, 35.4 GB in
+        float32)."""
         full = self.stack + tuple(shape)
-        dtype = self.cfg.dtype
+        dtype = dtype or self.cfg.dtype
         if self.mode == "shape":
             return torch.empty(full, dtype=dtype, device="meta")
         if fill is not None:
             return torch.full(full, fill, dtype=dtype, device=self.device)
         if scale is None:
             scale = 1.0 / math.sqrt(shape[0] if len(shape) > 1 else 1)
-        x = torch.randn(full, generator=self.gen, dtype=torch.float32,
-                        device=self.gen.device) * scale
-        return x.to(device=self.device, dtype=dtype)
+        out = torch.empty(full, dtype=dtype, device=self.device)
+        for idx in itertools.product(*map(range, self.stack)):
+            out[idx] = torch.randn(shape, generator=self.gen,
+                                   dtype=torch.float32,
+                                   device=self.gen.device).mul_(scale)
+        return out
 
 
 def _norm_params(mk: _Maker, cfg: ModelConfig) -> dict:
@@ -124,40 +119,100 @@ def _mlp_params(mk: _Maker, cfg: ModelConfig) -> dict:
     return p
 
 
+def _moe_params(mk: _Maker, cfg: ModelConfig) -> dict:
+    """The router and the experts' stacked weights ``[E, ...]``; their
+    draw scale is ``1/sqrt(E)``, the reference's ``shape[0]`` rule."""
+    D, E, Fd = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+    p = {"router": mk((D, E)), "up": mk((E, D, Fd)), "down": mk((E, Fd, D))}
+    if cfg.glu:
+        p["gate"] = mk((E, D, Fd))
+    return p
+
+
+def _mamba_params(mk: _Maker, cfg: ModelConfig) -> dict:
+    """The Mamba-1 mixer.  ``A_log`` = log(1..N) (so A = -exp(A_log) is
+    negative and spread), ``D`` = 1 and ``dt_bias`` = -4, all float32."""
+    D, di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                      cfg.conv_kernel)
+    f32 = torch.float32
+    p = {"in_proj": mk((D, 2 * di)), "conv_w": mk((K, di)),
+         "conv_b": mk((di,), fill=0.0), "x_proj": mk((di, R + 2 * N)),
+         "dt_proj": mk((R, di)), "dt_bias": mk((di,), fill=-4.0, dtype=f32),
+         "A_log": mk((di, N), fill=0.0, dtype=f32),
+         "D": mk((di,), fill=1.0, dtype=f32), "out_proj": mk((di, D))}
+    if mk.mode == "init":
+        p["A_log"].copy_(torch.log(torch.arange(
+            1, N + 1, dtype=f32, device=p["A_log"].device)))
+    return p
+
+
 def _ffn_params(mk: _Maker, cfg: ModelConfig) -> dict:
-    """The per-layer FFN: the dense MLP (the MoE FFN is not ported)."""
+    """The per-layer FFN: dense MLP, MoE, or MoE + dense residual (arctic)."""
+    if cfg.moe_experts:
+        p = {"moe": _moe_params(mk, cfg)}
+        if cfg.moe_dense_residual:
+            p["mlp"] = _mlp_params(mk, cfg)
+        return p
     return {"mlp": _mlp_params(mk, cfg)}
 
 
-def _layer_params(mk: _Maker, cfg: ModelConfig) -> dict:
-    """One ``attn`` layer (the only stage kind ported)."""
-    p = {"ln1": _norm_params(mk, cfg), "attn": _attn_params(mk, cfg),
-         "ln2": _norm_params(mk, cfg)}
+def _layer_params(mk: _Maker, cfg: ModelConfig, kind: str) -> dict:
+    p = {"ln1": _norm_params(mk, cfg)}
+    if kind in ("attn", "enc"):
+        p["attn"] = _attn_params(mk, cfg)
+    elif kind == "attn_cross":
+        p["attn"] = _attn_params(mk, cfg)
+        p["lnx"] = _norm_params(mk, cfg)
+        p["xattn"] = _attn_params(mk, cfg)
+    elif kind == "cross":
+        p["xattn"] = _attn_params(mk, cfg)
+        p["gate_attn"] = mk((), fill=0.0, dtype=torch.float32)
+        p["gate_mlp"] = mk((), fill=0.0, dtype=torch.float32)
+    elif kind == "mamba":
+        p["mixer"] = _mamba_params(mk, cfg)
+        return p
+    elif kind == "hybrid":
+        p["attn"] = _attn_params(mk, cfg)
+        p["mixer"] = _mamba_params(mk, cfg)
+        p["attn_norm"] = mk((cfg.d_model,), fill=1.0)
+        p["ssm_norm"] = mk((cfg.d_model,), fill=1.0)
+    else:
+        raise ValueError(f"unknown layer kind {kind}")
+    p["ln2"] = _norm_params(mk, cfg)
     p.update(_ffn_params(mk, cfg))
     return p
 
 
 def _build_params(cfg: ModelConfig, mode: str, gen=None, device=None) -> dict:
-    check_ported(cfg)
     mk = _Maker(cfg, mode, gen, device)
     params: dict = {"embed": mk((cfg.vocab_size, cfg.d_model), scale=1.0),
                     "final_norm": _norm_params(mk, cfg)}
     if not cfg.tie_embeddings:
         params["lm_head"] = mk((cfg.d_model, cfg.vocab_size))
+    if cfg.max_position:
+        params["pos_embed"] = mk((cfg.max_position, cfg.d_model), scale=0.02)
     params["blocks"] = [
-        [_layer_params(mk.with_stack(pat.repeats, st.count), cfg)
+        [_layer_params(mk.with_stack(pat.repeats, st.count), cfg, st.kind)
          for st in pat.stages]
         for pat in cfg.patterns]
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "pos_embed": mk((cfg.cross_seq, cfg.d_model), scale=0.02),
+            "blocks": [[_layer_params(mk.with_stack(1, cfg.encoder_layers),
+                                      cfg, "enc")]],
+            "final_norm": _norm_params(mk, cfg)}
     return params
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
-    """Random parameters with the reference's scales: ``1/sqrt(fan_in)``
-    normals, the embedding at scale 1.0, zero biases, norm scales of ones
-    (zeros under ``norm_plus_one``).  Drawn in float32 from ``gen`` on its
-    own device, then placed on ``device`` in ``cfg.dtype``.  The
-    reference's own init folds a salted ``hash(name)`` into its key and
-    differs from run to run, so no test compares two inits."""
+    """Random parameters with the reference's scales: ``1/sqrt(shape[0])``
+    normals, the embedding at scale 1.0 and learned positions at 0.02,
+    zero biases, norm scales of ones (zeros under ``norm_plus_one``), the
+    SSM's constants and zero cross gates (``FLOAT32_LEAVES`` in float32).
+    Drawn in float32 from ``gen`` on its own device, one stacked slice at a
+    time, and placed on ``device`` in ``cfg.dtype``.  The reference's own
+    init folds a salted ``hash(name)`` into its key and differs from run
+    to run, so no test compares two inits."""
     return _build_params(cfg, "init", gen, resolve_device(device))
 
 
@@ -181,6 +236,18 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(t.numel() for t in _leaves(param_shapes(cfg)))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k of moe_experts)."""
+    total = param_count(cfg)
+    if not cfg.moe_experts:
+        return total
+    experts = sum(stage["moe"][nm].numel()
+                  for pat in param_shapes(cfg)["blocks"] for stage in pat
+                  if "moe" in stage for nm in ("up", "down", "gate")
+                  if nm in stage["moe"])
+    return int(total - experts + experts * cfg.moe_top_k / cfg.moe_experts)
+
+
 def _layer(stage: dict, r: int, c: int) -> dict:
     """Layer ``[r, c]`` of a stacked stage tree (views, no copy)."""
     return {k: _layer(v, r, c) if isinstance(v, dict) else v[r, c]
@@ -192,6 +259,15 @@ def _layer(stage: dict, r: int, c: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _ffn_apply(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.moe_experts:
+        out = L.moe_block(lp["moe"], h, n_experts=cfg.moe_experts,
+                          top_k=cfg.moe_top_k,
+                          capacity_factor=cfg.capacity_factor,
+                          activation=cfg.activation, glu=cfg.glu)
+        if cfg.moe_dense_residual:
+            out = out + L.mlp(lp["mlp"], h, activation=cfg.activation,
+                              glu=cfg.glu)
+        return out
     return L.mlp(lp["mlp"], h, activation=cfg.activation, glu=cfg.glu)
 
 
@@ -200,19 +276,77 @@ def _norm(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                         plus_one=cfg.norm_plus_one)
 
 
-def _attn_kwargs(cfg: ModelConfig) -> dict:
+def _attn_kwargs(cfg: ModelConfig, kind: str = "attn") -> dict:
+    """Self-attention's arguments; the encoder uses no rope."""
     return dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
                 head_dim=cfg.hd, qkv_bias=cfg.qkv_bias,
-                rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+                rope_theta=cfg.rope_theta,
+                use_rope=cfg.use_rope and kind != "enc")
+
+
+def _cross_kwargs(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+                head_dim=cfg.hd, qkv_bias=cfg.qkv_bias)
+
+
+def _cross_kv(cfg: ModelConfig, lp: dict, src: torch.Tensor):
+    """A cross layer's (xk, xv) of the source, as prefill caches them."""
+    k, v = L.project_cross_kv(lp["xattn"], src, n_kv=cfg.num_kv_heads,
+                              head_dim=cfg.hd, qkv_bias=cfg.qkv_bias)
+    return k.to(cfg.dtype), v.to(cfg.dtype)
+
+
+def _gated_cross(cfg: ModelConfig, lp: dict, x: torch.Tensor, kv
+                 ) -> torch.Tensor:
+    """A ``cross`` layer: cross-attention and the FFN, each scaled by the
+    tanh of its float32 gate (zero at init: the layer then adds nothing).
+    ``kv`` is the source [B, Se, D] or its (xk, xv)."""
+    h = _norm(lp["ln1"], x, cfg)
+    c = L.cross_attention(lp["xattn"], h, kv, **_cross_kwargs(cfg))
+    x = x + torch.tanh(lp["gate_attn"]).to(x.dtype) * c
+    h = _norm(lp["ln2"], x, cfg)
+    return x + torch.tanh(lp["gate_mlp"]).to(x.dtype) * \
+        _ffn_apply(lp, h, cfg)
+
+
+def _fuse(cfg: ModelConfig, lp: dict, a: torch.Tensor, m: torch.Tensor
+          ) -> torch.Tensor:
+    """A ``hybrid`` layer's attention and SSM outputs, each RMS-normalised
+    by its own scale, averaged."""
+    return 0.5 * (L.rms_norm(lp["attn_norm"], a, cfg.norm_eps) +
+                  L.rms_norm(lp["ssm_norm"], m, cfg.norm_eps))
+
+
+def _cross_and_ffn(cfg: ModelConfig, kind: str, lp: dict, x: torch.Tensor,
+                   kv) -> torch.Tensor:
+    """The tail of an attention layer: ``attn_cross``'s cross-attention
+    over ``kv``, then the FFN."""
+    if kind == "attn_cross":
+        h = _norm(lp["lnx"], x, cfg)
+        x = x + L.cross_attention(lp["xattn"], h, kv, **_cross_kwargs(cfg))
+    h = _norm(lp["ln2"], x, cfg)
+    return x + _ffn_apply(lp, h, cfg)
 
 
 def _layer_fwd(cfg: ModelConfig, spec: StageSpec, lp: dict, x: torch.Tensor,
-               *, positions: torch.Tensor) -> torch.Tensor:
+               *, positions: torch.Tensor, cross_src) -> torch.Tensor:
+    kind = spec.kind
+    if kind == "cross":
+        return _gated_cross(cfg, lp, x, cross_src)
     h = _norm(lp["ln1"], x, cfg)
-    x = x + L.self_attention(lp["attn"], h, causal=True, window=spec.window,
-                             positions=positions, **_attn_kwargs(cfg))
-    h = _norm(lp["ln2"], x, cfg)
-    return x + _ffn_apply(lp, h, cfg)
+    if kind == "mamba":
+        return x + L.mamba_mixer(lp["mixer"], h, d_state=cfg.ssm_state)
+    if kind not in ("attn", "enc", "attn_cross", "hybrid"):
+        raise ValueError(f"unknown layer kind {kind}")
+    a = L.self_attention(lp["attn"], h, causal=kind != "enc",
+                         window=spec.window, positions=positions,
+                         **_attn_kwargs(cfg, kind))
+    if kind == "hybrid":
+        m = L.mamba_mixer(lp["mixer"], h, d_state=cfg.ssm_state)
+        x = x + _fuse(cfg, lp, a, m)
+    else:
+        x = x + a
+    return _cross_and_ffn(cfg, kind, lp, x, cross_src)
 
 
 def _layers(patterns):
@@ -226,22 +360,59 @@ def _layers(patterns):
 
 
 def _run_patterns(cfg: ModelConfig, patterns, blocks, x: torch.Tensor, *,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor, cross_src=None) -> torch.Tensor:
     for spec, pi, j, r, c in _layers(patterns):
         x = _layer_fwd(cfg, spec, _layer(blocks[pi][j], r, c), x,
-                       positions=positions)
+                       positions=positions, cross_src=cross_src)
     return x
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """Full-sequence forward -> final hidden states [B, S, D]."""
-    check_ported(cfg)
-    S = tokens.shape[1]
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """Whisper's encoder over precomputed front-end frames [B, Se, D]:
+    learned positions, ``encoder_layers`` bidirectional layers without
+    rope, the final norm."""
+    enc = params["encoder"]
+    S = frames.shape[1]
+    x = frames.to(cfg.dtype) + enc["pos_embed"][None, :S]
+    patterns = (Pattern(1, (StageSpec("enc", cfg.encoder_layers, 0),)),)
+    x = _run_patterns(cfg, patterns, enc["blocks"], x,
+                      positions=torch.arange(S, device=x.device))
+    return _norm(enc["final_norm"], x, cfg)
+
+
+def _cross_source(cfg: ModelConfig, params: dict, cross_src):
+    """What the cross layers attend to: the encoder's output over the
+    frames (whisper) or the patches as given (llama-vision); None for a
+    model without cross layers."""
+    if not cfg.cross_seq:
+        return None
+    if cross_src is None:
+        raise ValueError(f"{cfg.name} has cross-attention layers: pass "
+                         f"cross_src [B, {cfg.cross_seq}, {cfg.d_model}]")
+    return encode(cfg, params, cross_src) if cfg.encoder_layers else \
+        cross_src
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    """Token embeddings plus learned positions 0..S-1 where the model has
+    them."""
     x = L.embed(params["embed"], tokens, scale=cfg.embed_scale)
-    positions = torch.arange(S, device=x.device)
+    if cfg.max_position:
+        x = x + params["pos_embed"][None, :tokens.shape[1]]
+    return x
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            cross_src: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward -> final hidden states [B, S, D].
+    ``cross_src``: whisper's frames or llama-vision's patches [B, Se, D]."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
     x = _run_patterns(cfg, cfg.patterns, params["blocks"], x,
-                      positions=positions)
+                      positions=positions,
+                      cross_src=_cross_source(cfg, params, cross_src))
     return _norm(params["final_norm"], x, cfg)
 
 
@@ -256,16 +427,26 @@ def logits_from_hidden(cfg: ModelConfig, params: dict, x: torch.Tensor
 
 def _cache_stage(cfg: ModelConfig, spec: StageSpec, stack: tuple[int, int],
                  *, batch: int, max_seq: int, device) -> dict:
+    """One stage's zero cache: self-attention K/V (a ring of ``window``
+    slots for windowed layers), the cross layers' K/V of the source, the
+    Mamba conv history and SSM state (float32)."""
+    KV, hd, dt = cfg.num_kv_heads, cfg.hd, cfg.dtype
     slen = min(spec.window, max_seq) if spec.window else max_seq
-    shape = stack + (batch, slen, cfg.num_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    shapes = {}
+    if spec.kind in ("attn", "attn_cross", "hybrid"):
+        shapes["k"] = shapes["v"] = ((batch, slen, KV, hd), dt)
+    if spec.kind in ("attn_cross", "cross"):
+        shapes["xk"] = shapes["xv"] = ((batch, cfg.cross_seq, KV, hd), dt)
+    if spec.kind in ("mamba", "hybrid"):
+        shapes["conv"] = ((batch, cfg.conv_kernel - 1, cfg.d_inner), dt)
+        shapes["ssm"] = ((batch, cfg.d_inner, cfg.ssm_state), torch.float32)
+    return {name: torch.zeros(stack + shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in shapes.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> list:
-    """Zero KV caches: a list of patterns of stages of ``{"k", "v"}``."""
-    check_ported(cfg)
+    """Zero decode caches: a list of patterns of stages of leaf dicts."""
     device = resolve_device(device)
     return [[_cache_stage(cfg, st, (pat.repeats, st.count), batch=batch,
                           max_seq=max_seq, device=device)
@@ -278,15 +459,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _layer_decode(cfg: ModelConfig, spec: StageSpec, lp: dict, cache: dict,
                   x: torch.Tensor, *, pos: int) -> torch.Tensor:
-    """One layer of one-token decode; ``cache`` holds this layer's K/V
+    """One layer of one-token decode; ``cache`` holds this layer's cache
     views, updated in place."""
+    kind = spec.kind
+    if kind == "cross":
+        return _gated_cross(cfg, lp, x, (cache["xk"], cache["xv"]))
+    if kind not in ("attn", "attn_cross", "mamba", "hybrid"):
+        raise ValueError(f"layer kind {kind} has no decode step")
     h = _norm(lp["ln1"], x, cfg)
+    if kind in ("mamba", "hybrid"):
+        m, _, _ = L.mamba_decode(lp["mixer"], h, cache["conv"], cache["ssm"],
+                                 d_state=cfg.ssm_state)
+        if kind == "mamba":
+            return x + m
     a, _, _ = L.decode_self_attention(lp["attn"], h, cache["k"], cache["v"],
                                       pos, window=spec.window,
                                       **_attn_kwargs(cfg))
-    x = x + a
-    h = _norm(lp["ln2"], x, cfg)
-    return x + _ffn_apply(lp, h, cfg)
+    x = x + (_fuse(cfg, lp, a, m) if kind == "hybrid" else a)
+    kv = (cache["xk"], cache["xv"]) if kind == "attn_cross" else None
+    return _cross_and_ffn(cfg, kind, lp, x, kv)
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: list,
@@ -296,14 +487,16 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list,
     Returns (logits [B, V] float32, cache).  The cache is updated in place
     (the reference returns a new one) and returned.
     """
-    check_ported(cfg)
     pos = int(pos)
     x = L.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    if cfg.max_position:
+        # the reference's dynamic_slice clamps the row: positions past the
+        # table read its last row
+        x = x + params["pos_embed"][min(pos, cfg.max_position - 1)]
     blocks = params["blocks"]
     for spec, pi, j, r, c in _layers(cfg.patterns):
-        cj = cache[pi][j]
         x = _layer_decode(cfg, spec, _layer(blocks[pi][j], r, c),
-                          {"k": cj["k"][r, c], "v": cj["v"][r, c]}, x,
+                          {k: v[r, c] for k, v in cache[pi][j].items()}, x,
                           pos=pos)
     x = _norm(params["final_norm"], x, cfg)
     return logits_from_hidden(cfg, params, x)[:, 0], cache
@@ -334,12 +527,39 @@ def _fill_kv_cache(k: torch.Tensor, window: int, S: int, max_seq: int
     return torch.roll(kw, S % W, dims=1)  # position S-W+j -> slot (S-W+j)%W
 
 
+def _mamba_prefill(cfg: ModelConfig, mp: dict, h: torch.Tensor):
+    """The Mamba mixer over the prompt, with its final states: the conv
+    history (the last K-1 inputs before the conv; zeros before the first
+    token) and the SSM state."""
+    xc, z = (h @ mp["in_proj"]).chunk(2, dim=-1)
+    xc_conv = L._act("silu", L._causal_conv(xc, mp["conv_w"], mp["conv_b"]))
+    dt, Bc, Cc = L._ssm_params(mp, xc_conv, d_state=cfg.ssm_state)
+    y, h_last = L.selective_scan(xc_conv, dt, Bc, Cc, mp["A_log"], mp["D"])
+    out = (y * L._act("silu", z)) @ mp["out_proj"]
+    K1 = cfg.conv_kernel - 1
+    conv_state = F.pad(xc, (0, 0, K1, 0))[:, -K1:]
+    return out, conv_state.to(cfg.dtype), h_last
+
+
 def _layer_prefill(cfg: ModelConfig, spec: StageSpec, lp: dict,
-                   x: torch.Tensor, *, positions: torch.Tensor, max_seq: int):
-    """Like ``_layer_fwd`` but also returns this layer's (k, v) cache rows;
-    chunked attention only above ``PREFILL_CHUNK_THRESHOLD`` tokens."""
-    B, S, _ = x.shape
+                   x: torch.Tensor, *, positions: torch.Tensor, max_seq: int,
+                   cross_src):
+    """Like ``_layer_fwd`` but also returns this layer's cache leaves (a
+    dict); chunked attention only above ``PREFILL_CHUNK_THRESHOLD``
+    tokens."""
+    kind = spec.kind
+    cache: dict = {}
+    if kind == "cross":
+        cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, cross_src)
+        return _gated_cross(cfg, lp, x, kv), cache
+    if kind not in ("attn", "attn_cross", "mamba", "hybrid"):
+        raise ValueError(f"layer kind {kind} has no prefill step")
     h = _norm(lp["ln1"], x, cfg)
+    if kind in ("mamba", "hybrid"):
+        m, cache["conv"], cache["ssm"] = _mamba_prefill(cfg, lp["mixer"], h)
+        if kind == "mamba":
+            return x + m, cache
+    B, S, _ = x.shape
     q, k, v = L._qkv(lp["attn"], h, n_heads=cfg.num_heads,
                      n_kv=cfg.num_kv_heads, head_dim=cfg.hd,
                      qkv_bias=cfg.qkv_bias)
@@ -352,35 +572,47 @@ def _layer_prefill(cfg: ModelConfig, spec: StageSpec, lp: dict,
         o = L.chunked_attention(q, kf, vf, causal=True, window=spec.window)
     else:
         o = L.attention_core(q, kf, vf, causal=True, window=spec.window)
-    x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
-    ck = _fill_kv_cache(k.to(cfg.dtype), spec.window, S, max_seq)
-    cv = _fill_kv_cache(v.to(cfg.dtype), spec.window, S, max_seq)
-    h = _norm(lp["ln2"], x, cfg)
-    return x + _ffn_apply(lp, h, cfg), ck, cv
+    a = o.reshape(B, S, -1) @ lp["attn"]["wo"]
+    cache["k"] = _fill_kv_cache(k.to(cfg.dtype), spec.window, S, max_seq)
+    cache["v"] = _fill_kv_cache(v.to(cfg.dtype), spec.window, S, max_seq)
+    x = x + (_fuse(cfg, lp, a, m) if kind == "hybrid" else a)
+    kv = None
+    if kind == "attn_cross":
+        cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, cross_src)
+    return _cross_and_ffn(cfg, kind, lp, x, kv), cache
 
 
 def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-                 max_seq: int | None = None):
+                 max_seq: int | None = None,
+                 cross_src: torch.Tensor | None = None):
     """Forward over the prompt; returns (last-token logits [B, V] float32,
     filled cache).
 
     ``max_seq`` sizes the cache (>= prompt length; default the prompt
     length).  Windowed layers fill their ring buffers at ring-consistent
     slots (slot = position % window), so ``decode_step`` continues
-    seamlessly.
+    seamlessly.  ``cross_src``: whisper's frames (encoded here) or
+    llama-vision's patches; the cross layers cache their K/V over it.
+    Each stage's leaves are stacked from the layers' outputs, as the
+    reference's scan stacks them.
     """
-    check_ported(cfg)
     B, S = tokens.shape
     max_seq = max_seq or S
-    x = L.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)
-    cache = init_cache(cfg, B, max_seq, device=x.device)
+    cross_src = _cross_source(cfg, params, cross_src)
+    cache: list = [[{} for _ in pat.stages] for pat in cfg.patterns]
     blocks = params["blocks"]
     for spec, pi, j, r, c in _layers(cfg.patterns):
-        x, ck, cv = _layer_prefill(cfg, spec, _layer(blocks[pi][j], r, c), x,
-                                   positions=positions, max_seq=max_seq)
-        cache[pi][j]["k"][r, c] = ck
-        cache[pi][j]["v"][r, c] = cv
+        x, leaves = _layer_prefill(cfg, spec, _layer(blocks[pi][j], r, c), x,
+                                   positions=positions, max_seq=max_seq,
+                                   cross_src=cross_src)
+        stage = cache[pi][j]
+        for name, leaf in leaves.items():
+            if name not in stage:
+                stage[name] = leaf.new_empty(
+                    (cfg.patterns[pi].repeats, spec.count) + leaf.shape)
+            stage[name][r, c] = leaf
     x = _norm(params["final_norm"], x, cfg)
     return logits_from_hidden(cfg, params, x[:, -1:])[:, 0], cache
 
@@ -425,21 +657,23 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.params = _ParamTree(params)
 
     def tree(self) -> dict:
         return self.params.tree()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.cfg, self.tree(), tokens)
+    def forward(self, tokens: torch.Tensor,
+                cross_src: torch.Tensor | None = None) -> torch.Tensor:
+        return forward(self.cfg, self.tree(), tokens, cross_src=cross_src)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return logits_from_hidden(self.cfg, self.tree(), hidden)
 
-    def prefill(self, tokens: torch.Tensor, max_seq: int | None = None):
-        return prefill_step(self.cfg, self.tree(), tokens, max_seq=max_seq)
+    def prefill(self, tokens: torch.Tensor, max_seq: int | None = None,
+                cross_src: torch.Tensor | None = None):
+        return prefill_step(self.cfg, self.tree(), tokens, max_seq=max_seq,
+                            cross_src=cross_src)
 
     def decode(self, cache: list, tokens: torch.Tensor, pos: int):
         return decode_step(self.cfg, self.tree(), cache, tokens, pos)

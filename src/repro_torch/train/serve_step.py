@@ -9,10 +9,13 @@ from repro_torch.models import transformer as T
 
 
 def make_prefill_step(cfg: T.ModelConfig, *, max_seq: int | None = None):
-    """``prefill_step(params, tokens) -> (logits [B, V] float32, cache)``."""
+    """``prefill_step(params, tokens, cross_src=None) -> (logits [B, V]
+    float32, cache)``; ``cross_src`` is whisper's frames or llama-vision's
+    patches."""
     @torch.inference_mode()
-    def prefill_step(params, tokens):
-        return T.prefill_step(cfg, params, tokens, max_seq=max_seq)
+    def prefill_step(params, tokens, cross_src=None):
+        return T.prefill_step(cfg, params, tokens, max_seq=max_seq,
+                              cross_src=cross_src)
     return prefill_step
 
 

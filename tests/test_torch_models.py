@@ -1,13 +1,20 @@
-"""The port's dense-attention LM (``repro_torch.models``) against the
-reference (``repro.models``) on the CPU, for the smoke twins of the four
-architectures that use only the ``attn`` stage kind.
+"""The port's LM (``repro_torch.models``) against the reference
+(``repro.models``) on the CPU: the dense layers for the smoke twins of the
+four architectures that use only the ``attn`` stage kind, and the whole
+model (parameter trees, forward, prefill with every cache leaf, decode)
+for the smoke twins of all ten.
 
 Layer tests feed both packages the same numpy inputs and weights (random
 norm scales and biases, which the init leaves at ones and zeros); model
 tests carry the reference's ``init_params`` across with
 ``interop.params_from`` (the reference's init is salted per process, so
-two inits are never compared).  Float32 throughout, within rtol 1e-4 and
-atol 1e-4, unless a test says otherwise.
+two inits are never compared), with the cross layers' tanh gates set to
+non-zero values in the reference's tree first (at init they are zero and
+the layer adds nothing).  Whisper and llama-vision get the same seeded
+frames / patches in both packages.  Float32 throughout, within rtol 1e-4
+and atol 1e-4, unless a test says otherwise.  The MoE, Mamba and
+cross-attention layers have their own files (``test_torch_moe.py``,
+``test_torch_mamba.py``, ``test_torch_cross.py``).
 """
 import dataclasses
 
@@ -17,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_lm import with_gates
 from _torch_threads import one_torch_thread  # noqa: F401
 from repro import configs as RC
 from repro.models import layers as RL
@@ -27,6 +35,7 @@ from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 
 DENSE = ("qwen2-0.5b", "qwen1.5-0.5b", "gemma-2b", "gemma3-1b")
+ARCHS = RC.ARCH_IDS
 B, S = 2, 32
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -39,6 +48,7 @@ def _close(got, want, **tol):
 
 # the reference's entry points, jitted once per configuration (eager, each
 # of their scans would trace and compile anew at every call)
+_ref_init = jax.jit(RT.init_params, static_argnums=0)
 _ref_forward = jax.jit(RT.forward, static_argnums=0,
                        static_argnames=("remat",))
 _ref_prefill = jax.jit(RT.prefill_step, static_argnums=0,
@@ -78,12 +88,21 @@ _MODELS: dict = {}
 
 def _model(arch_id):
     """(reference cfg, port cfg, reference params, port params), built
-    once per module and arch."""
+    once per module and arch, the cross gates non-zero."""
     if arch_id not in _MODELS:
         rcfg, pcfg = _cfgs(arch_id)
-        rp = RT.init_params(rcfg, jax.random.PRNGKey(0))
+        rp = with_gates(_ref_init(rcfg, jax.random.PRNGKey(0)))
         _MODELS[arch_id] = (rcfg, pcfg, rp, interop.params_from(rp, "cpu"))
     return _MODELS[arch_id]
+
+
+def _cross(cfg, seed=0, b=B):
+    """Seeded frames / patches [b, cross_seq, d_model] as (jax, torch), or
+    (None, None) for a model without cross layers."""
+    if not cfg.cross_seq:
+        return None, None
+    x = _f32(_rng(100 + seed), b, cfg.cross_seq, cfg.d_model)
+    return jnp.asarray(x), torch.from_numpy(x)
 
 
 def _tokens(cfg, seed=0, b=B, s=S):
@@ -134,7 +153,7 @@ def test_norms(arch_id):
     _close(got, RL.apply_norm({"scale": jnp.asarray(w)}, jnp.asarray(x),
                               kind=rcfg.norm, eps=rcfg.norm_eps,
                               plus_one=rcfg.norm_plus_one))
-    # the layernorm of the (not yet ported) encoder architectures
+    # the layernorm of whisper (decoder and encoder)
     jw, tw = _both({"scale": w, "bias": _f32(rng, rcfg.d_model)})
     _close(PL.apply_norm(tw, torch.from_numpy(x), kind="layernorm",
                          eps=1e-5),
@@ -282,46 +301,77 @@ def _same_tree(got, want, **tol):
         _close(torch.from_numpy(a), b, **tol)
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+_STAGE_LEAF = {"attn": "attn.wq", "attn_cross": "xattn.wk",
+               "cross": "gate_attn", "mamba": "mixer.A_log",
+               "hybrid": "mixer.dt_bias"}
+
+
+@pytest.mark.parametrize("arch_id", ARCHS)
 def test_params_from_keeps_the_tree(arch_id):
     """``params_from`` maps every leaf; ``Transformer`` holds them as
     parameters under the reference's names; ``param_shapes`` has the
-    same tree on the meta device."""
-    _, pcfg, rp, pp = _model(arch_id)
+    same tree on the meta device; cast to bfloat16, the float32 leaves
+    (the SSM's constants, the cross gates) stay float32."""
+    rcfg, pcfg, rp, pp = _model(arch_id)
     _same_tree(pp, rp, rtol=0, atol=0)
     model = PT.Transformer(pcfg, pp)
     names = dict(model.named_parameters())
-    assert "params.blocks.0.0.attn.wq" in names
+    for j, st in enumerate(pcfg.patterns[0].stages):
+        assert f"params.blocks.0.{j}.{_STAGE_LEAF[st.kind]}" in names
+    if pcfg.encoder_layers:
+        assert "params.encoder.blocks.0.0.attn.wq" in names
     assert sum(t.numel() for t in names.values()) == PT.param_count(pcfg)
     shapes = PT.param_shapes(pcfg)
     assert jax.tree.map(lambda t: tuple(t.shape), shapes) == \
         jax.tree.map(lambda t: tuple(t.shape), pp)
     assert all(t.device.type == "meta" for t in jax.tree.leaves(shapes))
+    init = PT.init_params(dataclasses.replace(pcfg, param_dtype="bfloat16"),
+                          torch.Generator().manual_seed(0), "cpu")
+    half = interop.params_from(rp, "cpu", dtype=torch.bfloat16)
+    for tree in (init, half):
+        flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+        for path, leaf in flat:
+            name = path[-1].key
+            want = torch.float32 if name in PT.FLOAT32_LEAVES else \
+                torch.bfloat16
+            assert leaf.dtype == want, (path, leaf.dtype)
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ARCHS)
 def test_forward_hidden_and_logits(arch_id):
     rcfg, pcfg, rp, pp = _model(arch_id)
     toks = _tokens(rcfg, 8)
-    rh = _ref_forward(rcfg, rp, jnp.asarray(toks), remat=False)
+    jx, tx = _cross(rcfg, 8)
+    rh = _ref_forward(rcfg, rp, jnp.asarray(toks), cross_src=jx,
+                      remat=False)
     model = PT.Transformer(pcfg, pp)
-    ph = model(torch.from_numpy(toks))
+    ph = model(torch.from_numpy(toks), tx)
     _close(ph, rh)
     _close(model.logits(ph), RT.logits_from_hidden(rcfg, rp, rh))
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ARCHS)
 def test_prefill_then_teacher_forced_decode(arch_id):
     """``prefill_step`` over 26 tokens into a 32-slot cache (logits and
-    every cache leaf), then 6 teacher-forced ``decode_step``\\ s; gemma3's
-    16-slot rings wrap during the prompt and the decode."""
+    every cache leaf: K/V, the cross layers' ``xk`` / ``xv``, the Mamba
+    ``conv`` / ``ssm`` states), then 6 teacher-forced ``decode_step``\\ s;
+    gemma3's and hymba's 16-slot rings wrap during the prompt and the
+    decode."""
     rcfg, pcfg, rp, pp = _model(arch_id)
     toks = _tokens(rcfg, 9)
+    jx, tx = _cross(rcfg, 9)
     p0 = S - 6
-    rl, rc = _ref_prefill(rcfg, rp, jnp.asarray(toks[:, :p0]), max_seq=S)
+    rl, rc = _ref_prefill(rcfg, rp, jnp.asarray(toks[:, :p0]), max_seq=S,
+                          cross_src=jx)
     pl, pc = PT.prefill_step(pcfg, pp, torch.from_numpy(toks[:, :p0]),
-                             max_seq=S)
+                             max_seq=S, cross_src=tx)
     _close(pl, rl)
+    # the zero cache has the filled cache's leaves, shapes and dtypes
+    def layout(tree):
+        return jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)),
+                            interop.to_numpy(tree))
+    assert layout(PT.init_cache(pcfg, B, S, device="cpu")) == layout(pc) \
+        == layout(RT.init_cache(rcfg, B, S))
     _same_tree(pc, rc)
     _same_tree(pc, interop.kv_cache_from(rc, "cpu"))
     for pos in range(p0, S):
@@ -334,17 +384,20 @@ def test_prefill_then_teacher_forced_decode(arch_id):
         _same_tree(pc, rc)
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ARCHS)
 def test_prefill_then_decode_matches_a_longer_prefill(arch_id):
     """The reference test's property (``tests/test_arch_smoke.py:68``),
     made exact: the prefill of ``tokens[:, :S-1]`` and one decode of
     ``tokens[:, S-1]`` at ``pos = S-1`` give the last logits of the
-    prefill of ``tokens``."""
+    prefill of ``tokens`` (the MoE smoke twins' capacity factor of 8
+    drops no assignment, so both routings compute the same experts)."""
     _, pcfg, _, pp = _model(arch_id)
     toks = torch.from_numpy(_tokens(pcfg, 10))
-    _, cache = PT.prefill_step(pcfg, pp, toks[:, :S - 1], max_seq=S + 4)
+    _, tx = _cross(pcfg, 10)
+    _, cache = PT.prefill_step(pcfg, pp, toks[:, :S - 1], max_seq=S + 4,
+                               cross_src=tx)
     got, _ = PT.decode_step(pcfg, pp, cache, toks[:, S - 1:], S - 1)
-    want, _ = PT.prefill_step(pcfg, pp, toks)
+    want, _ = PT.prefill_step(pcfg, pp, toks, cross_src=tx)
     torch.testing.assert_close(got, want, **TOL)
     assert bool(torch.isfinite(got).all())
 
@@ -398,6 +451,48 @@ def test_bfloat16_serving_matches_reference():
             step
         assert np.linalg.norm(got - want_c) <= \
             2e-2 * np.linalg.norm(want_c), step
+
+
+@pytest.mark.parametrize("arch_id", ("falcon-mamba-7b", "hymba-1.5b"))
+def test_bfloat16_mamba_matches_reference_op_by_op(arch_id):
+    """The Mamba-bearing smoke twins in bfloat16 (``FLOAT32_LEAVES``
+    float32, as the init makes them in both packages): prefill, the cache
+    leaves' dtypes, and 4 teacher-forced decode steps, within 1e-2
+    relative L2 of the reference run op by op (``jax.disable_jit``).
+
+    The weights are the port's seeded init carried to the reference, so
+    the case is the same in every process: over the reference's salted
+    inits, an element that rounds to the other side in one bf16 product
+    (CPU products accumulate in another order in XLA and in torch) moves
+    hymba's logits by 0 to 1e-2 and, rarely, beyond."""
+    rcfg, pcfg = (dataclasses.replace(c, param_dtype="bfloat16")
+                  for c in _cfgs(arch_id))
+    pp = PT.init_params(pcfg, torch.Generator().manual_seed(0), "cpu")
+    rp = jax.tree.map(lambda t: jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32), pp)
+    toks = _tokens(rcfg, 12)
+    p0 = S - 4
+    with jax.disable_jit():
+        logits, cache = RT.prefill_step(rcfg, rp, jnp.asarray(toks[:, :p0]),
+                                        max_seq=S)
+        want = [logits]
+        for pos in range(p0, S):
+            logits, cache = RT.decode_step(
+                rcfg, rp, cache, jnp.asarray(toks[:, pos:pos + 1]),
+                jnp.asarray(pos, jnp.int32))
+            want.append(logits)
+    pl, pc = PT.prefill_step(pcfg, pp, torch.from_numpy(toks[:, :p0]),
+                             max_seq=S)
+    assert pc[0][0]["ssm"].dtype == torch.float32
+    assert pc[0][0]["conv"].dtype == torch.bfloat16
+    got = [pl]
+    for pos in range(p0, S):
+        pl, pc = PT.decode_step(pcfg, pp, pc,
+                                torch.from_numpy(toks[:, pos:pos + 1]), pos)
+        got.append(pl)
+    for step, (g, w) in enumerate(zip(got, want)):
+        g, w = g.numpy(), np.asarray(w, np.float32)
+        assert np.linalg.norm(g - w) <= 1e-2 * np.linalg.norm(w), step
 
 
 def test_fill_kv_cache_ring_slots():

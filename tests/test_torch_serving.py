@@ -1,9 +1,8 @@
 """The port's LM serving path against the reference on the CPU:
 ``TokenStream`` bit for bit, the ten architecture configurations field for
-field, parameter counts on the meta device, ``NotImplementedError`` for
-the stage kinds not ported yet, and ``launch.serve`` (greedy tokens equal
-to the reference's prefill-and-decode loop with the same weights and
-prompts)."""
+field, parameter counts on the meta device, and ``launch.serve`` for every
+architecture (greedy tokens equal to the reference's prefill-and-decode
+loop with the same weights, prompts and cross-attention source)."""
 import dataclasses
 
 import jax
@@ -12,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_lm import with_gates
 from _torch_threads import one_torch_thread  # noqa: F401
 from repro import configs as RC
 from repro.data import TokenStream as RefTokenStream
@@ -22,9 +22,6 @@ from repro_torch import interop
 from repro_torch.data import TokenStream
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import transformer as PT
-
-DENSE = ("qwen2-0.5b", "qwen1.5-0.5b", "gemma-2b", "gemma3-1b")
-NOT_PORTED = tuple(a for a in RC.ARCH_IDS if a not in DENSE)
 
 
 @pytest.mark.parametrize("seed", (0, 3, 20260))
@@ -76,35 +73,31 @@ def test_registry_shapes_and_cells_equal_reference():
         PC.get_arch("gpt-5")
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", RC.ARCH_IDS)
 def test_param_count_equals_reference(arch_id):
-    """Full width and smoke twin, on the meta device (qwen2-0.5b full:
-    494M parameters, allocated nowhere)."""
+    """Full width and smoke twin, on the meta device
+    (moonshot-v1-16b-a3b full: 28,057,995,264 parameters, allocated
+    nowhere)."""
     for part in ("model", "smoke"):
-        got = PT.param_count(getattr(PC.get_arch(arch_id), part))
-        assert got == RT.param_count(getattr(RC.get_arch(arch_id), part))
+        pcfg = getattr(PC.get_arch(arch_id), part)
+        rcfg = getattr(RC.get_arch(arch_id), part)
+        assert PT.param_count(pcfg) == RT.param_count(rcfg)
     shapes = PT.param_shapes(PC.get_arch(arch_id).model)
     assert shapes["embed"].device.type == "meta"
+    if arch_id == "moonshot-v1-16b-a3b":
+        assert PT.param_count(PC.get_arch(arch_id).model) == 28_057_995_264
 
 
-@pytest.mark.parametrize("arch_id", NOT_PORTED)
-def test_unported_stage_kinds_raise(arch_id):
-    """MoE, mamba, hybrid, cross-attention and the encoder wait for later
-    slices; each names its roadmap item."""
-    cfg = PC.get_arch(arch_id).smoke
-    for call in (lambda: PT.param_count(cfg),
-                 lambda: PT.init_params(cfg, torch.Generator(), "cpu"),
-                 lambda: PT.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            call()
-
-
-def test_serve_main_runs_on_cpu(capsys):
-    assert serve_mod.main(["--arch", "qwen2-0.5b", "--batch", "2",
-                           "--prompt-len", "16", "--gen", "4",
-                           "--device", "cpu"]) == 0
+@pytest.mark.parametrize("arch_id", RC.ARCH_IDS)
+def test_serve_main_runs_on_cpu(arch_id, capsys):
+    """The launcher at its defaults (batch 4 x 64 prompt tokens + 32
+    decode steps, the smoke twin) for every architecture; whisper's and
+    llama-vision's frames / patches are drawn from the seed.  Whisper's
+    decode runs past its 64 learned positions and reads the last row, as
+    the reference's ``dynamic_slice`` does."""
+    assert serve_mod.main(["--arch", arch_id, "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "prefill[2x16]" in out and "decode 4 steps" in out
+    assert "prefill[4x64]" in out and "decode 32 steps" in out
 
 
 def test_serve_needs_a_card_by_default():
@@ -114,21 +107,29 @@ def test_serve_needs_a_card_by_default():
         serve_mod.main(["--arch", "qwen2-0.5b"])
 
 
-@pytest.mark.parametrize("arch_id", ("qwen2-0.5b", "gemma3-1b"))
+@pytest.mark.parametrize("arch_id", ("qwen2-0.5b", "gemma3-1b",
+                                     "whisper-medium",
+                                     "llama-3.2-vision-90b"))
 def test_serve_greedy_tokens_equal_reference_loop(arch_id):
     """``serve`` with the reference's weights gives the tokens of the
     reference launcher's loop (``src/repro/launch/serve.py:44-64``), run
-    here with the same weights and prompts; gemma3's 16-slot rings wrap
+    here with the same weights, prompts and frames / patches (the
+    launcher's ``normal(key, ...)``, handed to ``serve`` as
+    ``cross_src``; the cross gates non-zero); gemma3's 16-slot rings wrap
     during the prompt and the decode."""
     batch, prompt_len, gen, seed = 3, 24, 8, 5
     rcfg = RC.get_arch(arch_id).smoke
     key = jax.random.PRNGKey(seed)
-    rp = jax.jit(RT.init_params, static_argnums=0)(rcfg, key)
+    rp = with_gates(jax.jit(RT.init_params, static_argnums=0)(rcfg, key))
     tokens = jax.random.randint(key, (batch, prompt_len), 0,
                                 rcfg.vocab_size, jnp.int32)
+    cross = None
+    if rcfg.cross_seq:
+        cross = jax.random.normal(
+            key, (batch, rcfg.cross_seq, rcfg.d_model)).astype(rcfg.dtype)
     prefill = jax.jit(make_prefill_step(rcfg, max_seq=prompt_len + gen))
     decode = jax.jit(make_decode_step(rcfg))
-    logits, cache = prefill(rp, tokens)
+    logits, cache = prefill(rp, tokens, cross)
     cur = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
     out = [cur]
     for i in range(gen):
@@ -144,7 +145,9 @@ def test_serve_greedy_tokens_equal_reference_loop(arch_id):
         np.asarray(tokens))
     res = serve_mod.serve(pcfg, batch=batch, prompt_len=prompt_len,
                           gen=gen, seed=seed, device="cpu",
-                          params=interop.params_from(rp, "cpu"))
+                          params=interop.params_from(rp, "cpu"),
+                          cross_src=None if cross is None else
+                          torch.from_numpy(np.array(cross)))
     np.testing.assert_array_equal(res["tokens"].numpy(), want)
     torch.testing.assert_close(res["logits"],
                                torch.from_numpy(np.array(logits)),

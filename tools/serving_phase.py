@@ -1,13 +1,15 @@
 """Run the env phase and the serving path of ``chip_smoke.py`` alone, on
 one NVIDIA GPU: qwen2-0.5b at full width served at the smoke's loads, the
-float32 check against the host, the chunked-attention check and the RAG
-wave, with the serving path's launch gates.
+float32 check against the host and the chunked-attention check; the other
+architectures of ``SERVE_MODELS`` (moonshot-v1-16b-a3b, falcon-mamba-7b,
+hymba-1.5b, whisper-medium, llama-3.2-vision-90b at one period,
+arctic-480b at one layer) and the float32 checks of ``FP32_MODELS``; then
+the RAG wave, with the serving path's launch gates.
 
     python3 tools/serving_phase.py
 
-It prints the phases' JSON lines, then the two paths' launch counts
-(about 50 s of command time).  Use it for a first chip call after a
-change to the LM substrate.
+It prints the phases' JSON lines, then the two paths' launch counts.  Use
+it for a first chip call after a change to the LM substrate.
 """
 from __future__ import annotations
 
