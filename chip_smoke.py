@@ -8,7 +8,7 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives six paths, each with the launch counts
+main path's shapes, then drives seven paths, each with the launch counts
 set to 0 just before it and read just after:
 
 - search: builds and searches a small index (the test suite's
@@ -27,7 +27,7 @@ set to 0 just before it and read just after:
   from the free list and a profiled repair step;
 - sharded (``core/distributed.py``, all shards on the one card, the
   merge's gather through a one-rank NCCL group): the reference test's
-  8 shards of 128, and the FineWeb-like corpus in 8 shards of 12,500
+  8 shards of 128, and half the FineWeb-like corpus in 8 shards of 6,250
   with a global codec: sharded search waves and a routed insert wave;
 - serving (the LM substrate, ``repro_torch.launch.serve``): qwen2-0.5b at
   its published width (24 x 896, vocab 151,936, bf16, seeded random
@@ -39,24 +39,33 @@ set to 0 just before it and read just after:
   falcon-mamba-7b, hymba-1.5b and whisper-medium whole;
   llama-3.2-vision-90b at one period of its pattern and arctic-480b at one
   layer) at the launcher's load and a larger one, and a float32 run
-  against the host of each new layer kind at 2 layers; then RAG
-  (``examples/rag_serving_torch.py``): the LM embeds 512 documents, the
-  navis index is built over them on the card and a wave of 256 embedded
-  queries retrieves from it (its counts are read apart, as ``rag``).
+  against the host of each new layer kind at 2 layers;
+- train (``repro_torch.train``, ``launch/train.py``, ``checkpoint/``):
+  8 AdamW steps (bf16) of qwen2-0.5b at its published width at 8 x 256
+  and 4 x 4,096 tokens, hymba-1.5b whole at 4 x 1,024 and whisper-medium
+  whole at 4 x 448 (frames from the seed), each with its step time,
+  tokens/s against the model FLOPs' bound, peak memory, launches and
+  idle share; the launcher as a subprocess (crash at step 3, resume
+  from its checkpoint, against a run without the crash); float32 loss
+  and gradients against the host at 2 layers, and the scan's backward
+  against float64; then RAG (``examples/rag_serving_torch.py``): the LM
+  embeds 512 documents, the navis index is built over them on the card
+  and a wave of 256 embedded queries retrieves from it (its counts are
+  read apart, as ``rag``).
 
 The search and update paths must launch ``pool_merge``, ``adc_distance``
 and ``casr_rerank`` (once per search or insert wave) and neither rerank
 entry; the presets path all of those and ``rerank_l2_rows`` (the full
 rerank and the buffer scan); the maintenance path as the search path,
 and a pass itself launches no rerank kernel; the sharded path as the
-search path, ``casr_rerank`` once per shard and wave; the serving path
-none of the port's kernels (its products are ``torch.matmul``), and its
-RAG wave as the search path.  ``rerank_l2`` runs on no path (the kernel
-phase holds it).  After each engine path one search wave and one insert
-wave (after the maintenance path, one pass; after the sharded path, a
-sharded search and insert) are repeated with the plain versions on the
-card (A/B).  Each phase
-prints one JSON line; any failure exits non-zero without the final
+search path, ``casr_rerank`` once per shard and wave; the serving and
+training paths none of the port's kernels (their products are
+``torch.matmul``), and the RAG wave as the search path.  ``rerank_l2``
+runs on no path (the kernel phase holds it).  After each engine path
+one search wave and one insert wave (after the maintenance path, one
+pass; after the sharded path, a sharded search and insert) are repeated
+with the plain versions on the card (A/B).  Each phase prints one JSON
+line; any failure exits non-zero without the final
 result line.  With no CUDA device, or without the repository beside it,
 it exits non-zero at once.
 It takes no options: every run is the whole smoke.
@@ -83,11 +92,13 @@ RERANK_RTOL, RERANK_ATOL = 1e-5, 1e-3
 # (tools/build_block_cut.py times both).
 FINEWEB_N = 100_000
 FINEWEB_BLOCK = 512
-# The sharded path: the FineWeb-like corpus range-sharded into SHARDS
-# shards of SHARD_N (the single engine's N in all), each with
-# SHARD_HEADROOM slots for inserts, all on the one card.
+# The sharded path: the first SHARDS x SHARD_N vectors of the FineWeb-like
+# corpus range-sharded into SHARDS shards of SHARD_N, each with
+# SHARD_HEADROOM slots for inserts, all on the one card.  Cut to half the
+# single engine's N (8 x 6,250, not 8 x 12,500) so that the whole smoke,
+# with the training path, stays inside its time limit.
 SHARDS = 8
-SHARD_N = FINEWEB_N // SHARDS
+SHARD_N = FINEWEB_N // SHARDS // 2
 SHARD_HEADROOM = 1_200
 # The serving path (the LM substrate): qwen2-0.5b at its published widths
 # (src/repro/configs/qwen2_0_5b.py), bf16, weights drawn from a seed.
@@ -122,6 +133,7 @@ SERVE_MODELS = (
     ("arctic-480b", 1, ((4, 64, 32), (32, 512, 64))),
 )
 PUBLISHED_PARAMS = {
+    "qwen2-0.5b": 494_032_768,
     "moonshot-v1-16b-a3b": 28_057_995_264, "falcon-mamba-7b": 7_272_665_088,
     "hymba-1.5b": 1_611_062_400, "whisper-medium": 846_202_880,
     "llama-3.2-vision-90b": 87_666_794_536, "arctic-480b": 476_850_275_328,
@@ -134,6 +146,28 @@ FP32_LAYERS = 2
 # tanh gates of llama-vision's cross layers: zero at init, where a cross
 # layer adds nothing, so the smoke opens them
 CROSS_GATES = (0.7, -0.4)
+# The training path (repro_torch.train, launch/train.py, checkpoint/):
+# TRAIN_STEPS steps of AdamW (bf16 state, the cosine schedule) on one
+# repeated TokenStream batch, bf16, seeded random weights, at published
+# widths.  TRAIN_ARCH (the launcher's --arch) at TRAIN_LOADS (batch, seq):
+# the launcher's default 8 x 256, then the train_4k cell's sequence of
+# 4,096 with its global batch of 256 cut to 4; then TRAIN_MODELS whole:
+# hymba-1.5b (the scan's backward, the hybrid fuse, the windowed layers
+# under autograd) and whisper-medium (the encoder and cross-attention
+# backward; frames [B, 1500, 1024] from the seed).  The launcher runs
+# LAUNCHER_ARGS as a subprocess (crash at step 3, resume, and a run
+# without the crash); TRAIN_FP32 holds float32 on the card against the
+# host, each arch cut to TRAIN_FP32_LAYERS layers, at TRAIN_FP32_LOAD.
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_STEPS = 8
+TRAIN_LOADS = ((8, 256), (4, 4096))
+TRAIN_MODELS = (("hymba-1.5b", (4, 1024)), ("whisper-medium", (4, 448)))
+LAUNCHER_ARGS = ("--arch", TRAIN_ARCH, "--full", "--steps", "6", "--batch",
+                 "4", "--seq", "512", "--log-every", "1")
+TRAIN_FP32 = ("qwen2-0.5b", "hymba-1.5b")
+TRAIN_FP32_LAYERS = 2
+TRAIN_FP32_LOAD = (2, 128)
+PEAK_BF16_S = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 
 KERNELS = {
     "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
@@ -174,6 +208,9 @@ PATH_KERNELS = {
     # the LM serves with torch.matmul and plain torch ops: no kernel of the
     # port (the reference reaches no Pallas kernel there) ...
     "serving": ((), tuple(KERNELS)),
+    # ... nor does training (its backward and optimizer are plain torch
+    # too) ...
+    "train": ((), tuple(KERNELS)),
     # ... and the RAG wave runs the navis search
     "rag": (("pool_merge", "adc_distance", "casr_rerank"),
             ("rerank_l2", "rerank_l2_rows")),
@@ -272,10 +309,13 @@ def device_ms_cold(torch, fn, kernel: str, iters: int = 20) -> float:
 def profile_window(torch, fn) -> dict:
     """Device busy share of one call of ``fn`` (host clock around it), its
     kernel launches, its five largest kernels by device time, and the
-    port's kernels in it (device ms, launches)."""
+    port's kernels in it (device ms, launches).  Only the device's
+    activity is recorded: recording every host operator too would slow
+    the host the share is measured against (and a train step of hymba
+    has ~190,000 launches)."""
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -289,7 +329,7 @@ def profile_window(torch, fn) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms if wall_ms else None,
             "kernel_launches": sum(r[2] for r in rows),
-            "top_kernels": [[k, ms, n] for k, ms, n in rows[:5]],
+            "top_kernels": [[k[:160], ms, n] for k, ms, n in rows[:5]],
             "port_kernels": port}
 
 
@@ -1754,6 +1794,7 @@ def phase_dist_fineweb(torch, group, vecs, cents):
     inv = [all(check_invariants(st.store).values()) for st in states]
     budget = [_page_budget_ok(torch, st.store) for st in states]
     emit("dist:fineweb_like:build", n=n, shards=SHARDS, shard_n=SHARD_N,
+         reduced=[f"corpus: the first {n} of {FINEWEB_N} vectors"],
          n_max=n_max, build_block=FINEWEB_BLOCK, build_s=build_s,
          invariants=inv, page_budget_ok=budget)
     require(all(inv) and all(budget),
@@ -1935,11 +1976,12 @@ class Paths:
         return counts
 
 
-def serving_path(torch, paths: Paths) -> tuple[dict, dict]:
+def serving_path(torch, paths: Paths) -> tuple[dict, dict, dict]:
     """The LMs alone (their counts read as ``serving``): qwen2-0.5b, then
     the other architectures of SERVE_MODELS and the float32 checks of
-    FP32_MODELS; then RAG, where qwen2-0.5b embeds and the navis engine
-    retrieves (read as ``rag``)."""
+    FP32_MODELS; then training (read as ``train``, ``train_path``); then
+    RAG, where qwen2-0.5b embeds and the navis engine retrieves (read as
+    ``rag``)."""
     paths.start("serving")
     cfg, params = phase_serving(torch)
     params32 = phase_serving_fp32(torch)
@@ -1952,9 +1994,10 @@ def serving_path(torch, paths: Paths) -> tuple[dict, dict]:
         phase_serving_fp32(torch, arch, FP32_LAYERS)
         torch.cuda.empty_cache()
     serving = paths.end("serving")
+    train = train_path(torch, paths)
     paths.start("rag")
     phase_serving_rag(torch, cfg, params)
-    return serving, paths.end("rag")
+    return serving, train, paths.end("rag")
 
 
 def _serve_cfg(dtype: str = "bfloat16"):
@@ -2193,6 +2236,7 @@ def phase_serving_model(torch, arch: str, layers, loads) -> None:
     decode), which bounds the step from below.  A model with Mamba layers
     then gates prefill-then-decode in float32 at its full depth."""
     from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
     cfg, reduced = _published(arch, layers=layers)
     t0 = time.perf_counter()
     params = T.init_params(
@@ -2203,7 +2247,7 @@ def phase_serving_model(torch, arch: str, layers, loads) -> None:
         if "gate_attn" in stage:
             stage["gate_attn"].fill_(CROSS_GATES[0])
             stage["gate_mlp"].fill_(CROSS_GATES[1])
-    leaves = list(T._leaves(params))
+    leaves = tree_leaves(params)
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
     expert_bytes = sum(
         t.numel() * t.element_size() for pat in params["blocks"]
@@ -2418,6 +2462,266 @@ def phase_serving_rag(torch, cfg, params) -> None:
             f"serving:rag: {out}")
 
 
+# ---------------------------------------------------------------------------
+# the training path: the train step, the launcher and its checkpoints
+# ---------------------------------------------------------------------------
+
+def train_path(torch, paths: Paths) -> dict:
+    """The LM's training path (its counts read as ``train``): qwen2-0.5b at
+    TRAIN_LOADS, TRAIN_MODELS, the launcher's crash and resume, and the
+    float32 checks against the host."""
+    paths.start("train")
+    for load in TRAIN_LOADS:
+        phase_train(torch, TRAIN_ARCH, load)
+    for arch, load in TRAIN_MODELS:
+        phase_train(torch, arch, load)
+    phase_train_launcher(torch)
+    for arch in TRAIN_FP32:
+        phase_train_fp32(torch, arch)
+    phase_scan_backward_fp64(torch)
+    return paths.end("train")
+
+
+def _train_flops(cfg, params, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 x parameters x the tokens they
+    see (whisper's encoder sees the frames), plus the attention's score
+    and PV products (4 x head_dim per query-key pair forward, 3x that with
+    the backward; causal and windowed layers count only the keys a query
+    sees)."""
+    from repro_torch.tree import tree_leaves
+    n_all = sum(t.numel() for t in tree_leaves(params))
+    n_enc = sum(t.numel() for t in tree_leaves(params.get("encoder", {})))
+    flops = 6.0 * ((n_all - n_enc) * batch * seq +
+                   n_enc * batch * cfg.cross_seq)
+    per_pair = 12.0 * batch * cfg.num_heads * cfg.hd
+    for pat in cfg.patterns:
+        for st in pat.stages:
+            n = pat.repeats * st.count
+            if st.kind in ("attn", "attn_cross", "hybrid"):
+                w = st.window or seq
+                flops += n * per_pair * sum(min(t + 1, w)
+                                            for t in range(seq))
+            if st.kind in ("attn_cross", "cross"):
+                flops += n * per_pair * seq * cfg.cross_seq
+    flops += cfg.encoder_layers * per_pair * cfg.cross_seq ** 2
+    return flops
+
+
+def _train_batch(torch, cfg, batch: int, seq: int, seed: int, device):
+    """``TokenStream``'s batch 0 (and the cross layers' source from the
+    seed for a model that has them)."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serve import cross_source
+    out = TokenStream(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch,
+                      seed=seed).make_batch(0, device=device)
+    cross = cross_source(cfg, batch, seed, device)
+    if cross is not None:
+        out["cross_src"] = cross
+    return out
+
+
+def phase_train(torch, arch: str, load) -> None:
+    """``make_train_step`` for ``arch`` at its published widths (bf16,
+    seeded random weights, AdamW with bf16 state and the launcher's cosine
+    schedule) at ``load``: TRAIN_STEPS steps on one repeated batch, each
+    timed on the host clock to a synchronise, then one profiled step.
+    Gates: every loss finite, the last below the first.  Prints the step
+    ms (mean of the last 6), tokens/s, the peak memory against the static
+    bytes (params, grads, moments), launches a step, the idle share, and
+    the bound: the model FLOPs at the bf16 dense peak."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    batch, seq = load
+    cfg, reduced = _published(arch)
+    if (batch, seq) == TRAIN_LOADS[-1] and arch == TRAIN_ARCH:
+        reduced = reduced + ["batch: 4 of the train_4k cell's 256"]
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = O.make_optimizer(C.get_arch(arch).optimizer, lr=O.cosine_schedule(
+        3e-4, warmup=min(20, TRAIN_STEPS // 10 + 1), total=TRAIN_STEPS))
+    opt_state = init_opt_state(cfg, opt, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    static = sum(2 * t.numel() * t.element_size()
+                 for t in tree_leaves(params)) + \
+        sum(t.numel() * t.element_size() for t in tree_leaves(opt_state))
+    step_fn = make_train_step(cfg, opt)
+    data = _train_batch(torch, cfg, batch, seq, 0, "cuda")
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, data, i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() - live
+    t0 = time.perf_counter()
+    win = profile_window(torch, lambda: step_fn(params, opt_state, data,
+                                                TRAIN_STEPS))
+    profile_s = time.perf_counter() - t0
+    flops = _train_flops(cfg, params, batch, seq)
+    step_s = sum(secs[-6:]) / 6
+    out = dict(arch=arch, batch=batch, seq=seq, layers=cfg.num_layers,
+               params=sum(t.numel() for t in tree_leaves(params)),
+               reduced=reduced, dtype=str(cfg.dtype), init_s=init_s,
+               losses=losses, step_s=secs, step_ms=step_s * 1e3,
+               tokens_s=batch * seq / step_s, peak_mem_bytes=peak,
+               static_bytes=static, model_flops=flops,
+               bound_ms=flops / PEAK_BF16_S * 1e3,
+               bound_by="operations (989 TFLOP/s bf16 dense)",
+               share_of_bound=flops / PEAK_BF16_S / step_s,
+               launches_per_step=win["kernel_launches"],
+               idle_share=win["idle_share"], profile=win,
+               profile_s=profile_s, seconds=time.perf_counter() - start)
+    emit(f"train:{arch}:{batch}x{seq}", **out)
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"train {arch} {batch}x{seq}: losses {losses}")
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+
+
+def _heartbeats(stdout: str) -> dict:
+    beats = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith("{")]
+    return {b["step"]: b["loss"] for b in beats}
+
+
+def phase_train_launcher(torch) -> None:
+    """``python -m repro_torch.launch.train`` with LAUNCHER_ARGS (qwen2-0.5b
+    --full, 6 steps of 4 x 512, a checkpoint every 2 steps) as a user runs
+    it: crashed at step 3 (exit 42, LATEST at step 1), rerun (resumed from
+    step 1, steps 2-5 logged, a final commit at step 5), then 6 steps
+    without a crash or checkpoints.  The resumed run's losses equal the
+    uninterrupted run's within 1e-3 relative (the card's atomics in the
+    embedding backward make bit equality unsafe; the CPU test holds it)."""
+    import os
+    import shutil
+    torch.cuda.empty_cache()
+    ck = ROOT / "build" / "train_launcher"
+    shutil.rmtree(ck, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def launch(*extra):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *LAUNCHER_ARGS, *extra], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        return res, time.perf_counter() - t0
+    try:
+        crashed, crash_s = launch("--ckpt", str(ck), "--ckpt-every", "2",
+                                  "--crash-at", "3")
+        latest_after_crash = (ck / "LATEST").read_text() \
+            if (ck / "LATEST").exists() else None
+        resumed, resume_s = launch("--ckpt", str(ck), "--ckpt-every", "2")
+        latest = (ck / "LATEST").read_text() \
+            if (ck / "LATEST").exists() else None
+        straight, straight_s = launch()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    got, want = _heartbeats(resumed.stdout), _heartbeats(straight.stdout)
+    rel = max((abs(got[s] - want[s]) / abs(want[s]) for s in got
+               if s in want), default=None)
+    out = dict(args=list(LAUNCHER_ARGS), crash_rc=crashed.returncode,
+               latest_after_crash=latest_after_crash,
+               resume_rc=resumed.returncode,
+               resumed=("resumed from step 1" in resumed.stdout),
+               resumed_steps=sorted(got), latest=latest,
+               straight_rc=straight.returncode, losses_resumed=got,
+               losses_straight=want, max_rel_loss_diff=rel,
+               seconds=[crash_s, resume_s, straight_s])
+    emit("train:launcher", **out)
+    require(crashed.returncode == 42 and
+            latest_after_crash == "step_00000001",
+            f"train:launcher: crash run {out} {crashed.stderr[-2000:]}")
+    require(resumed.returncode == 0 and out["resumed"] and
+            sorted(got) == [2, 3, 4, 5] and latest == "step_00000005",
+            f"train:launcher: resumed run {out} {resumed.stderr[-2000:]}")
+    require(straight.returncode == 0 and rel is not None and rel <= 1e-3,
+            f"train:launcher: resumed against uninterrupted {out} "
+            f"{straight.stderr[-2000:]}")
+
+
+def _loss_and_grads(torch, cfg, params, data):
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = T.lm_loss(cfg, params, data["tokens"],
+                     cross_src=data.get("cross_src"))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), grads
+
+
+def phase_train_fp32(torch, arch: str) -> None:
+    """The card against the host in float32 (matmul precision "highest":
+    no TF32): ``arch`` at its published widths cut to TRAIN_FP32_LAYERS
+    layers, the same seeded weights and batch, ``lm_loss`` within 1e-5
+    relative and every gradient leaf within 1e-4 relative L2."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    torch.set_float32_matmul_precision("highest")
+    cfg, reduced = _published(arch, "float32", TRAIN_FP32_LAYERS)
+    batch, seq = TRAIN_FP32_LOAD
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
+    data = _train_batch(torch, cfg, batch, seq, 2, "cpu")
+    t0 = time.perf_counter()
+    want, g_cpu = _loss_and_grads(torch, cfg, p_cpu, data)
+    cpu_s = time.perf_counter() - t0
+    got, g_gpu = _loss_and_grads(
+        torch, cfg, p_gpu, {k: v.cuda() for k, v in data.items()})
+    rels = [_rel_l2(torch, a.cpu(), b) if float(b.norm()) > 0 else
+            float(a.abs().max()) for a, b in zip(g_gpu, g_cpu)]
+    out = dict(arch=arch, batch=batch, seq=seq, layers=cfg.num_layers,
+               reduced=reduced, loss_card=got, loss_host=want,
+               loss_rel=abs(got - want) / abs(want),
+               grad_leaves=len(rels), max_grad_rel_l2=max(rels),
+               host_s=cpu_s)
+    emit(f"train:{arch}:fp32", **out)
+    require(out["loss_rel"] <= 1e-5 and out["max_grad_rel_l2"] <= 1e-4,
+            f"train fp32 {arch}: {out}")
+
+
+def phase_scan_backward_fp64(torch) -> None:
+    """The selective scan's backward alone at hymba-1.5b's widths (d_inner
+    3,200, N 16) at 2 x 128 tokens: float32 on the card against float64
+    on the host, every input's gradient within 1e-4 relative L2."""
+    from repro_torch.models import layers as L
+    b, s, di, n = 2, 128, 3200, 16
+    gen = torch.Generator().manual_seed(3)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, dtype=torch.float64)
+    inputs = [rnd(b, s, di), L.softplus(rnd(b, s, di) - 1.0), rnd(b, s, n),
+              rnd(b, s, n), torch.log(torch.arange(
+                  1, n + 1, dtype=torch.float64)).expand(di, n).clone(),
+              1.0 + 0.1 * rnd(di)]
+    gy, gh = rnd(b, s, di), rnd(b, di, n)
+
+    def grads(dev, dtype):
+        xs = [t.to(dev, dtype).requires_grad_() for t in inputs]
+        y, h = L.selective_scan(*xs)
+        obj = (y * gy.to(dev, dtype)).sum() + (h * gh.to(dev, dtype)).sum()
+        return torch.autograd.grad(obj, xs)
+    want = grads("cpu", torch.float64)
+    got = grads("cuda", torch.float32)
+    rels = [_rel_l2(torch, g.cpu(), w) for g, w in zip(got, want)]
+    emit("train:scan_backward_fp64", batch=b, seq=s, d_inner=di, d_state=n,
+         rel_l2=dict(zip(("xc", "dt", "B", "C", "A_log", "D"), rels)))
+    require(max(rels) <= 1e-4, f"train: scan backward against float64 "
+            f"{rels}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2477,13 +2781,13 @@ def main() -> int:
             phase_ab_sharded(torch, group, *ab_shard)
         finally:
             torch.distributed.destroy_process_group()
-        serving, rag = serving_path(torch, paths)
+        serving, train, rag = serving_path(torch, paths)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     paths = {"search": search, "update": update, "presets": presets,
              "maintenance": maintenance, "sharded": sharded,
-             "serving": serving, "rag": rag}
+             "serving": serving, "train": train, "rag": rag}
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths.values())
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}

@@ -4,9 +4,10 @@ Turns the reference's state objects (``EngineState``, ``GraphStore``,
 ``PQCodec``, ``EntranceGraph``, ``CacheState``, ``IOCounters`` and the
 engine's spec and codec) into the port's, and any state object of either
 package into nested dicts of numpy arrays keyed by the reference's field
-names.  The LM substrate's trees (a parameter tree, a KV cache: nested
-dicts and lists of arrays) go across leaf for leaf (``params_from``,
-``kv_cache_from``; ``to_numpy`` turns either package's tree back).  It
+names.  The LM substrate's trees (a parameter tree, an optimizer state,
+a KV cache: nested dicts and lists of arrays) go across leaf for leaf
+(``params_from``, ``opt_state_from``, ``kv_cache_from``; ``to_numpy``
+turns either package's tree back).  It
 reads the reference's objects only by field name through
 ``np.asarray(getattr(obj, name))``, so tests can hand JAX objects in
 directly while this package imports no JAX.
@@ -29,6 +30,7 @@ from repro_torch.core.iomodel import IOCounters
 from repro_torch.core.layout import GraphStore, page_budget
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import FLOAT32_LEAVES
+from repro_torch.tree import tree_leaves
 
 
 def _a(obj, name: str) -> np.ndarray:
@@ -193,6 +195,34 @@ def params_from(ref_params, device=None, dtype=None) -> dict:
     SSM's constants and the cross gates), which stay float32 in a model of
     any dtype, as in the reference."""
     return _tree_from(ref_params, device, dtype)
+
+
+def opt_state_from(ref_state, params_like, device=None) -> dict:
+    """The reference's optimizer state (``init_opt_state``'s tree of numpy
+    or JAX leaves: AdamW's ``{"m", "v", "count"}``, Adafactor's ``{"f":
+    [...], "count"}``, either under ``{"inner", "grad_err"}`` with gradient
+    compression) as the port's, each leaf in its dtype.  ``params_like``
+    is the port's parameter tree the state belongs to: the moments and
+    the error feedback must have its shapes, and Adafactor's list one
+    entry per parameter leaf (in flattening order)."""
+    state = _tree_from(ref_state, device, None)
+    shapes = [tuple(p.shape) for p in tree_leaves(params_like)]
+
+    def check(tree, what):
+        got = [tuple(t.shape) for t in tree_leaves(tree)]
+        if got != shapes:
+            raise ValueError(f"optimizer state {what}: leaf shapes do not "
+                             "match the parameters'")
+    if "grad_err" in state:
+        check(state["grad_err"], "grad_err")
+    inner = state.get("inner", state)
+    for name in ("m", "v"):
+        if name in inner:
+            check(inner[name], name)
+    if "f" in inner and len(inner["f"]) != len(shapes):
+        raise ValueError(f"Adafactor state holds {len(inner['f'])} leaves, "
+                         f"the parameters {len(shapes)}")
+    return state
 
 
 def kv_cache_from(ref_cache, device=None) -> list:

@@ -1,1 +1,2 @@
-"""Launchers of the LM substrate (port of ``repro/launch``: ``serve``)."""
+"""Launchers of the LM substrate (port of ``repro/launch``: ``serve``,
+``train``)."""

@@ -20,9 +20,8 @@ them, router logits and the SSM state in float32.  Masked logits are
 filled with -1e30, not -inf.
 
 Not ported yet: the expert-parallel MoE over a mesh
-(``_moe_local_compute_2d``; ROADMAP.md queue 1 item 5.5) and the backward
-of the selective scan (the reference's custom VJP of ``linear_scan``;
-item 5.4, training).  Both raise ``NotImplementedError``.
+(``_moe_local_compute_2d``; ROADMAP.md queue 1 item 5.5), which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -441,8 +440,98 @@ def _ssm_params(params: dict, xc: torch.Tensor, *, d_state: int):
     return dt, Bc, Cc
 
 
+def _scan_dtype(xc: torch.Tensor, dt: torch.Tensor) -> torch.dtype:
+    """The scan's arithmetic dtype: float32, or float64 for float64
+    inputs (``gradcheck``)."""
+    return torch.promote_types(torch.promote_types(xc.dtype, dt.dtype),
+                               torch.float32)
+
+
+def _chunk_terms(xc, dt, Bc, A, sl: slice, ct: torch.dtype):
+    """One chunk's ``dA = exp(dt A)`` and ``dBx = dt x B``, each [B, c,
+    di, N] in ``ct``."""
+    dtc = dt[:, sl]
+    dA = (dtc.to(ct)[..., None] * A).exp_()
+    dBx = (dtc * xc[:, sl]).to(ct)[..., None] * Bc[:, sl].to(ct)[..., None, :]
+    return dA, dBx
+
+
+def _scan_forward(xc, dt, Bc, Cc, A_log, chunk: int, starts=None):
+    """The recurrence, chunk by chunk: (y [B, S, di] in xc's dtype, h_last
+    [B, di, N]); ``starts``, where given, receives each chunk's starting
+    state."""
+    B, S, di = xc.shape
+    ct = _scan_dtype(xc, dt)
+    A = -torch.exp(A_log.to(ct))                             # [di, N]
+    h = torch.zeros((B, di, A.shape[1]), dtype=ct, device=xc.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        if starts is not None:
+            starts.append(h.clone())
+        dA, hs = _chunk_terms(xc, dt, Bc, A, sl, ct)         # dt x B, then h
+        for t in range(hs.shape[1]):
+            h = hs[:, t].addcmul_(dA[:, t], h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs,
+                               Cc[:, sl].to(ct)).to(xc.dtype))
+    return torch.cat(ys, dim=1), h.contiguous()
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The scan with the reference's backward: its forward keeps only the
+    inputs and each chunk's starting state [B, di, N] (what the
+    reference's checkpointed ``chunk_body`` keeps); its backward takes the
+    chunks in reverse, recomputes ``dA``, ``dBx`` and the states ``h``,
+    runs the reversed recurrence of ``linear_scan``'s custom VJP
+    (``g[t] = a[t+1] g[t+1] + dh[t]``, ``da = g h_prev``, ``db = g``,
+    ``dh0 = a[0] g[0]``, carried into the chunk before) and chains it
+    through ``exp(dt A)``, ``dt x B`` and the ``C`` contraction."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, Bc, Cc, A_log, chunk):
+        starts: list = []
+        y, h = _scan_forward(xc, dt, Bc, Cc, A_log, chunk, starts)
+        ctx.save_for_backward(xc, dt, Bc, Cc, A_log, *starts)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        xc, dt, Bc, Cc, A_log, *starts = ctx.saved_tensors
+        chunk = ctx.chunk
+        ct = _scan_dtype(xc, dt)
+        A = -torch.exp(A_log.to(ct))
+        gxc, gdt, gB, gC = (torch.empty_like(t) for t in (xc, dt, Bc, Cc))
+        gA = torch.zeros_like(A)
+        carry = gh.to(ct)                       # dL/dh of the chunk's end
+        for k in reversed(range(len(starts))):
+            sl = slice(k * chunk, (k + 1) * chunk)
+            dA, hs = _chunk_terms(xc, dt, Bc, A, sl, ct)
+            h = starts[k]
+            for t in range(hs.shape[1]):
+                h = hs[:, t].addcmul_(dA[:, t], h)
+            Cb, gyb = Cc[:, sl].to(ct), gy[:, sl].to(ct)
+            gC[:, sl] = torch.einsum("bcd,bcdn->bcn", gyb, hs)
+            g = gyb[..., None] * Cb[:, :, None, :]               # dy/dh
+            g[:, -1] += carry
+            for t in range(g.shape[1] - 2, -1, -1):
+                g[:, t].addcmul_(dA[:, t + 1], g[:, t + 1])
+            carry = dA[:, 0] * g[:, 0]
+            h_prev = torch.cat([starts[k][:, None], hs[:, :-1]], dim=1)
+            gz = (g * h_prev).mul_(dA)                  # d(dt A)
+            dtb = dt[:, sl].to(ct)
+            gdt_b = torch.einsum("bcdn,dn->bcd", gz, A)
+            gA += torch.einsum("bcdn,bcd->dn", gz, dtb)
+            gdtx = torch.einsum("bcdn,bcn->bcd", g, Bc[:, sl].to(ct))
+            gB[:, sl] = torch.einsum("bcdn,bcd->bcn", g,
+                                     (dt[:, sl] * xc[:, sl]).to(ct))
+            gdt[:, sl] = gdt_b + gdtx * xc[:, sl].to(ct)
+            gxc[:, sl] = gdtx * dtb
+        return gxc, gdt, gB, gC, (gA * A).to(A_log.dtype), None
+
+
 def selective_scan(xc, dt, Bc, Cc, A_log, D_skip, *, chunk: int = SCAN_CHUNK):
-    """Selective state-space scan (Mamba-1), forward only.
+    """Selective state-space scan (Mamba-1).
 
     xc, dt: [B, S, di]; Bc, Cc: [B, S, N]; A_log: [di, N].  Returns (y
     [B, S, di] in xc's dtype, h_last [B, di, N] float32).
@@ -454,29 +543,15 @@ def selective_scan(xc, dt, Bc, Cc, A_log, D_skip, *, chunk: int = SCAN_CHUNK):
     rounding.  Only ``chunk`` steps' ``[B, chunk, di, N]`` terms are held
     at once (the reference's chunk of 512 would hold 8.6 GB per term at
     falcon-mamba's 32 x 512).  y is cast to xc's dtype before the skip term
-    ``(xc * D)`` is added in that dtype."""
+    ``(xc * D)`` is added in that dtype.  Where a gradient is wanted the
+    scan runs as ``_SelectiveScan``, whose backward is the reference's;
+    otherwise (serving) as the plain loop."""
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xc, dt, Bc, Cc, A_log, D_skip)):
-        raise NotImplementedError(
-            "the backward of selective_scan (the reference's custom VJP of "
-            "linear_scan) is not ported yet (ROADMAP.md queue 1 item 5.4, "
-            "training)")
-    B, S, di = xc.shape
-    A = -torch.exp(A_log.float())                            # [di, N]
-    h = torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
-                    device=xc.device)
-    ys = []
-    for c0 in range(0, S, chunk):
-        dtc = dt[:, c0:c0 + chunk]
-        dA = (dtc.float()[..., None] * A).exp_()             # [B, c, di, N]
-        hs = (dtc * xc[:, c0:c0 + chunk]).float()[..., None] * \
-            Bc[:, c0:c0 + chunk].float()[..., None, :]       # dt x B, then h
-        for t in range(hs.shape[1]):
-            h = hs[:, t].addcmul_(dA[:, t], h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs,
-                               Cc[:, c0:c0 + chunk].float()).to(xc.dtype))
-    y = torch.cat(ys, dim=1)
-    return y + (xc * D_skip).to(xc.dtype), h.contiguous()
+            t.requires_grad for t in (xc, dt, Bc, Cc, A_log)):
+        y, h = _SelectiveScan.apply(xc, dt, Bc, Cc, A_log, chunk)
+    else:
+        y, h = _scan_forward(xc, dt, Bc, Cc, A_log, chunk)
+    return y + (xc * D_skip).to(xc.dtype), h
 
 
 def mamba_mixer(params: dict, x: torch.Tensor, *, d_state: int

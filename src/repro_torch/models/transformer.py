@@ -1,5 +1,6 @@
 """The transformer / SSM model of every assigned architecture: parameters,
-forward, prefill and decode (port of ``repro/models/transformer.py``).
+forward, the training loss, prefill and decode (port of
+``repro/models/transformer.py``).
 
 A model is a sequence of :class:`Pattern` groups, each ``repeats`` copies
 of a stage list (gemma3 = 4×[5 local, 1 global] + [2 local]).  The stage
@@ -12,8 +13,13 @@ MoE beside a dense MLP (arctic).
 
 The parameter tree is the reference's, leaf for leaf: every stage leaf is
 stacked ``[repeats, count, ...]``, so ``interop.params_from`` maps the
-reference's tree across and the layer loops index ``[r, c]``.  Where the
-reference scans over repeats and layers, the port loops in Python.  Decode
+reference's tree across.  Where the reference scans over repeats and
+layers, the port loops in Python: prefill and decode index each layer
+``[r, c]``; ``forward`` (the training path) unbinds each stack once, and
+under autograd recomputes each layer in the backward (``remat``), as the
+reference's ``nothing_saveable`` checkpoint does.  ``lm_loss`` is the
+next-token cross-entropy in chunks of positions, each chunk's logits
+recomputed in the backward.  Decode
 caches are stacked the same way: ``k`` / ``v`` ``[repeats, count, B,
 slen, KV, hd]`` with ``slen = min(window, max_seq)``, ``xk`` / ``xv``
 ``[..., B, cross_len, KV, hd]``, ``conv`` ``[..., B, K-1, d_inner]`` and
@@ -29,17 +35,20 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import (ModelConfig, Pattern, StageSpec,
                                        uniform_pattern)
+from repro_torch.tree import tree_leaves
 
 __all__ = [
     "ModelConfig", "Pattern", "StageSpec", "uniform_pattern", "Transformer",
     "FLOAT32_LEAVES", "init_params", "param_shapes", "param_count",
     "active_param_count", "encode", "forward", "logits_from_hidden",
+    "lm_loss",
     "init_cache", "prefill_step", "decode_step",
 ]
 
@@ -221,19 +230,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return _build_params(cfg, "shape")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def param_count(cfg: ModelConfig) -> int:
-    return sum(t.numel() for t in _leaves(param_shapes(cfg)))
+    return sum(t.numel() for t in tree_leaves(param_shapes(cfg)))
 
 
 def active_param_count(cfg: ModelConfig) -> int:
@@ -359,11 +357,39 @@ def _layers(patterns):
                     yield spec, pi, j, r, c
 
 
+def _unstack(stage: dict, repeats: int, count: int) -> list:
+    """Every layer ``[r][c]`` of a stacked stage tree, from one
+    ``torch.unbind`` over each stack axis of each leaf (views).  Under
+    autograd the unbind's backward stacks the layers' gradients in one op,
+    where indexing each layer would add a zero tensor the size of the
+    whole stack per layer."""
+    flat = {k: _unstack(v, repeats, count) if isinstance(v, dict) else
+            [t.unbind(0) for t in v.unbind(0)] for k, v in stage.items()}
+    return [[{k: v[r][c] for k, v in flat.items()} for c in range(count)]
+            for r in range(repeats)]
+
+
 def _run_patterns(cfg: ModelConfig, patterns, blocks, x: torch.Tensor, *,
-                  positions: torch.Tensor, cross_src=None) -> torch.Tensor:
+                  positions: torch.Tensor, cross_src=None,
+                  remat: bool = True) -> torch.Tensor:
+    """The layers in scan order.  Under autograd with ``remat``, each
+    layer is recomputed in the backward from its input (the reference's
+    ``nothing_saveable`` checkpoint), so only the layers' inputs are kept
+    between forward and backward."""
+    remat = remat and torch.is_grad_enabled()
+    layers = [[_unstack(stage, pat.repeats, spec.count)
+               for stage, spec in zip(blocks[pi], pat.stages)]
+              for pi, pat in enumerate(patterns)]
     for spec, pi, j, r, c in _layers(patterns):
-        x = _layer_fwd(cfg, spec, _layer(blocks[pi][j], r, c), x,
-                       positions=positions, cross_src=cross_src)
+        lp = layers[pi][j][r][c]
+        if remat:
+            x = ckpt.checkpoint(_layer_fwd, cfg, spec, lp, x,
+                                positions=positions, cross_src=cross_src,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x = _layer_fwd(cfg, spec, lp, x, positions=positions,
+                           cross_src=cross_src)
     return x
 
 
@@ -405,20 +431,60 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            cross_src: torch.Tensor | None = None) -> torch.Tensor:
+            cross_src: torch.Tensor | None = None,
+            remat: bool = True) -> torch.Tensor:
     """Full-sequence forward -> final hidden states [B, S, D].
-    ``cross_src``: whisper's frames or llama-vision's patches [B, Se, D]."""
+    ``cross_src``: whisper's frames or llama-vision's patches [B, Se, D].
+    ``remat``: under autograd, recompute each decoder layer in the
+    backward (the encoder's always are, as in the reference)."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     x = _run_patterns(cfg, cfg.patterns, params["blocks"], x,
                       positions=positions,
-                      cross_src=_cross_source(cfg, params, cross_src))
+                      cross_src=_cross_source(cfg, params, cross_src),
+                      remat=remat)
     return _norm(params["final_norm"], x, cfg)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict, x: torch.Tensor
                        ) -> torch.Tensor:
     return L.lm_logits(params, x, tied=cfg.tie_embeddings)
+
+
+def _chunk_loss(hb: torch.Tensor, tb: torch.Tensor, w: torch.Tensor
+                ) -> torch.Tensor:
+    """The summed cross-entropy of one chunk: float32 logits of the
+    product in the activation dtype, ``logsumexp`` minus the target logit
+    (a gather, equal to the reference's one-hot contraction)."""
+    logits = (hb @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, tb[..., None])[..., 0]
+    return torch.sum(lse - tgt)
+
+
+def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            cross_src: torch.Tensor | None = None, loss_chunk: int = 1024
+            ) -> torch.Tensor:
+    """Next-token cross-entropy (float32 scalar), the mean over ``B * (S -
+    1)`` positions, computed ``loss_chunk`` positions at a time so the
+    [B, S, V] float32 logits never exist whole.  Under autograd each
+    chunk's logits are recomputed in the backward (the reference's
+    ``@jax.checkpoint``), as is each layer (``forward``'s ``remat``)."""
+    hidden = forward(cfg, params, tokens, cross_src=cross_src)
+    h = hidden[:, :-1]
+    targets = tokens[:, 1:].long()
+    B, S, _ = h.shape
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, loss_chunk):
+        args = (h[:, c0:c0 + loss_chunk], targets[:, c0:c0 + loss_chunk], w)
+        if torch.is_grad_enabled():
+            total = total + ckpt.checkpoint(_chunk_loss, *args,
+                                            use_reentrant=False,
+                                            preserve_rng_state=False)
+        else:
+            total = total + _chunk_loss(*args)
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------
@@ -669,6 +735,12 @@ class Transformer(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return logits_from_hidden(self.cfg, self.tree(), hidden)
+
+    def loss(self, tokens: torch.Tensor,
+             cross_src: torch.Tensor | None = None,
+             loss_chunk: int = 1024) -> torch.Tensor:
+        return lm_loss(self.cfg, self.tree(), tokens, cross_src=cross_src,
+                       loss_chunk=loss_chunk)
 
     def prefill(self, tokens: torch.Tensor, max_seq: int | None = None,
                 cross_src: torch.Tensor | None = None):

@@ -1,2 +1,2 @@
-"""Serving steps of the LM substrate (port of ``repro/train``; the
-training half waits for ``ROADMAP.md`` queue 1 item 5)."""
+"""Training and serving steps of the LM substrate (port of
+``repro/train``: ``optimizer``, ``train_step``, ``serve_step``)."""

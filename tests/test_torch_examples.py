@@ -2,8 +2,9 @@
 small corpus: it builds, searches, inserts and finds an inserted vector.
 ``rag_serving_torch.py`` at the smoke configuration: its embeddings equal
 the reference example's with the same weights, and its retrieval's
-recall@5 is the reference engine's.  Without a card and without
-``--device cpu`` each stops."""
+recall@5 is the reference engine's.  ``train_lm_torch.py`` at 3 steps of
+2 x 32 tokens: its printed lines, then a resume from a checkpoint at
+step 1.  Without a card and without ``--device cpu`` each stops."""
 import importlib.util
 from pathlib import Path
 
@@ -35,6 +36,11 @@ def rag():
     return _load("rag_serving_torch")
 
 
+@pytest.fixture(scope="module")
+def train_lm():
+    return _load("train_lm_torch")
+
+
 def test_quickstart_torch_runs_on_cpu(quickstart, capsys):
     recall, nearest, first_new = quickstart.main(["--device", "cpu",
                                                   "--n", "400"])
@@ -63,6 +69,48 @@ def test_rag_serving_torch_needs_a_card_by_default(rag):
         pytest.skip("a card is present: the default run would use it")
     with pytest.raises(SystemExit, match="no CUDA device"):
         rag.main([])
+
+
+def test_train_lm_torch_runs_and_resumes_on_cpu(train_lm, tmp_path, capsys):
+    """Three steps print the parameter count, the JSON lines of steps 0
+    and 2 (its logging cadence: every 25th and the last) and the time; a
+    checkpoint at step 1 in the reference's layout (the example's own
+    params and AdamW state, as a run of 100 steps would commit them) is
+    resumed, and step 2 runs from it."""
+    import json
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import init_opt_state
+
+    args = ["--steps", "3", "--batch", "2", "--seq", "32", "--ckpt",
+            str(tmp_path), "--device", "cpu"]
+    assert train_lm.main(args) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "params: 40.5M"
+    beats = [json.loads(ln) for ln in lines[1:-1]]
+    assert [b["step"] for b in beats] == [0, 2]
+    assert all(np.isfinite(b["loss"]) and b["tok_per_s"] > 0
+               for b in beats)
+    assert lines[-1].startswith("done in ")
+    assert ckpt.latest_step(tmp_path) is None     # no commit before 100
+
+    cfg = train_lm.CFG_100M
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = init_opt_state(cfg, adamw(state_dtype="float32"), params)
+    ckpt.save(tmp_path, 1, {"params": params, "opt": state})
+    assert train_lm.main(args) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[1] == "resumed from step 1"
+    assert [json.loads(ln)["step"] for ln in lines[2:-1]] == [2]
+
+
+def test_train_lm_torch_needs_a_card_by_default(train_lm):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default run would use it")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        train_lm.main([])
 
 
 def test_rag_serving_torch_matches_reference(rag):

@@ -83,14 +83,16 @@ def test_selective_scan(chunk):
 
 
 def test_selective_scan_backward_raises():
-    """Training through the scan (the reference's custom VJP of
-    ``linear_scan``) waits for ROADMAP item 5.4."""
+    """Training through the scan no longer raises (ROADMAP item 5.4 ported
+    its backward): a gradient is wanted and every input gets a finite one
+    (``test_torch_train.py`` holds them against the reference's)."""
     _, tw = _params(7)
     _, tx = _x(8, B, 4, DI)
     _, tb = _x(9, B, 4, N)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5.4"):
-        PL.selective_scan(tx.requires_grad_(), tx.abs(), tb, tb,
-                          tw["A_log"], tw["D"])
+    xc = tx.requires_grad_()
+    y, h = PL.selective_scan(xc, tx.abs(), tb, tb, tw["A_log"], tw["D"])
+    (g,) = torch.autograd.grad(y.sum() + h.sum(), xc)
+    assert g.shape == xc.shape and bool(torch.isfinite(g).all())
 
 
 def test_mamba_mixer():
