@@ -8,7 +8,7 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives seven paths, each with the launch counts
+main path's shapes, then drives eight paths, each with the launch counts
 set to 0 just before it and read just after:
 
 - search: builds and searches a small index (the test suite's
@@ -27,7 +27,7 @@ set to 0 just before it and read just after:
   from the free list and a profiled repair step;
 - sharded (``core/distributed.py``, all shards on the one card, the
   merge's gather through a one-rank NCCL group): the reference test's
-  8 shards of 128, and half the FineWeb-like corpus in 8 shards of 6,250
+  8 shards of 128, and half the FineWeb-like corpus in 8 shards of 3,125
   with a global codec: sharded search waves and a routed insert wave;
 - serving (the LM substrate, ``repro_torch.launch.serve``): qwen2-0.5b at
   its published width (24 x 896, vocab 151,936, bf16, seeded random
@@ -38,17 +38,26 @@ set to 0 just before it and read just after:
   (``SERVE_MODELS``: the MoE moonshot-v1-16b-a3b whole, 56.1 GB;
   falcon-mamba-7b, hymba-1.5b and whisper-medium whole;
   llama-3.2-vision-90b at one period of its pattern and arctic-480b at one
-  layer) at the launcher's load and a larger one, and a float32 run
+  layer) at the launcher's load (llama-vision and hymba also a larger
+  one), and a float32 run
   against the host of each new layer kind at 2 layers;
 - train (``repro_torch.train``, ``launch/train.py``, ``checkpoint/``):
   8 AdamW steps (bf16) of qwen2-0.5b at its published width at 8 x 256
-  and 4 x 4,096 tokens, hymba-1.5b whole at 4 x 1,024 and whisper-medium
+  and 4 x 4,096 tokens, hymba-1.5b whole at 4 x 512 and whisper-medium
   whole at 4 x 448 (frames from the seed), each with its step time,
   tokens/s against the model FLOPs' bound, peak memory, launches and
   idle share; the launcher as a subprocess (crash at step 3, resume
   from its checkpoint, against a run without the crash); float32 loss
   and gradients against the host at 2 layers, and the scan's backward
-  against float64; then RAG (``examples/rag_serving_torch.py``): the LM
+  against float64;
+- mesh (``launch/mesh.py``, the expert-parallel MoE, ``launch/dryrun.py``):
+  moonshot-v1-16b-a3b whole served at 4 x 64 + 32 through a 1 x 1 mesh on
+  a one-rank NCCL group (prefill all-gathering the experts, decode keeping
+  them 2-D sharded), equal bit for bit to the serve with no mesh under
+  deterministic algorithms and in float32 at 2 layers within 1e-5, with
+  the collectives of a prefill and a decode step; then the dry-run's
+  memory model over the 33 cells on both production meshes, on the host;
+  then RAG (``examples/rag_serving_torch.py``): the LM
   embeds 512 documents, the navis index is built over them on the card
   and a wave of 256 embedded queries retrieves from it (its counts are
   read apart, as ``rag``).
@@ -58,8 +67,8 @@ and ``casr_rerank`` (once per search or insert wave) and neither rerank
 entry; the presets path all of those and ``rerank_l2_rows`` (the full
 rerank and the buffer scan); the maintenance path as the search path,
 and a pass itself launches no rerank kernel; the sharded path as the
-search path, ``casr_rerank`` once per shard and wave; the serving and
-training paths none of the port's kernels (their products are
+search path, ``casr_rerank`` once per shard and wave; the serving,
+training and mesh paths none of the port's kernels (their products are
 ``torch.matmul``), and the RAG wave as the search path.  ``rerank_l2``
 runs on no path (the kernel phase holds it).  After each engine path
 one search wave and one insert wave (after the maintenance path, one
@@ -87,16 +96,17 @@ WAVE = 256                  # lanes per kernel check and per query wave
 RERANK_RTOL, RERANK_ATOL = 1e-5, 1e-3
 # The FineWeb-like cell (benchmarks/common.py:38-40, :72-77) keeps its
 # widths and is cut in scale only: N vectors (the paper's corpora hold
-# 60-120M), built in seek waves of FINEWEB_BLOCK vertices instead of the
-# benchmark's 64, which takes 8x as many host-bound waves per pass
-# (tools/build_block_cut.py times both).
-FINEWEB_N = 100_000
+# 60-120M; 50,000, not 100,000, so that the whole smoke stays well inside
+# its time limit on a slow host), built in seek waves of FINEWEB_BLOCK
+# vertices instead of the benchmark's 64, which takes 8x as many
+# host-bound waves per pass (tools/build_block_cut.py times both).
+FINEWEB_N = 50_000
 FINEWEB_BLOCK = 512
 # The sharded path: the first SHARDS x SHARD_N vectors of the FineWeb-like
 # corpus range-sharded into SHARDS shards of SHARD_N, each with
 # SHARD_HEADROOM slots for inserts, all on the one card.  Cut to half the
-# single engine's N (8 x 6,250, not 8 x 12,500) so that the whole smoke,
-# with the training path, stays inside its time limit.
+# single engine's N (8 x 3,125) so that the whole smoke, with the
+# training path, stays inside its time limit.
 SHARDS = 8
 SHARD_N = FINEWEB_N // SHARDS // 2
 SHARD_HEADROOM = 1_200
@@ -119,18 +129,19 @@ RAG_QUERIES = 256
 # loads): depth is cut only where the weights exceed the card,
 # llama-3.2-vision-90b to one period of its pattern (4 attn + 1 cross
 # layers; 175 GB in bf16 whole) and arctic-480b to 1 of its 35 layers
-# (954 GB whole).  The loads are the launcher's 4 x 64 + 32 and a larger
-# one under SERVE_MEM_BUDGET: 32 x 512 + 64, but 4 x 512 for llama-vision,
-# whose float32 cross-attention scores over 6,404 patches are [B, 64, S,
-# 6404] (26.9 GB at 32 x 512); hymba adds 2 x 1,536 + 32, past its
-# 1,024-slot rings in prefill and in decode.
+# (954 GB whole).  The loads are the launcher's 4 x 64 + 32; llama-vision
+# adds 4 x 512 + 64 (its float32 cross-attention scores over 6,404
+# patches are [B, 64, S, 6404]) and hymba 2 x 1,536 + 32, past its
+# 1,024-slot rings in prefill and in decode.  Their larger load of 32 x
+# 512 + 64 was cut to keep the whole smoke under 900 s (qwen2-0.5b keeps
+# it, SERVE_LOADS).
 SERVE_MODELS = (
-    ("moonshot-v1-16b-a3b", None, ((4, 64, 32), (32, 512, 64))),
-    ("falcon-mamba-7b", None, ((4, 64, 32), (32, 512, 64))),
-    ("hymba-1.5b", None, ((4, 64, 32), (32, 512, 64), (2, 1536, 32))),
-    ("whisper-medium", None, ((4, 64, 32), (32, 512, 64))),
+    ("moonshot-v1-16b-a3b", None, ((4, 64, 32),)),
+    ("falcon-mamba-7b", None, ((4, 64, 32),)),
+    ("hymba-1.5b", None, ((4, 64, 32), (2, 1536, 32))),
+    ("whisper-medium", None, ((4, 64, 32),)),
     ("llama-3.2-vision-90b", 5, ((4, 64, 32), (4, 512, 64))),
-    ("arctic-480b", 1, ((4, 64, 32), (32, 512, 64))),
+    ("arctic-480b", 1, ((4, 64, 32),)),
 )
 PUBLISHED_PARAMS = {
     "qwen2-0.5b": 494_032_768,
@@ -155,19 +166,32 @@ CROSS_GATES = (0.7, -0.4)
 # hymba-1.5b (the scan's backward, the hybrid fuse, the windowed layers
 # under autograd) and whisper-medium (the encoder and cross-attention
 # backward; frames [B, 1500, 1024] from the seed).  The launcher runs
-# LAUNCHER_ARGS as a subprocess (crash at step 3, resume, and a run
-# without the crash); TRAIN_FP32 holds float32 on the card against the
+# LAUNCHER_ARGS as a subprocess (4 steps: crash at step 3, resume, and a
+# run without the crash; cut from 6 steps to keep the whole smoke under
+# 900 s); TRAIN_FP32 holds float32 on the card against the
 # host, each arch cut to TRAIN_FP32_LAYERS layers, at TRAIN_FP32_LOAD.
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_STEPS = 8
 TRAIN_LOADS = ((8, 256), (4, 4096))
-TRAIN_MODELS = (("hymba-1.5b", (4, 1024)), ("whisper-medium", (4, 448)))
-LAUNCHER_ARGS = ("--arch", TRAIN_ARCH, "--full", "--steps", "6", "--batch",
+TRAIN_MODELS = (("hymba-1.5b", (4, 512)), ("whisper-medium", (4, 448)))
+LAUNCHER_ARGS = ("--arch", TRAIN_ARCH, "--full", "--steps", "4", "--batch",
                  "4", "--seq", "512", "--log-every", "1")
 TRAIN_FP32 = ("qwen2-0.5b", "hymba-1.5b")
 TRAIN_FP32_LAYERS = 2
 TRAIN_FP32_LOAD = (2, 128)
 PEAK_BF16_S = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
+# The mesh path (launch/mesh.py, the expert-parallel MoE, launch/dryrun.py):
+# MESH_ARCH whole at its published widths (bf16, serving's seed) served at
+# MESH_LOAD through a 1 x 1 mesh on a one-rank NCCL group, against the same
+# serve with no mesh (bit for bit under deterministic algorithms; in
+# float32 at MESH_FP32_LAYERS layers within MESH_FP32_TOL); then the
+# dry-run's memory model over every cell on both production meshes
+# (DRYRUN_CELLS files), on the host.
+MESH_ARCH = "moonshot-v1-16b-a3b"
+MESH_LOAD = (4, 64, 32)
+MESH_FP32_LAYERS = 2
+MESH_FP32_TOL = 1e-5
+DRYRUN_CELLS = 66
 
 KERNELS = {
     "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
@@ -211,6 +235,9 @@ PATH_KERNELS = {
     # ... nor does training (its backward and optimizer are plain torch
     # too) ...
     "train": ((), tuple(KERNELS)),
+    # ... nor does the mesh (its collectives are NCCL's, its products
+    # torch.matmul) ...
+    "mesh": ((), tuple(KERNELS)),
     # ... and the RAG wave runs the navis search
     "rag": (("pool_merge", "adc_distance", "casr_rerank"),
             ("rerank_l2", "rerank_l2_rows")),
@@ -1628,10 +1655,10 @@ def phase_ab_maintenance(torch, eng, state, stats_k, st_k) -> None:
 # the sharded path
 # ---------------------------------------------------------------------------
 
-def _init_group(torch):
+def _init_group(torch, label: str = "sharded"):
     """A one-rank NCCL group through a ``file://`` store under ``build/``,
-    so the sharded merge's gather runs through NCCL on the card.  Without
-    NCCL the run fails."""
+    so the sharded merge's gather (and the mesh's collectives) run through
+    NCCL on the card.  Without NCCL the run fails."""
     import os
     import torch.distributed as dist
     store = ROOT / "build" / f"nccl_store_{os.getpid()}"
@@ -1642,8 +1669,8 @@ def _init_group(torch):
         dist.init_process_group("nccl", init_method=f"file://{store}",
                                 world_size=1, rank=0)
     except RuntimeError as exc:
-        raise SmokeFailure(f"sharded: NCCL did not initialize: {exc}")
-    emit("sharded:group", backend=dist.get_backend(), world_size=1,
+        raise SmokeFailure(f"{label}: NCCL did not initialize: {exc}")
+    emit(f"{label}:group", backend=dist.get_backend(), world_size=1,
          store=str(store.relative_to(ROOT)))
     return dist.group.WORLD
 
@@ -1976,12 +2003,13 @@ class Paths:
         return counts
 
 
-def serving_path(torch, paths: Paths) -> tuple[dict, dict, dict]:
+def serving_path(torch, paths: Paths) -> dict:
     """The LMs alone (their counts read as ``serving``): qwen2-0.5b, then
     the other architectures of SERVE_MODELS and the float32 checks of
     FP32_MODELS; then training (read as ``train``, ``train_path``); then
-    RAG, where qwen2-0.5b embeds and the navis engine retrieves (read as
-    ``rag``)."""
+    the mesh (read as ``mesh``, ``mesh_path``); then RAG, where qwen2-0.5b
+    embeds and the navis engine retrieves (read as ``rag``).  Returns each
+    path's counts by name."""
     paths.start("serving")
     cfg, params = phase_serving(torch)
     params32 = phase_serving_fp32(torch)
@@ -1993,11 +2021,13 @@ def serving_path(torch, paths: Paths) -> tuple[dict, dict, dict]:
     for arch in FP32_MODELS:
         phase_serving_fp32(torch, arch, FP32_LAYERS)
         torch.cuda.empty_cache()
-    serving = paths.end("serving")
-    train = train_path(torch, paths)
+    counts = {"serving": paths.end("serving")}
+    counts["train"] = train_path(torch, paths)
+    counts["mesh"] = mesh_path(torch, paths)
     paths.start("rag")
     phase_serving_rag(torch, cfg, params)
-    return serving, train, paths.end("rag")
+    counts["rag"] = paths.end("rag")
+    return counts
 
 
 def _serve_cfg(dtype: str = "bfloat16"):
@@ -2482,6 +2512,203 @@ def train_path(torch, paths: Paths) -> dict:
     return paths.end("train")
 
 
+# ---------------------------------------------------------------------------
+# the mesh path: the expert-parallel MoE through a one-rank NCCL mesh, and
+# the dry-run's memory model
+# ---------------------------------------------------------------------------
+
+def mesh_path(torch, paths: Paths) -> dict:
+    """``launch/mesh.py`` on the card (its counts read as ``mesh``):
+    MESH_ARCH served through a 1 x 1 mesh on a one-rank NCCL group (torn
+    down after), then the dry-run over every cell."""
+    _init_group(torch, "mesh")
+    try:
+        paths.start("mesh")
+        phase_mesh_serve(torch)
+        phase_mesh_dryrun(torch)
+        return paths.end("mesh")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _mesh_steps(torch, cfg, params, mesh, load) -> dict:
+    """One prefill and one decode step at ``load`` through ``mesh``: the
+    collectives each issues (calls, and the bytes handed to them, from the
+    mesh's own counts), and a profiled decode step with and without the
+    mesh (device busy share, launches)."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import transformer as T
+    from repro_torch.train.serve_step import make_decode_step, \
+        make_prefill_step
+    batch, prompt, gen = load
+    rules_p = M.make_rules(mesh, kind="prefill", global_batch=batch,
+                           cfg=cfg)
+    rules_d = M.make_rules(mesh, kind="decode", global_batch=batch, cfg=cfg)
+    held = M.shard_tree(params, M.ep_specs(T.param_specs(cfg)), mesh)
+    tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
+    out = {}
+    mesh.stats.update(calls=0, bytes=0)
+    logits, cache = make_prefill_step(cfg, rules=rules_p, mesh=mesh,
+                                      max_seq=prompt + gen)(held, tokens)
+    out["prefill"] = dict(mesh.stats)
+    cur = logits.argmax(-1)[:, None].int()
+    decode = make_decode_step(cfg, rules=rules_d, mesh=mesh)
+    mesh.stats.update(calls=0, bytes=0)
+    decode(held, cache, cur, prompt)
+    out["decode_step"] = dict(mesh.stats)
+    out["profile_decode_step_mesh"] = profile_window(
+        torch, lambda: decode(held, cache, cur, prompt + 1))
+    plain = make_decode_step(cfg)
+    out["profile_decode_step_no_mesh"] = profile_window(
+        torch, lambda: plain(params, cache, cur, prompt + 1))
+    return out
+
+
+def _serve_pair(torch, serve, cfg, mesh, kw, gen: int) -> dict:
+    """``serve`` with no mesh and through ``mesh``, each after a warm-up
+    (2 decode steps): times, the memory each adds to what is live, the
+    collectives' counts, and the results (``res``)."""
+    runs = {}
+    batch, prompt = kw["batch"], kw["prompt_len"]
+    for name, m in (("no_mesh", None), ("mesh", mesh)):
+        serve(cfg, gen=2, mesh=m, **kw)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        mesh.stats.update(calls=0, bytes=0)
+        res = serve(cfg, gen=gen, mesh=m, **kw)
+        runs[name] = dict(
+            res=res, prefill_s=res["prefill_s"],
+            prefill_tokens_s=batch * prompt / res["prefill_s"],
+            decode_ms_per_step=res["decode_s"] / gen * 1e3,
+            serve_peak_bytes=torch.cuda.max_memory_allocated() - live,
+            collective_calls=mesh.stats["calls"],
+            collective_bytes=mesh.stats["bytes"])
+    return runs
+
+
+def _same(a, b) -> dict:
+    """Greedy tokens equal, final logits bit-equal, and their largest
+    difference, of two serves."""
+    return dict(tokens_equal=bool(a["tokens"].equal(b["tokens"])),
+                logits_bit_equal=bool(a["logits"].equal(b["logits"])),
+                logits_max_abs_diff=float(
+                    (a["logits"] - b["logits"]).abs().max()))
+
+
+def phase_mesh_serve(torch) -> None:
+    """MESH_ARCH at its published widths and depth (bf16, serving's seed)
+    served at MESH_LOAD by ``launch.serve.serve`` with no mesh and through
+    ``make_smoke_mesh()`` (prefill in the gather regime, decode in the 2-D
+    one, every collective through a one-rank NCCL group).
+
+    A 1 x 1 mesh changes no arithmetic, but on the card the MoE's combine
+    (``index_add_``, ``layers._combine``) adds each token's k expert
+    outputs with atomics, in an order that changes from run to run, so
+    in bf16 even two serves with no mesh differ (printed, with the
+    mesh's difference).  Gated: under ``torch.use_deterministic_algorithms``
+    (a sorted, ordered ``index_add_``) the two serves' greedy tokens are
+    equal and their final logits bit-equal; and in float32 at
+    MESH_FP32_LAYERS layers, in the default (atomic) mode, the logits
+    within MESH_FP32_TOL.  Printed: both serves' times, the memory each
+    adds, and the collectives and a profile of a prefill and a decode
+    step."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    cfg, reduced = _published(MESH_ARCH)
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    mesh = M.make_smoke_mesh()
+    batch, prompt, gen = MESH_LOAD
+    kw = dict(batch=batch, prompt_len=prompt, seed=0, device="cuda",
+              params=params)
+    runs = _serve_pair(torch, serve, cfg, mesh, kw, gen)
+    again = serve(cfg, gen=gen, **kw)
+    atomic = dict(mesh_vs_no_mesh=_same(runs["mesh"]["res"],
+                                        runs["no_mesh"]["res"]),
+                  no_mesh_vs_no_mesh=_same(again, runs["no_mesh"]["res"]))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ordered = _same(serve(cfg, gen=gen, mesh=mesh, **kw),
+                        serve(cfg, gen=gen, **kw))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps = _mesh_steps(torch, cfg, params, mesh, MESH_LOAD)
+    sample = runs["mesh"]["res"]["tokens"][0, :8].tolist()
+    for r in runs.values():
+        del r["res"]
+    del params
+    torch.cuda.empty_cache()
+    fp32 = _mesh_fp32(torch, mesh)
+    emit(f"mesh:{MESH_ARCH}", mesh=mesh.shape, backend="nccl",
+         layers=cfg.num_layers, reduced=reduced, dtype=str(cfg.dtype),
+         batch=batch, prompt_len=prompt, decode_steps=gen, runs=runs,
+         bf16_atomic=atomic, bf16_deterministic=ordered, fp32=fp32,
+         collectives=steps,
+         mesh_adds_bytes=(runs["mesh"]["serve_peak_bytes"] -
+                          runs["no_mesh"]["serve_peak_bytes"]),
+         sample=sample)
+    require(runs["no_mesh"]["collective_calls"] == 0 and
+            runs["mesh"]["collective_calls"] > 0 and
+            steps["decode_step"]["calls"] > 0,
+            f"mesh: collectives {runs} {steps}")
+    require(ordered["tokens_equal"] and ordered["logits_bit_equal"],
+            f"mesh: deterministic bf16 serves differ {ordered}")
+    require(fp32["tokens_equal"] and
+            fp32["logits_max_abs_diff"] <= MESH_FP32_TOL,
+            f"mesh: float32 serves differ {fp32}")
+
+
+def _mesh_fp32(torch, mesh) -> dict:
+    """MESH_ARCH in float32 cut to MESH_FP32_LAYERS layers, served with no
+    mesh and through ``mesh`` (the default, atomic ``index_add_``)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    cfg, reduced = _published(MESH_ARCH, "float32", MESH_FP32_LAYERS)
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch, prompt, gen = MESH_LOAD
+    kw = dict(batch=batch, prompt_len=prompt, gen=gen, seed=0,
+              device="cuda", params=params)
+    plain, meshed = serve(cfg, **kw), serve(cfg, mesh=mesh, **kw)
+    return dict(layers=cfg.num_layers, reduced=reduced,
+                rel_l2=_rel_l2(torch, meshed["logits"], plain["logits"]),
+                **_same(meshed, plain))
+
+
+def phase_mesh_dryrun(torch) -> None:
+    """``python -m repro_torch.launch.dryrun --all --both-meshes`` on the
+    host (meta tensors over virtual meshes): DRYRUN_CELLS JSON files,
+    each memory model's total finite and positive; the per-device GB of
+    the MoE and vision cells."""
+    import os
+    import shutil
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--out", str(out_dir)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"mesh:dryrun exited {proc.returncode}: {proc.stderr[-2000:]}")
+    files = sorted(out_dir.glob("*.json"))
+    totals = {f.stem: json.loads(f.read_text())["memory_model"]["total"]
+              for f in files}
+    bad = [k for k, v in totals.items() if not (math.isfinite(v) and v > 0)]
+    emit("mesh:dryrun", cells=len(files), seconds=seconds, bad=bad,
+         per_device_gb={k: v / 1e9 for k, v in totals.items()
+                        if k.split("__")[0] in (
+                            "moonshot-v1-16b-a3b", "arctic-480b",
+                            "llama-3.2-vision-90b")})
+    require(len(files) == DRYRUN_CELLS and not bad,
+            f"mesh:dryrun: {len(files)} cells, bad totals {bad}")
+
+
 def _train_flops(cfg, params, batch: int, seq: int) -> float:
     """Model FLOPs of one train step: 6 x parameters x the tokens they
     see (whisper's encoder sees the frames), plus the attention's score
@@ -2597,9 +2824,9 @@ def _heartbeats(stdout: str) -> dict:
 
 def phase_train_launcher(torch) -> None:
     """``python -m repro_torch.launch.train`` with LAUNCHER_ARGS (qwen2-0.5b
-    --full, 6 steps of 4 x 512, a checkpoint every 2 steps) as a user runs
+    --full, 4 steps of 4 x 512, a checkpoint every 2 steps) as a user runs
     it: crashed at step 3 (exit 42, LATEST at step 1), rerun (resumed from
-    step 1, steps 2-5 logged, a final commit at step 5), then 6 steps
+    step 1, steps 2-3 logged, a final commit at step 3), then 4 steps
     without a crash or checkpoints.  The resumed run's losses equal the
     uninterrupted run's within 1e-3 relative (the card's atomics in the
     embedding backward make bit equality unsafe; the CPU test holds it)."""
@@ -2644,7 +2871,7 @@ def phase_train_launcher(torch) -> None:
             latest_after_crash == "step_00000001",
             f"train:launcher: crash run {out} {crashed.stderr[-2000:]}")
     require(resumed.returncode == 0 and out["resumed"] and
-            sorted(got) == [2, 3, 4, 5] and latest == "step_00000005",
+            sorted(got) == [2, 3] and latest == "step_00000003",
             f"train:launcher: resumed run {out} {resumed.stderr[-2000:]}")
     require(straight.returncode == 0 and rel is not None and rel <= 1e-3,
             f"train:launcher: resumed against uninterrupted {out} "
@@ -2781,13 +3008,12 @@ def main() -> int:
             phase_ab_sharded(torch, group, *ab_shard)
         finally:
             torch.distributed.destroy_process_group()
-        serving, train, rag = serving_path(torch, paths)
+        lm = serving_path(torch, paths)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     paths = {"search": search, "update": update, "presets": presets,
-             "maintenance": maintenance, "sharded": sharded,
-             "serving": serving, "train": train, "rag": rag}
+             "maintenance": maintenance, "sharded": sharded, **lm}
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths.values())
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}

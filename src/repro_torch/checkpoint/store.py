@@ -19,8 +19,8 @@ Commit protocol: write into ``step_X.tmp/``, fsync, rename to ``step_X/``,
 then rewrite ``LATEST``: a crash at any point leaves either the previous
 checkpoint or a complete new one (``*.tmp`` dirs are removed by the next
 save).  The reference's elastic remesh (re-placing each leaf under
-another mesh's sharding) has no counterpart until the mesh is ported
-(ROADMAP.md queue 1 item 5.5); ``load`` places the leaves on one device.
+another mesh's sharding) waits for training over a mesh (ROADMAP.md
+queue 1 item 5.7); ``load`` places the leaves on one device.
 """
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
-"""Architecture registry: ``--arch <id>`` resolution (port of
-``repro/configs/__init__.py`` without ``input_specs``, the dry-run's,
-which waits for ``launch/dryrun.py``).
+"""Architecture registry: ``--arch <id>`` resolution and per-cell input
+specs (port of ``repro/configs/__init__.py``).
 
 Every assigned architecture is importable here; ``get_arch`` accepts the
 dashed public id.  The configurations are data: importing them builds no
-model.
+model.  ``input_specs`` builds a dry-run cell's inputs on the meta device
+(shapes and dtypes, no memory).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ArchSpec, ShapeSpec, SHAPES  # noqa: F401
 from repro_torch.configs import (  # noqa: F401
@@ -47,3 +49,31 @@ def cells(include_skipped: bool = False):
             reason = arch.skip_shapes.get(shape_name)
             if reason is None or include_skipped:
                 yield arch_id, shape_name, reason
+
+
+def input_specs(arch: ArchSpec, shape: ShapeSpec, *, smoke: bool = False,
+                rules=None) -> dict:
+    """A dry-run cell's step inputs as meta tensors: ``tokens`` (and the
+    cross source of a model with cross layers) for train and prefill;
+    for decode one new token, ``pos`` and the ``seq_len``-long caches
+    (``transformer.cache_shapes``)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import NO_SHARD
+
+    cfg = arch.smoke if smoke else arch.model
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    specs: dict = {}
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = meta((B, S), torch.int32)
+        if cfg.cross_seq:
+            specs["cross_src"] = meta((B, cfg.cross_seq, cfg.d_model),
+                                      cfg.dtype)
+    else:  # decode: one new token against an S-long cache
+        specs["tokens"] = meta((B, 1), torch.int32)
+        specs["pos"] = meta((), torch.int32)
+        specs["cache"] = T.cache_shapes(cfg, B, S, rules or NO_SHARD)
+    return specs

@@ -25,7 +25,9 @@ import torch
 from repro_torch import configs as C
 from repro_torch import random as jr
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import NO_SHARD
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 
 
@@ -60,7 +62,7 @@ def cross_source(cfg: T.ModelConfig, batch: int, seed: int,
 
 def serve(cfg: T.ModelConfig, *, batch: int, prompt_len: int, gen: int,
           seed: int = 0, device=None, params: dict | None = None,
-          cross_src: torch.Tensor | None = None) -> dict:
+          cross_src: torch.Tensor | None = None, mesh=None) -> dict:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     ``gen`` tokens greedily.  ``params=None`` draws the weights from
     ``seed``, and ``cross_src=None`` draws the source of a model with
@@ -68,7 +70,13 @@ def serve(cfg: T.ModelConfig, *, batch: int, prompt_len: int, gen: int,
     gen + 1]: the prefill's argmax, then one per decode step), the final
     ``logits`` ([batch, V] float32) and the phases' seconds
     (``prefill_s``, ``decode_s``, host clock around work that ends in a
-    device synchronise)."""
+    device synchronise).
+
+    ``mesh`` (a ``launch.mesh.Mesh``): serve through it with the rules of
+    ``make_rules`` for prefill and decode; this rank takes its rows of the
+    prompts and the source and its block of the expert leaves
+    (``shard_tree`` with ``ep_specs``; ``params`` whole), and returns its
+    rows."""
     dev = resolve_device(device)
     if params is None:
         params = T.init_params(
@@ -76,8 +84,21 @@ def serve(cfg: T.ModelConfig, *, batch: int, prompt_len: int, gen: int,
     if cross_src is None:
         cross_src = cross_source(cfg, batch, seed, dev)
     tokens = prompt_tokens(cfg, batch, prompt_len, seed, dev)
-    prefill = make_prefill_step(cfg, max_seq=prompt_len + gen)
-    decode = make_decode_step(cfg)
+    rules_p = rules_d = NO_SHARD
+    if mesh is not None:
+        rules_p = M.make_rules(mesh, kind="prefill", global_batch=batch,
+                               cfg=cfg)
+        rules_d = M.make_rules(mesh, kind="decode", global_batch=batch,
+                               cfg=cfg)
+        params = M.shard_tree(params, M.ep_specs(T.param_specs(cfg)), mesh)
+        data = {"tokens": tokens, "cross": cross_src}
+        if cross_src is None:
+            del data["cross"]
+        data = M.shard_tree(data, M.batch_specs(mesh, rules_p, data), mesh)
+        tokens, cross_src = data["tokens"], data.get("cross")
+    prefill = make_prefill_step(cfg, rules=rules_p, mesh=mesh,
+                                max_seq=prompt_len + gen)
+    decode = make_decode_step(cfg, rules=rules_d, mesh=mesh)
 
     _sync(dev)
     t0 = time.perf_counter()

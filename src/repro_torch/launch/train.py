@@ -18,8 +18,8 @@ Runs the smoke (reduced) configuration unless ``--full`` is given, on
 * ``--crash-at N`` exits hard (code 42) at step N, for restart drills
 
 The weights are drawn from a ``torch.Generator`` seeded with ``--seed``.
-``--remesh`` (the reference's restore onto another mesh) waits for the
-mesh (ROADMAP.md queue 1 item 5.5) and raises.
+``--remesh`` (the reference's restore onto another mesh) waits for
+training over a mesh (ROADMAP.md queue 1 item 5.7) and raises.
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--remesh", action="store_true",
                     help="restore onto the current mesh (not ported: "
-                         "ROADMAP.md queue 1 item 5.5)")
+                         "ROADMAP.md queue 1 item 5.7)")
     ap.add_argument("--max-retries", type=int, default=2)
     ap.add_argument("--crash-at", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
@@ -76,8 +76,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.remesh:
         raise NotImplementedError(
-            "--remesh restores onto another mesh, which is not ported yet "
-            "(ROADMAP.md queue 1 item 5.5)")
+            "--remesh restores onto another mesh, which waits for training "
+            "over a mesh (ROADMAP.md queue 1 item 5.7)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
                          "host")

@@ -19,19 +19,92 @@ float32, the activations and ``softplus`` op for op as ``jax.nn`` writes
 them, router logits and the SSM state in float32.  Masked logits are
 filled with -1e30, not -inf.
 
-Not ported yet: the expert-parallel MoE over a mesh
-(``_moe_local_compute_2d``; ROADMAP.md queue 1 item 5.5), which raises
-``NotImplementedError``.
+Sharding: :class:`ShardingRules` and the spec type :class:`P` are the
+reference's; :func:`shard` is the identity, since eager PyTorch has no
+compiler to place activations and the reference's constraints change no
+value.  The one layer whose values depend on the mesh, ``moe_block``,
+runs expert-parallel over a ``launch.mesh.Mesh`` through its
+``torch.distributed`` groups (forward only; training over a mesh is
+ROADMAP.md queue 1 item 5.7).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Sharding helpers
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A partition spec, the port's ``jax.sharding.PartitionSpec``: one
+    entry per leading dim, ``None`` (whole), an axis name, or a tuple of
+    axis names (the dim split over their product, the first axis major).
+    Trailing dims it does not name are whole."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+def is_spec(x) -> bool:
+    """A leaf of a spec tree (``tree_leaves(..., is_leaf=is_spec)``)."""
+    return isinstance(x, P) or x is None
+
+
+def shard(x: torch.Tensor, spec) -> torch.Tensor:
+    """The identity: eager PyTorch has no compiler to place activations,
+    and the reference's constraint changes no value."""
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical -> mesh axis mapping (the reference's fields).
+
+    ``batch`` may span several mesh axes (("pod", "data")), ``tensor`` is
+    the tensor-parallel axis (the MoE's expert axis), ``fsdp`` the
+    parameter-sharding axis; ``seq`` the decode caches' sequence axes;
+    ``act_seq`` the residual's sequence axis under sequence parallelism.
+    ``moe_gather_weights``: True gathers the FSDP-sharded expert weights on
+    use (train / prefill); False keeps them 2-D sharded and gathers the
+    tokens over the batch axes (decode).  Any field may be None to
+    disable that form of parallelism.
+    """
+
+    batch: Any = None
+    tensor: Any = None
+    fsdp: Any = None
+    seq: Any = None
+    act_seq: Any = None
+    moe_gather_weights: bool = True
+    seq_parallel_attn: bool = False
+
+    def act(self, *rest) -> P | None:
+        """Spec for an activation whose leading dim is batch."""
+        if self.batch is None and all(r is None for r in rest):
+            return None
+        return P(self.batch, *rest)
+
+    def residual(self) -> P | None:
+        """Spec for the [B, S, D] residual stream at layer boundaries."""
+        return self.act(self.act_seq, None)
+
+
+NO_SHARD = ShardingRules()
 
 
 @functools.lru_cache(maxsize=None)
@@ -321,7 +394,7 @@ def decode_self_attention(params: dict, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Mixture of experts (the single-device path)
+# Mixture of experts (expert-parallel over a mesh's tensor axis)
 # ---------------------------------------------------------------------------
 
 def moe_router(wg: torch.Tensor, x: torch.Tensor, top_k: int):
@@ -335,68 +408,215 @@ def moe_router(wg: torch.Tensor, x: torch.Tensor, top_k: int):
     return torch.softmax(vals[:, :top_k], dim=-1), idx[:, :top_k]
 
 
-def _moe_local_compute(x, gates, idx, w_up, w_gate, w_down, *, top_k: int,
-                       capacity: int, activation: str, e_start: int = 0):
-    """Dense grouped compute at a fixed capacity for the experts
-    ``[e_start, e_start + E_loc)`` that ``w_*`` ([E_loc, ...]) hold.
+def _dispatch(gates, idx, *, top_k: int, capacity: int, e_start: int,
+              E_loc: int):
+    """The capacity dispatch of the experts ``[e_start, e_start + E_loc)``.
 
     Assignments are sorted stably by expert (``E_loc`` is the drop bin
     for the experts held elsewhere); an assignment's position within its
     expert comes from ``searchsorted``; those past ``capacity`` are
     dropped, contribute nothing and leave the token's other gates as they
-    are.  Token rows go into an ``[E_loc * capacity + 1, D]`` buffer whose
-    last row is a sink for the dropped ones, and come back through
-    ``min(slot, E_loc * capacity - 1)`` times ``keep``.  x: [T, D];
-    returns the partial output [T, D]."""
-    T, D = x.shape
-    E_loc = w_up.shape[0]
-    dev = x.device
+    are.  Returns (keep, buffer slot, token, gate) per sorted assignment;
+    a dropped one's slot is ``E_loc * capacity``, the buffer's sink row."""
+    dev = idx.device
+    n = idx.numel()
     flat_e = idx.reshape(-1)
-    flat_g = gates.reshape(-1)
-    flat_t = torch.arange(T, device=dev).repeat_interleave(top_k)
+    flat_t = torch.arange(idx.shape[0], device=dev).repeat_interleave(top_k)
     local = (flat_e >= e_start) & (flat_e < e_start + E_loc)
     loc_e = torch.where(local, flat_e - e_start, E_loc)
     order = torch.argsort(loc_e, stable=True)
     sorted_e = loc_e[order]
     seg_first = torch.searchsorted(sorted_e,
                                    torch.arange(E_loc + 1, device=dev))
-    pos_sorted = torch.arange(T * top_k, device=dev) - seg_first[sorted_e]
+    pos_sorted = torch.arange(n, device=dev) - seg_first[sorted_e]
     keep = (pos_sorted < capacity) & (sorted_e < E_loc)
-    keep_f = keep.to(x.dtype)
     buf_slot = torch.where(keep, sorted_e * capacity + pos_sorted,
                            E_loc * capacity)
-    tok_sorted = flat_t[order]
-    gate_sorted = flat_g[order]
-    x_buf = x.new_zeros((E_loc * capacity + 1, D))
+    return keep, buf_slot, flat_t[order], gates.reshape(-1)[order]
+
+
+def _grouped(x, keep_f, buf_slot, tok_sorted, E_loc: int, capacity: int):
+    """Token rows of ``x`` [T, d] in the ``[E_loc, capacity, d]`` expert
+    buffer (through a sink row for the dropped ones)."""
+    x_buf = x.new_zeros((E_loc * capacity + 1, x.shape[1]))
     x_buf[buf_slot] = x[tok_sorted] * keep_f[:, None]
-    xb = x_buf[:-1].reshape(E_loc, capacity, D)
+    return x_buf[:-1].reshape(E_loc, capacity, x.shape[1])
+
+
+def _combine(y, keep_f, buf_slot, tok_sorted, gate_sorted, T: int):
+    """The experts' outputs ``y`` [E_loc, capacity, D] back to their
+    tokens, times their gates: the partial output [T, D].  On CUDA
+    ``index_add_`` adds a token's k rows with atomics, in an order that
+    changes from run to run (so bf16 results do too), unless
+    ``torch.use_deterministic_algorithms`` orders it."""
+    E_loc, capacity, D = y.shape
+    y = y.reshape(E_loc * capacity, D)
+    y_tok = y[buf_slot.clamp(max=E_loc * capacity - 1)] * keep_f[:, None]
+    out = y.new_zeros((T, D))
+    return out.index_add_(0, tok_sorted,
+                          y_tok * gate_sorted[:, None].to(y.dtype))
+
+
+def _moe_local_compute(x, gates, idx, w_up, w_gate, w_down, *, top_k: int,
+                       capacity: int, activation: str, e_start: int = 0):
+    """Dense grouped compute at a fixed capacity for the experts
+    ``[e_start, e_start + E_loc)`` that ``w_*`` ([E_loc, ...]) hold.
+    x: [T, D]; returns the partial output [T, D]."""
+    E_loc = w_up.shape[0]
+    keep, buf_slot, tok, gate = _dispatch(
+        gates, idx, top_k=top_k, capacity=capacity, e_start=e_start,
+        E_loc=E_loc)
+    keep_f = keep.to(x.dtype)
+    xb = _grouped(x, keep_f, buf_slot, tok, E_loc, capacity)
     h = torch.bmm(xb, w_up)
     if w_gate is not None:
         h = _act(activation, torch.bmm(xb, w_gate)) * h
     else:
         h = _act(activation, h)
-    y = torch.bmm(h, w_down).reshape(E_loc * capacity, D)
-    y_tok = y[buf_slot.clamp(max=E_loc * capacity - 1)] * keep_f[:, None]
-    out = x.new_zeros((T, D))
-    return out.index_add_(0, tok_sorted,
-                          y_tok * gate_sorted[:, None].to(x.dtype))
+    return _combine(torch.bmm(h, w_down), keep_f, buf_slot, tok, gate,
+                    x.shape[0])
+
+
+def _moe_local_compute_2d(xg, xg_d, gates, idx, w_up, w_gate, w_down, *,
+                          mesh, fsdp_ax, top_k: int, capacity: int,
+                          activation: str, e_start: int):
+    """2-D-sharded expert compute (decode): the weights keep their (E over
+    tensor, D / F over fsdp) slices; the D-contraction partials of the
+    up / gate products are summed over fsdp *before* the nonlinearity (one
+    all-reduce of both, as the reference's ``psum((h, g))``), and the down
+    product contracts this rank's F-slice (a partial the caller sums).
+
+    xg: [T, D] the gathered tokens; xg_d: [T, D_loc] this rank's D-slice.
+    Returns the partial output [T, D]."""
+    E_loc = w_up.shape[0]
+    keep, buf_slot, tok, gate = _dispatch(
+        gates, idx, top_k=top_k, capacity=capacity, e_start=e_start,
+        E_loc=E_loc)
+    keep_f = keep.to(xg.dtype)
+    xb = _grouped(xg_d, keep_f, buf_slot, tok, E_loc, capacity)
+    h = torch.bmm(xb, w_up)                           # partial over D
+    if w_gate is not None:
+        hg = mesh.all_reduce(torch.cat([h, torch.bmm(xb, w_gate)], -1),
+                             fsdp_ax)
+        h, g = hg.split(h.shape[-1], dim=-1)
+        h = _act(activation, g) * h
+    else:
+        h = _act(activation, mesh.all_reduce(h, fsdp_ax))
+    f_loc = w_down.shape[1]
+    h_f = h.narrow(2, mesh.axis_index(fsdp_ax) * f_loc, f_loc)
+    return _combine(torch.bmm(h_f, w_down), keep_f, buf_slot, tok, gate,
+                    xg.shape[0])
+
+
+def _local_experts(w, mesh, rules, n_experts: int, full: int):
+    """This rank's block of an expert leaf [E, X, Y] under the reference's
+    ``shard_map`` spec ``P(tensor, fsdp, None)``: experts over the tensor
+    axis, dim 1 (D, or F for ``down``; ``full`` its whole size) over fsdp.
+    The leaf may arrive as that block (``launch.mesh.shard_tree``) or whole
+    along a dim whose axis ``param_specs`` dropped (the smoke twins' 8
+    experts on 16 production shards), and is then sliced here."""
+    n_t = mesh.shape[rules.tensor]
+    blocks = [(0, n_experts, n_t, rules.tensor)]
+    if rules.fsdp is not None:
+        blocks.append((1, full, mesh.shape[rules.fsdp], rules.fsdp))
+    for dim, size, n, ax in blocks:
+        if size % n:
+            raise ValueError(f"an expert leaf's dim {dim} of {size} does not "
+                             f"split over {ax!r} of {n}")
+        if w.shape[dim] == size and n > 1:
+            w = w.narrow(dim, mesh.axis_index(ax) * (size // n), size // n)
+        elif w.shape[dim] != size // n:
+            raise ValueError(f"an expert leaf of shape {tuple(w.shape)} is "
+                             f"neither whole nor this rank's block of dim "
+                             f"{dim} over {ax!r} of {n}")
+    return w
+
+
+def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
+                 capacity_factor: float, activation: str, glu: bool, mesh,
+                 rules: ShardingRules) -> torch.Tensor:
+    """The reference's ``shard_map`` body, run on this rank: ``xf`` [T_loc,
+    D] holds this rank's token rows (all of them when ``rules.batch`` is
+    None).  Returns this rank's rows of the output."""
+    weights = [params["up"], params["down"]] + ([params["gate"]] if glu
+                                                else [])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in [xf] + weights):
+        raise NotImplementedError(
+            "moe_block over a mesh runs forward only: training over a mesh "
+            "(the expert-parallel backward) is ROADMAP.md queue 1 item 5.7")
+    tensor_ax, fsdp_ax = rules.tensor, rules.fsdp
+    batch_axes = rules.batch if isinstance(rules.batch, tuple) else \
+        (rules.batch,)
+    batch_axes = tuple(a for a in batch_axes if a is not None)
+    batch_size = math.prod(mesh.shape[a] for a in batch_axes)
+    T_loc, D = xf.shape
+    n_shards = mesh.shape[tensor_ax]
+    E_loc = n_experts // n_shards
+    gather_w = rules.moe_gather_weights or fsdp_ax is None
+    capacity = max(int((T_loc if gather_w else T_loc * batch_size)
+                       * top_k * capacity_factor / n_experts), top_k)
+    F_full = params["up"].shape[2]
+    w_up = _local_experts(params["up"], mesh, rules, n_experts, D)
+    w_down = _local_experts(params["down"], mesh, rules, n_experts, F_full)
+    w_gate = (_local_experts(params["gate"], mesh, rules, n_experts, D)
+              if glu else None)
+    e_start = mesh.axis_index(tensor_ax) * E_loc
+    if gather_w:
+        # train / prefill: gather the FSDP-sharded expert weights on use
+        if fsdp_ax is not None:
+            w_up = mesh.all_gather(w_up, fsdp_ax, dim=1)
+            w_down = mesh.all_gather(w_down, fsdp_ax, dim=1)
+            if w_gate is not None:
+                w_gate = mesh.all_gather(w_gate, fsdp_ax, dim=1)
+        out = _moe_local_compute(
+            xf, gates, idx, w_up, w_gate, w_down, top_k=top_k,
+            capacity=capacity, activation=activation, e_start=e_start)
+        return mesh.all_reduce(out, tensor_ax)
+    # decode: the weights stay 2-D sharded; gather the (few) tokens over
+    # the batch axes, sum the partial expert activations
+    xg = mesh.all_gather(xf, batch_axes, dim=0)
+    gg = mesh.all_gather(gates, batch_axes, dim=0)
+    ig = mesh.all_gather(idx, batch_axes, dim=0)
+    d_loc = w_up.shape[1]
+    xg_d = xg.narrow(1, mesh.axis_index(fsdp_ax) * d_loc, d_loc)
+    out = _moe_local_compute_2d(
+        xg, xg_d, gg, ig, w_up, w_gate, w_down, mesh=mesh, fsdp_ax=fsdp_ax,
+        top_k=top_k, capacity=capacity, activation=activation,
+        e_start=e_start)
+    # partial over the expert partition (tensor) and the D / F shards
+    # (fsdp); pod replicas computed the same work
+    out = mesh.all_reduce(out, (tensor_ax, fsdp_ax))
+    return out.narrow(0, mesh.flat_index(batch_axes) * T_loc, T_loc)
 
 
 def moe_block(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float, activation: str, glu: bool,
-              mesh=None) -> torch.Tensor:
-    """MoE FFN on one device.  x: [B, S, D].  Every expert is computed
-    over its ``capacity = max(int(T * k * cf / E), k)`` slots, T = B * S.
-    The expert-parallel path over a mesh is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_block over a mesh (the expert-parallel path and "
-            "_moe_local_compute_2d) is not ported yet (ROADMAP.md queue 1 "
-            "item 5.5)")
+              mesh=None, rules: ShardingRules = NO_SHARD) -> torch.Tensor:
+    """MoE FFN.  x: [B, S, D].
+
+    With no mesh (or no tensor axis), every expert is computed over its
+    ``capacity = max(int(T * k * cf / E), k)`` slots, T = B * S.  Over a
+    ``launch.mesh.Mesh``, x holds this rank's batch rows (by
+    ``batch_specs``) and the expert leaves are whole or this rank's block
+    (``_local_experts``); the experts are split over ``rules.tensor``.
+    ``rules.moe_gather_weights`` (train / prefill) all-gathers the leaves
+    over ``rules.fsdp``, computes this rank's experts over its own tokens
+    at ``capacity = max(int(T_loc * k * cf / E), k)`` and sums over the
+    tensor axis; otherwise (decode) it gathers the tokens over the batch
+    axes, keeps the weights 2-D sharded (capacity from the global T) and
+    sums over (tensor, fsdp).  Forward only over a mesh.
+    """
     B, S, D = x.shape
-    T = B * S
-    xf = x.reshape(T, D)
+    xf = x.reshape(B * S, D)
     gates, idx = moe_router(params["router"], xf, top_k)
+    if mesh is not None and rules.tensor is not None:
+        out = _moe_on_mesh(params, xf, gates, idx, n_experts=n_experts,
+                           top_k=top_k, capacity_factor=capacity_factor,
+                           activation=activation, glu=glu, mesh=mesh,
+                           rules=rules)
+        return shard(out.reshape(B, S, D), rules.residual())
+    T = B * S
     capacity = max(int(T * top_k * capacity_factor / n_experts), top_k)
     out = _moe_local_compute(
         xf, gates, idx, params["up"], params.get("gate") if glu else None,

@@ -25,6 +25,13 @@ slen, KV, hd]`` with ``slen = min(window, max_seq)``, ``xk`` / ``xv``
 ``[..., B, cross_len, KV, hd]``, ``conv`` ``[..., B, K-1, d_inner]`` and
 ``ssm`` ``[..., B, d_inner, N]`` in float32.
 
+Sharding: ``param_specs`` and ``cache_specs`` give the reference's
+partition specs (``layers.P``), ``param_shapes`` and ``cache_shapes`` the
+same trees on the meta device; the dry-run's memory model reads them.
+``forward``, ``encode``, ``prefill_step`` and ``decode_step`` take the
+reference's ``rules`` and ``mesh``; only the MoE block reads them (the
+reference's other constraints place values, they do not change them).
+
 The functions take the tree; :class:`Transformer` holds the same leaves as
 ``nn.Parameter``\\ s under the reference's names and calls them.
 """
@@ -40,16 +47,17 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.layers import NO_SHARD, P, ShardingRules
 from repro_torch.models.config import (ModelConfig, Pattern, StageSpec,
                                        uniform_pattern)
 from repro_torch.tree import tree_leaves
 
 __all__ = [
     "ModelConfig", "Pattern", "StageSpec", "uniform_pattern", "Transformer",
-    "FLOAT32_LEAVES", "init_params", "param_shapes", "param_count",
-    "active_param_count", "encode", "forward", "logits_from_hidden",
-    "lm_loss",
-    "init_cache", "prefill_step", "decode_step",
+    "FLOAT32_LEAVES", "MESH_AXIS_SIZES", "init_params", "param_shapes",
+    "param_specs", "param_count", "active_param_count", "encode", "forward",
+    "logits_from_hidden", "lm_loss", "init_cache", "cache_shapes",
+    "cache_specs", "prefill_step", "decode_step",
 ]
 
 # Leaves the reference keeps in float32 in a model of any dtype: the SSM's
@@ -59,13 +67,33 @@ FLOAT32_LEAVES = frozenset({"A_log", "D", "dt_bias", "gate_attn",
 
 
 # ---------------------------------------------------------------------------
-# Parameter construction (initialised tensors or meta-device shapes)
+# Parameter construction (initialised tensors, meta-device shapes or specs)
 # ---------------------------------------------------------------------------
 
+# Mesh-axis sizes the parameter specs assume (the production meshes'):
+# a spec keeps an axis only where it divides the dim, whatever the real
+# mesh is (whisper's 51,865-row embedding stays whole), as the reference's
+# in_shardings require.
+MESH_AXIS_SIZES = {"pod": 2, "data": 16, "model": 16}
+
+
+def _fit_spec(shape, spec) -> tuple:
+    """``spec`` with every axis entry that does not divide its dim (by
+    ``MESH_AXIS_SIZES``) made None."""
+    out = []
+    for dim, ax in zip(shape, spec):
+        axes = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
+        size = math.prod(MESH_AXIS_SIZES.get(a, 1) for a in axes)
+        out.append(ax if size and dim % size == 0 else None)
+    return tuple(out)
+
+
 class _Maker:
-    """Builds leaves: drawn from ``gen`` (``mode="init"``) or empty on the
-    meta device (``mode="shape"``).  ``stack`` prefixes every leaf's shape;
-    scales use the unstacked shape, as the reference's do."""
+    """Builds leaves: drawn from ``gen`` (``mode="init"``), empty on the
+    meta device (``mode="shape"``) or the leaf's partition spec
+    (``mode="spec"``: ``spec`` fitted by ``_fit_spec``, the stack dims
+    whole).  ``stack`` prefixes every leaf's shape; scales use the
+    unstacked shape, as the reference's do."""
 
     def __init__(self, cfg: ModelConfig, mode: str, gen=None, device=None,
                  stack: tuple[int, ...] = ()):
@@ -75,8 +103,9 @@ class _Maker:
     def with_stack(self, *dims: int) -> "_Maker":
         return _Maker(self.cfg, self.mode, self.gen, self.device, dims)
 
-    def __call__(self, shape: tuple[int, ...], scale: float | None = None,
-                 fill: float | None = None, dtype=None) -> torch.Tensor:
+    def __call__(self, shape: tuple[int, ...], spec: tuple,
+                 scale: float | None = None, fill: float | None = None,
+                 dtype=None):
         """A normal draw times ``scale`` (default ``1/sqrt(shape[0])``), or
         a constant ``fill`` (no draw), in ``dtype`` (default the model's).
 
@@ -84,6 +113,8 @@ class _Maker:
         generator's device, so the float32 transient is one layer's leaf
         (moonshot's stacked expert leaf is 8.86e9 values, 35.4 GB in
         float32)."""
+        if self.mode == "spec":
+            return P(*(None,) * len(self.stack), *_fit_spec(shape, spec))
         full = self.stack + tuple(shape)
         dtype = dtype or self.cfg.dtype
         if self.mode == "shape":
@@ -102,29 +133,31 @@ class _Maker:
 
 def _norm_params(mk: _Maker, cfg: ModelConfig) -> dict:
     if cfg.norm == "layernorm":
-        return {"scale": mk((cfg.d_model,), fill=1.0),
-                "bias": mk((cfg.d_model,), fill=0.0)}
+        return {"scale": mk((cfg.d_model,), (None,), fill=1.0),
+                "bias": mk((cfg.d_model,), (None,), fill=0.0)}
     # gemma stores (1 + w) with w zero; the others a scale of ones
-    return {"scale": mk((cfg.d_model,),
+    return {"scale": mk((cfg.d_model,), (None,),
                         fill=0.0 if cfg.norm_plus_one else 1.0)}
 
 
 def _attn_params(mk: _Maker, cfg: ModelConfig) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    p = {"wq": mk((D, H * hd)), "wk": mk((D, KV * hd)),
-         "wv": mk((D, KV * hd)), "wo": mk((H * hd, D))}
+    t, f = "model", "data"
+    p = {"wq": mk((D, H * hd), (f, t)), "wk": mk((D, KV * hd), (f, t)),
+         "wv": mk((D, KV * hd), (f, t)), "wo": mk((H * hd, D), (t, f))}
     if cfg.qkv_bias:
-        p["bq"] = mk((H * hd,), fill=0.0)
-        p["bk"] = mk((KV * hd,), fill=0.0)
-        p["bv"] = mk((KV * hd,), fill=0.0)
+        p["bq"] = mk((H * hd,), (t,), fill=0.0)
+        p["bk"] = mk((KV * hd,), (t,), fill=0.0)
+        p["bv"] = mk((KV * hd,), (t,), fill=0.0)
     return p
 
 
 def _mlp_params(mk: _Maker, cfg: ModelConfig) -> dict:
     D, Fd = cfg.d_model, cfg.d_ff
-    p = {"up": mk((D, Fd)), "down": mk((Fd, D))}
+    p = {"up": mk((D, Fd), ("data", "model")),
+         "down": mk((Fd, D), ("model", "data"))}
     if cfg.glu:
-        p["gate"] = mk((D, Fd))
+        p["gate"] = mk((D, Fd), ("data", "model"))
     return p
 
 
@@ -132,9 +165,11 @@ def _moe_params(mk: _Maker, cfg: ModelConfig) -> dict:
     """The router and the experts' stacked weights ``[E, ...]``; their
     draw scale is ``1/sqrt(E)``, the reference's ``shape[0]`` rule."""
     D, E, Fd = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
-    p = {"router": mk((D, E)), "up": mk((E, D, Fd)), "down": mk((E, Fd, D))}
+    p = {"router": mk((D, E), (None, None)),
+         "up": mk((E, D, Fd), ("model", "data", None)),
+         "down": mk((E, Fd, D), ("model", "data", None))}
     if cfg.glu:
-        p["gate"] = mk((E, D, Fd))
+        p["gate"] = mk((E, D, Fd), ("model", "data", None))
     return p
 
 
@@ -143,12 +178,16 @@ def _mamba_params(mk: _Maker, cfg: ModelConfig) -> dict:
     negative and spread), ``D`` = 1 and ``dt_bias`` = -4, all float32."""
     D, di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
                       cfg.conv_kernel)
-    f32 = torch.float32
-    p = {"in_proj": mk((D, 2 * di)), "conv_w": mk((K, di)),
-         "conv_b": mk((di,), fill=0.0), "x_proj": mk((di, R + 2 * N)),
-         "dt_proj": mk((R, di)), "dt_bias": mk((di,), fill=-4.0, dtype=f32),
-         "A_log": mk((di, N), fill=0.0, dtype=f32),
-         "D": mk((di,), fill=1.0, dtype=f32), "out_proj": mk((di, D))}
+    f32, t = torch.float32, "model"
+    p = {"in_proj": mk((D, 2 * di), ("data", t)),
+         "conv_w": mk((K, di), (None, t)),
+         "conv_b": mk((di,), (t,), fill=0.0),
+         "x_proj": mk((di, R + 2 * N), (t, None)),
+         "dt_proj": mk((R, di), (None, t)),
+         "dt_bias": mk((di,), (t,), fill=-4.0, dtype=f32),
+         "A_log": mk((di, N), (t, None), fill=0.0, dtype=f32),
+         "D": mk((di,), (t,), fill=1.0, dtype=f32),
+         "out_proj": mk((di, D), (t, "data"))}
     if mk.mode == "init":
         p["A_log"].copy_(torch.log(torch.arange(
             1, N + 1, dtype=f32, device=p["A_log"].device)))
@@ -175,16 +214,16 @@ def _layer_params(mk: _Maker, cfg: ModelConfig, kind: str) -> dict:
         p["xattn"] = _attn_params(mk, cfg)
     elif kind == "cross":
         p["xattn"] = _attn_params(mk, cfg)
-        p["gate_attn"] = mk((), fill=0.0, dtype=torch.float32)
-        p["gate_mlp"] = mk((), fill=0.0, dtype=torch.float32)
+        p["gate_attn"] = mk((), (), fill=0.0, dtype=torch.float32)
+        p["gate_mlp"] = mk((), (), fill=0.0, dtype=torch.float32)
     elif kind == "mamba":
         p["mixer"] = _mamba_params(mk, cfg)
         return p
     elif kind == "hybrid":
         p["attn"] = _attn_params(mk, cfg)
         p["mixer"] = _mamba_params(mk, cfg)
-        p["attn_norm"] = mk((cfg.d_model,), fill=1.0)
-        p["ssm_norm"] = mk((cfg.d_model,), fill=1.0)
+        p["attn_norm"] = mk((cfg.d_model,), (None,), fill=1.0)
+        p["ssm_norm"] = mk((cfg.d_model,), (None,), fill=1.0)
     else:
         raise ValueError(f"unknown layer kind {kind}")
     p["ln2"] = _norm_params(mk, cfg)
@@ -194,19 +233,23 @@ def _layer_params(mk: _Maker, cfg: ModelConfig, kind: str) -> dict:
 
 def _build_params(cfg: ModelConfig, mode: str, gen=None, device=None) -> dict:
     mk = _Maker(cfg, mode, gen, device)
-    params: dict = {"embed": mk((cfg.vocab_size, cfg.d_model), scale=1.0),
+    params: dict = {"embed": mk((cfg.vocab_size, cfg.d_model),
+                                ("model", None), scale=1.0),
                     "final_norm": _norm_params(mk, cfg)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = mk((cfg.d_model, cfg.vocab_size))
+        params["lm_head"] = mk((cfg.d_model, cfg.vocab_size),
+                               ("data", "model"))
     if cfg.max_position:
-        params["pos_embed"] = mk((cfg.max_position, cfg.d_model), scale=0.02)
+        params["pos_embed"] = mk((cfg.max_position, cfg.d_model),
+                                 (None, None), scale=0.02)
     params["blocks"] = [
         [_layer_params(mk.with_stack(pat.repeats, st.count), cfg, st.kind)
          for st in pat.stages]
         for pat in cfg.patterns]
     if cfg.encoder_layers:
         params["encoder"] = {
-            "pos_embed": mk((cfg.cross_seq, cfg.d_model), scale=0.02),
+            "pos_embed": mk((cfg.cross_seq, cfg.d_model), (None, None),
+                            scale=0.02),
             "blocks": [[_layer_params(mk.with_stack(1, cfg.encoder_layers),
                                       cfg, "enc")]],
             "final_norm": _norm_params(mk, cfg)}
@@ -228,6 +271,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree on the meta device (allocates nothing)."""
     return _build_params(cfg, "shape")
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree's partition specs (``layers.P`` leaves): the
+    reference's, each axis kept only where ``MESH_AXIS_SIZES`` divides
+    its dim, the stack dims whole."""
+    return _build_params(cfg, "spec")
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -256,12 +306,14 @@ def _layer(stage: dict, r: int, c: int) -> dict:
 # Forward (prefill-shaped, full sequence)
 # ---------------------------------------------------------------------------
 
-def _ffn_apply(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_apply(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+               rules: ShardingRules = NO_SHARD, mesh=None) -> torch.Tensor:
     if cfg.moe_experts:
         out = L.moe_block(lp["moe"], h, n_experts=cfg.moe_experts,
                           top_k=cfg.moe_top_k,
                           capacity_factor=cfg.capacity_factor,
-                          activation=cfg.activation, glu=cfg.glu)
+                          activation=cfg.activation, glu=cfg.glu,
+                          mesh=mesh, rules=rules)
         if cfg.moe_dense_residual:
             out = out + L.mlp(lp["mlp"], h, activation=cfg.activation,
                               glu=cfg.glu)
@@ -294,8 +346,8 @@ def _cross_kv(cfg: ModelConfig, lp: dict, src: torch.Tensor):
     return k.to(cfg.dtype), v.to(cfg.dtype)
 
 
-def _gated_cross(cfg: ModelConfig, lp: dict, x: torch.Tensor, kv
-                 ) -> torch.Tensor:
+def _gated_cross(cfg: ModelConfig, lp: dict, x: torch.Tensor, kv, *,
+                 rules: ShardingRules, mesh) -> torch.Tensor:
     """A ``cross`` layer: cross-attention and the FFN, each scaled by the
     tanh of its float32 gate (zero at init: the layer then adds nothing).
     ``kv`` is the source [B, Se, D] or its (xk, xv)."""
@@ -304,7 +356,7 @@ def _gated_cross(cfg: ModelConfig, lp: dict, x: torch.Tensor, kv
     x = x + torch.tanh(lp["gate_attn"]).to(x.dtype) * c
     h = _norm(lp["ln2"], x, cfg)
     return x + torch.tanh(lp["gate_mlp"]).to(x.dtype) * \
-        _ffn_apply(lp, h, cfg)
+        _ffn_apply(lp, h, cfg, rules, mesh)
 
 
 def _fuse(cfg: ModelConfig, lp: dict, a: torch.Tensor, m: torch.Tensor
@@ -316,21 +368,22 @@ def _fuse(cfg: ModelConfig, lp: dict, a: torch.Tensor, m: torch.Tensor
 
 
 def _cross_and_ffn(cfg: ModelConfig, kind: str, lp: dict, x: torch.Tensor,
-                   kv) -> torch.Tensor:
+                   kv, *, rules: ShardingRules, mesh) -> torch.Tensor:
     """The tail of an attention layer: ``attn_cross``'s cross-attention
     over ``kv``, then the FFN."""
     if kind == "attn_cross":
         h = _norm(lp["lnx"], x, cfg)
         x = x + L.cross_attention(lp["xattn"], h, kv, **_cross_kwargs(cfg))
     h = _norm(lp["ln2"], x, cfg)
-    return x + _ffn_apply(lp, h, cfg)
+    return x + _ffn_apply(lp, h, cfg, rules, mesh)
 
 
 def _layer_fwd(cfg: ModelConfig, spec: StageSpec, lp: dict, x: torch.Tensor,
-               *, positions: torch.Tensor, cross_src) -> torch.Tensor:
+               *, positions: torch.Tensor, cross_src,
+               rules: ShardingRules = NO_SHARD, mesh=None) -> torch.Tensor:
     kind = spec.kind
     if kind == "cross":
-        return _gated_cross(cfg, lp, x, cross_src)
+        return _gated_cross(cfg, lp, x, cross_src, rules=rules, mesh=mesh)
     h = _norm(lp["ln1"], x, cfg)
     if kind == "mamba":
         return x + L.mamba_mixer(lp["mixer"], h, d_state=cfg.ssm_state)
@@ -344,7 +397,8 @@ def _layer_fwd(cfg: ModelConfig, spec: StageSpec, lp: dict, x: torch.Tensor,
         x = x + _fuse(cfg, lp, a, m)
     else:
         x = x + a
-    return _cross_and_ffn(cfg, kind, lp, x, cross_src)
+    return _cross_and_ffn(cfg, kind, lp, x, cross_src, rules=rules,
+                          mesh=mesh)
 
 
 def _layers(patterns):
@@ -371,6 +425,7 @@ def _unstack(stage: dict, repeats: int, count: int) -> list:
 
 def _run_patterns(cfg: ModelConfig, patterns, blocks, x: torch.Tensor, *,
                   positions: torch.Tensor, cross_src=None,
+                  rules: ShardingRules = NO_SHARD, mesh=None,
                   remat: bool = True) -> torch.Tensor:
     """The layers in scan order.  Under autograd with ``remat``, each
     layer is recomputed in the backward from its input (the reference's
@@ -385,16 +440,17 @@ def _run_patterns(cfg: ModelConfig, patterns, blocks, x: torch.Tensor, *,
         if remat:
             x = ckpt.checkpoint(_layer_fwd, cfg, spec, lp, x,
                                 positions=positions, cross_src=cross_src,
+                                rules=rules, mesh=mesh,
                                 use_reentrant=False,
                                 preserve_rng_state=False)
         else:
             x = _layer_fwd(cfg, spec, lp, x, positions=positions,
-                           cross_src=cross_src)
+                           cross_src=cross_src, rules=rules, mesh=mesh)
     return x
 
 
-def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
-           ) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
+           rules: ShardingRules = NO_SHARD, mesh=None) -> torch.Tensor:
     """Whisper's encoder over precomputed front-end frames [B, Se, D]:
     learned positions, ``encoder_layers`` bidirectional layers without
     rope, the final norm."""
@@ -403,11 +459,13 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
     x = frames.to(cfg.dtype) + enc["pos_embed"][None, :S]
     patterns = (Pattern(1, (StageSpec("enc", cfg.encoder_layers, 0),)),)
     x = _run_patterns(cfg, patterns, enc["blocks"], x,
-                      positions=torch.arange(S, device=x.device))
+                      positions=torch.arange(S, device=x.device),
+                      rules=rules, mesh=mesh)
     return _norm(enc["final_norm"], x, cfg)
 
 
-def _cross_source(cfg: ModelConfig, params: dict, cross_src):
+def _cross_source(cfg: ModelConfig, params: dict, cross_src, *,
+                  rules: ShardingRules, mesh):
     """What the cross layers attend to: the encoder's output over the
     frames (whisper) or the patches as given (llama-vision); None for a
     model without cross layers."""
@@ -416,8 +474,9 @@ def _cross_source(cfg: ModelConfig, params: dict, cross_src):
     if cross_src is None:
         raise ValueError(f"{cfg.name} has cross-attention layers: pass "
                          f"cross_src [B, {cfg.cross_seq}, {cfg.d_model}]")
-    return encode(cfg, params, cross_src) if cfg.encoder_layers else \
-        cross_src
+    if cfg.encoder_layers:
+        return encode(cfg, params, cross_src, rules=rules, mesh=mesh)
+    return cross_src
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
@@ -432,17 +491,21 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             cross_src: torch.Tensor | None = None,
+            rules: ShardingRules = NO_SHARD, mesh=None,
             remat: bool = True) -> torch.Tensor:
     """Full-sequence forward -> final hidden states [B, S, D].
     ``cross_src``: whisper's frames or llama-vision's patches [B, Se, D].
-    ``remat``: under autograd, recompute each decoder layer in the
-    backward (the encoder's always are, as in the reference)."""
+    ``rules`` / ``mesh``: the MoE block's (``layers.moe_block``; tokens
+    and the source hold this rank's batch rows).  ``remat``: under
+    autograd, recompute each decoder layer in the backward (the encoder's
+    always are, as in the reference)."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    cross_src = _cross_source(cfg, params, cross_src, rules=rules,
+                              mesh=mesh)
     x = _run_patterns(cfg, cfg.patterns, params["blocks"], x,
-                      positions=positions,
-                      cross_src=_cross_source(cfg, params, cross_src),
-                      remat=remat)
+                      positions=positions, cross_src=cross_src, rules=rules,
+                      mesh=mesh, remat=remat)
     return _norm(params["final_norm"], x, cfg)
 
 
@@ -492,31 +555,64 @@ def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def _cache_stage(cfg: ModelConfig, spec: StageSpec, stack: tuple[int, int],
-                 *, batch: int, max_seq: int, device) -> dict:
-    """One stage's zero cache: self-attention K/V (a ring of ``window``
-    slots for windowed layers), the cross layers' K/V of the source, the
-    Mamba conv history and SSM state (float32)."""
-    KV, hd, dt = cfg.num_kv_heads, cfg.hd, cfg.dtype
+                 *, batch: int, max_seq: int, rules: ShardingRules) -> dict:
+    """One stage's cache leaves as (shape, dtype, spec): self-attention
+    K/V (a ring of ``window`` slots for windowed layers; the sequence over
+    ``rules.seq``), the cross layers' K/V of the source, the Mamba conv
+    history and SSM state (float32)."""
+    KV, hd, dt, b = cfg.num_kv_heads, cfg.hd, cfg.dtype, rules.batch
     slen = min(spec.window, max_seq) if spec.window else max_seq
-    shapes = {}
+    leaves = {}
     if spec.kind in ("attn", "attn_cross", "hybrid"):
-        shapes["k"] = shapes["v"] = ((batch, slen, KV, hd), dt)
+        leaves["k"] = leaves["v"] = ((batch, slen, KV, hd), dt,
+                                     (b, rules.seq, None, None))
     if spec.kind in ("attn_cross", "cross"):
-        shapes["xk"] = shapes["xv"] = ((batch, cfg.cross_seq, KV, hd), dt)
+        leaves["xk"] = leaves["xv"] = ((batch, cfg.cross_seq, KV, hd), dt,
+                                       (b, None, None, None))
     if spec.kind in ("mamba", "hybrid"):
-        shapes["conv"] = ((batch, cfg.conv_kernel - 1, cfg.d_inner), dt)
-        shapes["ssm"] = ((batch, cfg.d_inner, cfg.ssm_state), torch.float32)
-    return {name: torch.zeros(stack + shape, dtype=dtype, device=device)
-            for name, (shape, dtype) in shapes.items()}
+        leaves["conv"] = ((batch, cfg.conv_kernel - 1, cfg.d_inner), dt,
+                          (b, None, "model"))
+        leaves["ssm"] = ((batch, cfg.d_inner, cfg.ssm_state), torch.float32,
+                         (b, "model", None))
+    return {name: (stack + shape, dtype, P(*(None,) * len(stack), *sp))
+            for name, (shape, dtype, sp) in leaves.items()}
+
+
+def _build_cache(cfg: ModelConfig, make, *, batch: int, max_seq: int,
+                 rules: ShardingRules) -> list:
+    """A list of patterns of stages of leaf dicts, each leaf ``make(shape,
+    dtype, spec)``."""
+    return [[{name: make(*leaf) for name, leaf in _cache_stage(
+        cfg, st, (pat.repeats, st.count), batch=batch, max_seq=max_seq,
+        rules=rules).items()} for st in pat.stages] for pat in cfg.patterns]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> list:
     """Zero decode caches: a list of patterns of stages of leaf dicts."""
     device = resolve_device(device)
-    return [[_cache_stage(cfg, st, (pat.repeats, st.count), batch=batch,
-                          max_seq=max_seq, device=device)
-             for st in pat.stages] for pat in cfg.patterns]
+    return _build_cache(
+        cfg, lambda shape, dtype, _: torch.zeros(shape, dtype=dtype,
+                                                 device=device),
+        batch=batch, max_seq=max_seq, rules=NO_SHARD)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                 rules: ShardingRules = NO_SHARD) -> list:
+    """The decode caches on the meta device (allocates nothing)."""
+    return _build_cache(
+        cfg, lambda shape, dtype, _: torch.empty(shape, dtype=dtype,
+                                                 device="meta"),
+        batch=batch, max_seq=max_seq, rules=rules)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
+                rules: ShardingRules) -> list:
+    """The decode caches' partition specs (the reference's: batch over
+    ``rules.batch``, self-attention sequence over ``rules.seq``, the SSM's
+    d_inner over ``model``; the stack dims whole)."""
+    return _build_cache(cfg, lambda shape, dtype, spec: spec, batch=batch,
+                        max_seq=max_seq, rules=rules)
 
 
 # ---------------------------------------------------------------------------
@@ -524,12 +620,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # ---------------------------------------------------------------------------
 
 def _layer_decode(cfg: ModelConfig, spec: StageSpec, lp: dict, cache: dict,
-                  x: torch.Tensor, *, pos: int) -> torch.Tensor:
+                  x: torch.Tensor, *, pos: int, rules: ShardingRules,
+                  mesh) -> torch.Tensor:
     """One layer of one-token decode; ``cache`` holds this layer's cache
     views, updated in place."""
     kind = spec.kind
     if kind == "cross":
-        return _gated_cross(cfg, lp, x, (cache["xk"], cache["xv"]))
+        return _gated_cross(cfg, lp, x, (cache["xk"], cache["xv"]),
+                            rules=rules, mesh=mesh)
     if kind not in ("attn", "attn_cross", "mamba", "hybrid"):
         raise ValueError(f"layer kind {kind} has no decode step")
     h = _norm(lp["ln1"], x, cfg)
@@ -543,12 +641,15 @@ def _layer_decode(cfg: ModelConfig, spec: StageSpec, lp: dict, cache: dict,
                                       **_attn_kwargs(cfg))
     x = x + (_fuse(cfg, lp, a, m) if kind == "hybrid" else a)
     kv = (cache["xk"], cache["xv"]) if kind == "attn_cross" else None
-    return _cross_and_ffn(cfg, kind, lp, x, kv)
+    return _cross_and_ffn(cfg, kind, lp, x, kv, rules=rules, mesh=mesh)
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: list,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int, *,
+                rules: ShardingRules = NO_SHARD, mesh=None):
     """One-token decode.  tokens: [B, 1]; ``pos`` an int (aligned batch).
+    ``rules`` / ``mesh``: the MoE block's (tokens and cache hold this
+    rank's batch rows).
 
     Returns (logits [B, V] float32, cache).  The cache is updated in place
     (the reference returns a new one) and returned.
@@ -563,7 +664,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list,
     for spec, pi, j, r, c in _layers(cfg.patterns):
         x = _layer_decode(cfg, spec, _layer(blocks[pi][j], r, c),
                           {k: v[r, c] for k, v in cache[pi][j].items()}, x,
-                          pos=pos)
+                          pos=pos, rules=rules, mesh=mesh)
     x = _norm(params["final_norm"], x, cfg)
     return logits_from_hidden(cfg, params, x)[:, 0], cache
 
@@ -609,7 +710,7 @@ def _mamba_prefill(cfg: ModelConfig, mp: dict, h: torch.Tensor):
 
 def _layer_prefill(cfg: ModelConfig, spec: StageSpec, lp: dict,
                    x: torch.Tensor, *, positions: torch.Tensor, max_seq: int,
-                   cross_src):
+                   cross_src, rules: ShardingRules, mesh):
     """Like ``_layer_fwd`` but also returns this layer's cache leaves (a
     dict); chunked attention only above ``PREFILL_CHUNK_THRESHOLD``
     tokens."""
@@ -617,7 +718,7 @@ def _layer_prefill(cfg: ModelConfig, spec: StageSpec, lp: dict,
     cache: dict = {}
     if kind == "cross":
         cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, cross_src)
-        return _gated_cross(cfg, lp, x, kv), cache
+        return _gated_cross(cfg, lp, x, kv, rules=rules, mesh=mesh), cache
     if kind not in ("attn", "attn_cross", "mamba", "hybrid"):
         raise ValueError(f"layer kind {kind} has no prefill step")
     h = _norm(lp["ln1"], x, cfg)
@@ -645,12 +746,14 @@ def _layer_prefill(cfg: ModelConfig, spec: StageSpec, lp: dict,
     kv = None
     if kind == "attn_cross":
         cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, cross_src)
-    return _cross_and_ffn(cfg, kind, lp, x, kv), cache
+    return _cross_and_ffn(cfg, kind, lp, x, kv, rules=rules,
+                          mesh=mesh), cache
 
 
 def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                  max_seq: int | None = None,
-                 cross_src: torch.Tensor | None = None):
+                 cross_src: torch.Tensor | None = None,
+                 rules: ShardingRules = NO_SHARD, mesh=None):
     """Forward over the prompt; returns (last-token logits [B, V] float32,
     filled cache).
 
@@ -659,20 +762,22 @@ def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     slots (slot = position % window), so ``decode_step`` continues
     seamlessly.  ``cross_src``: whisper's frames (encoded here) or
     llama-vision's patches; the cross layers cache their K/V over it.
-    Each stage's leaves are stacked from the layers' outputs, as the
-    reference's scan stacks them.
+    ``rules`` / ``mesh``: the MoE block's (tokens, source and the cache
+    made hold this rank's batch rows).  Each stage's leaves are stacked
+    from the layers' outputs, as the reference's scan stacks them.
     """
     B, S = tokens.shape
     max_seq = max_seq or S
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)
-    cross_src = _cross_source(cfg, params, cross_src)
+    cross_src = _cross_source(cfg, params, cross_src, rules=rules, mesh=mesh)
     cache: list = [[{} for _ in pat.stages] for pat in cfg.patterns]
     blocks = params["blocks"]
     for spec, pi, j, r, c in _layers(cfg.patterns):
         x, leaves = _layer_prefill(cfg, spec, _layer(blocks[pi][j], r, c), x,
                                    positions=positions, max_seq=max_seq,
-                                   cross_src=cross_src)
+                                   cross_src=cross_src, rules=rules,
+                                   mesh=mesh)
         stage = cache[pi][j]
         for name, leaf in leaves.items():
             if name not in stage:

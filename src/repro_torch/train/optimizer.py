@@ -7,9 +7,9 @@ and ``v`` in ``state_dtype`` and the math in float32; Adafactor's is
 ``{"f": [per-leaf {"vr", "vc"} | {"v"}], "count"}``, a list in the
 flattening order of :mod:`repro_torch.tree` (JAX's), so a state goes
 across between the packages (``interop.opt_state_from``) and through
-either checkpoint store.  The reference's ``init_specs`` declares the
-state's sharding for its dry-run; there is no mesh here, so it is left
-out.
+either checkpoint store.  ``init_specs(param_specs, param_shapes)``
+mirrors a parameter spec tree (``layers.P`` leaves) onto the state, as
+the reference's does for its dry-run (``launch/dryrun.py``).
 
 ``update(grads, state, params, step) -> (updates, state)`` is the
 reference's call; ``apply(grads, state, params, step) -> state`` adds the
@@ -30,6 +30,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models.layers import P, is_spec
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -38,6 +39,8 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Any], tuple[Any, Any]]
     apply: Callable[[Any, Any, Any, Any], Any]
+    # init_specs(param_specs, param_shapes) -> the state's spec tree
+    init_specs: Callable[[Any, Any], Any]
 
 
 def _slices(shape) -> list[tuple]:
@@ -158,7 +161,10 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
                 sink(i, idx, u)
         return {"m": state["m"], "v": state["v"], "count": count}
 
-    return Optimizer(init, *_update_and_apply(run))
+    def init_specs(param_specs, param_shapes=None):
+        return {"m": param_specs, "v": param_specs, "count": P()}
+
+    return Optimizer(init, *_update_and_apply(run), init_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +236,21 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
                 sink(i, idx, neg_lr * (u / div))
         return {"f": state["f"], "count": count}
 
-    return Optimizer(init, *_update_and_apply(run))
+    def init_specs(param_specs, param_shapes):
+        # a factor's spec is the parameter's with the reduced dim dropped
+        out = []
+        for spec, shp in zip(tree_leaves(param_specs, is_leaf=is_spec),
+                             tree_leaves(param_shapes)):
+            spec = tuple(spec or ())
+            spec = spec + (None,) * (len(shp.shape) - len(spec))
+            if _factored(shp.shape):
+                out.append({"vr": P(*spec[:-1]),
+                            "vc": P(*spec[:-2], spec[-1])})
+            else:
+                out.append({"v": P(*spec)})
+        return {"f": out, "count": P()}
+
+    return Optimizer(init, *_update_and_apply(run), init_specs)
 
 
 def make_optimizer(name: str, *, state_dtype: str = "bfloat16",

@@ -13,32 +13,41 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator
 
 
-def tree_flatten_with_path(tree, prefix: tuple = ()
+def tree_flatten_with_path(tree, prefix: tuple = (), is_leaf=None
                            ) -> Iterator[tuple[tuple, Any]]:
     """(path, leaf) pairs; a path is the keys and indices down to the
-    leaf."""
-    if isinstance(tree, dict):
+    leaf.  ``is_leaf(node)`` true makes a node a leaf (a spec tree's
+    ``P``, a tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from tree_flatten_with_path(tree[k], prefix + (k,))
+            yield from tree_flatten_with_path(tree[k], prefix + (k,),
+                                              is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from tree_flatten_with_path(v, prefix + (i,))
+            yield from tree_flatten_with_path(v, prefix + (i,), is_leaf)
     else:
         yield prefix, tree
 
 
-def tree_leaves(tree) -> list:
-    return [leaf for _, leaf in tree_flatten_with_path(tree)]
+def tree_leaves(tree, is_leaf=None) -> list:
+    return [leaf for _, leaf in tree_flatten_with_path(tree,
+                                                       is_leaf=is_leaf)]
 
 
-def tree_map(fn: Callable, tree, *rest):
+def tree_map(fn: Callable, tree, *rest, is_leaf=None):
     """``fn`` over the leaves of ``tree`` and the matching leaves of each
-    tree in ``rest`` (the same structure), in a tree of that structure."""
+    tree in ``rest`` (the same structure), in a tree of that structure;
+    ``is_leaf`` as in ``tree_flatten_with_path``, applied to ``tree``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
 

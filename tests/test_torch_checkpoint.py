@@ -219,7 +219,7 @@ def test_launcher_crash_and_resume_bit_equal(tmp_path, capsys):
 
 
 def test_launcher_remesh_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="item 5.5"):
+    with pytest.raises(NotImplementedError, match="item 5.7"):
         launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
                        "--remesh"])
 

@@ -3,8 +3,8 @@
 in float32 within rtol = atol = 1e-4: the router with tied logits, the
 dispatch with assignments dropped past capacity and with a share of the
 experts held, the block at a capacity that drops and one that does not;
-the active parameter count; the mesh branch, which waits for a later
-slice."""
+the active parameter count.  The block over a mesh is held in
+``test_torch_mesh.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -112,16 +112,6 @@ def test_moe_block_matches_reference(activation, capacity_factor):
               activation=activation, glu=True)
     want = _ref_block(jw, jx, mesh=None, **kw)
     _close(PL.moe_block(tw, tx, **kw), want)
-
-
-def test_mesh_branch_raises():
-    """The MoE over a mesh (the expert-parallel path with
-    ``_moe_local_compute_2d``) waits for ROADMAP item 5.5."""
-    _, tw = _weights(6)
-    _, tx = _x(7, 2, 3, D)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5.5"):
-        PL.moe_block(tw, tx, n_experts=E, top_k=2, capacity_factor=1.25,
-                     activation="silu", glu=True, mesh=object())
 
 
 @pytest.mark.parametrize("arch_id", MOE)
