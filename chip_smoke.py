@@ -38,8 +38,7 @@ set to 0 just before it and read just after:
   (``SERVE_MODELS``: the MoE moonshot-v1-16b-a3b whole, 56.1 GB;
   falcon-mamba-7b, hymba-1.5b and whisper-medium whole;
   llama-3.2-vision-90b at one period of its pattern and arctic-480b at one
-  layer) at the launcher's load (llama-vision and hymba also a larger
-  one), and a float32 run
+  layer) at the launcher's load, and a float32 run
   against the host of each new layer kind at 2 layers;
 - train (``repro_torch.train``, ``launch/train.py``, ``checkpoint/``):
   8 AdamW steps (bf16) of qwen2-0.5b at its published width at 8 x 256
@@ -57,8 +56,13 @@ set to 0 just before it and read just after:
   deterministic algorithms and in float32 at 2 layers within 1e-5, with
   the collectives of a prefill and a decode step; then the dry-run's
   memory model over the 33 cells on both production meshes, on the host;
-  then RAG (``examples/rag_serving_torch.py``): the LM
-  embeds 512 documents, the navis index is built over them on the card
+  then moonshot-v1-16b-a3b at its published widths cut to 8 layers,
+  trained (AdamW, bf16) at 4 x 512 through the same mesh (the experts'
+  backward through its collectives), bit for bit the run with no mesh
+  under deterministic algorithms, and in float32 at 2 layers within
+  1e-5 / 1e-4 of the host (its counts read apart, as ``mesh_train``);
+  then RAG (``examples/rag_serving_torch.py``): the LM embeds 512
+  documents, the navis index is built over them on the card
   and a wave of 256 embedded queries retrieves from it (its counts are
   read apart, as ``rag``).
 
@@ -129,18 +133,17 @@ RAG_QUERIES = 256
 # loads): depth is cut only where the weights exceed the card,
 # llama-3.2-vision-90b to one period of its pattern (4 attn + 1 cross
 # layers; 175 GB in bf16 whole) and arctic-480b to 1 of its 35 layers
-# (954 GB whole).  The loads are the launcher's 4 x 64 + 32; llama-vision
-# adds 4 x 512 + 64 (its float32 cross-attention scores over 6,404
-# patches are [B, 64, S, 6404]) and hymba 2 x 1,536 + 32, past its
-# 1,024-slot rings in prefill and in decode.  Their larger load of 32 x
-# 512 + 64 was cut to keep the whole smoke under 900 s (qwen2-0.5b keeps
-# it, SERVE_LOADS).
+# (954 GB whole).  The load is the launcher's 4 x 64 + 32; the larger
+# ones (32 x 512 + 64 for each, 4 x 512 + 64 for llama-vision and 2 x
+# 1,536 + 32 for hymba, past its 1,024-slot rings) were cut to keep the
+# whole smoke under 900 s (qwen2-0.5b keeps 32 x 512 + 64, SERVE_LOADS;
+# the CPU tests hold hymba's rings).
 SERVE_MODELS = (
     ("moonshot-v1-16b-a3b", None, ((4, 64, 32),)),
     ("falcon-mamba-7b", None, ((4, 64, 32),)),
-    ("hymba-1.5b", None, ((4, 64, 32), (2, 1536, 32))),
+    ("hymba-1.5b", None, ((4, 64, 32),)),
     ("whisper-medium", None, ((4, 64, 32),)),
-    ("llama-3.2-vision-90b", 5, ((4, 64, 32), (4, 512, 64))),
+    ("llama-3.2-vision-90b", 5, ((4, 64, 32),)),
     ("arctic-480b", 1, ((4, 64, 32),)),
 )
 PUBLISHED_PARAMS = {
@@ -192,6 +195,16 @@ MESH_LOAD = (4, 64, 32)
 MESH_FP32_LAYERS = 2
 MESH_FP32_TOL = 1e-5
 DRYRUN_CELLS = 66
+# Training over the mesh (make_train_step(rules=, mesh=)): MESH_ARCH at its
+# published widths, bf16, its ArchSpec optimizer (AdamW, bf16 moments),
+# cut to MESH_TRAIN_LAYERS of its 48 layers so that weights, gradients and
+# moments (8 bytes a parameter) fit one card; MESH_TRAIN_STEPS steps on one
+# batch of MESH_TRAIN_LOAD (batch, seq), through the 1 x 1 mesh and with no
+# mesh; float32 at MESH_FP32_LAYERS layers and TRAIN_FP32_LOAD through the
+# mesh on the card against no mesh on the host.
+MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_STEPS = 4
+MESH_TRAIN_LOAD = (4, 512)
 
 KERNELS = {
     "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
@@ -236,8 +249,9 @@ PATH_KERNELS = {
     # too) ...
     "train": ((), tuple(KERNELS)),
     # ... nor does the mesh (its collectives are NCCL's, its products
-    # torch.matmul) ...
+    # torch.matmul), serving or training ...
     "mesh": ((), tuple(KERNELS)),
+    "mesh_train": ((), tuple(KERNELS)),
     # ... and the RAG wave runs the navis search
     "rag": (("pool_merge", "adc_distance", "casr_rerank"),
             ("rerank_l2", "rerank_l2_rows")),
@@ -2023,7 +2037,7 @@ def serving_path(torch, paths: Paths) -> dict:
         torch.cuda.empty_cache()
     counts = {"serving": paths.end("serving")}
     counts["train"] = train_path(torch, paths)
-    counts["mesh"] = mesh_path(torch, paths)
+    counts.update(mesh_path(torch, paths))
     paths.start("rag")
     phase_serving_rag(torch, cfg, params)
     counts["rag"] = paths.end("rag")
@@ -2518,15 +2532,20 @@ def train_path(torch, paths: Paths) -> dict:
 # ---------------------------------------------------------------------------
 
 def mesh_path(torch, paths: Paths) -> dict:
-    """``launch/mesh.py`` on the card (its counts read as ``mesh``):
-    MESH_ARCH served through a 1 x 1 mesh on a one-rank NCCL group (torn
-    down after), then the dry-run over every cell."""
+    """``launch/mesh.py`` on the card: MESH_ARCH served through a 1 x 1
+    mesh on a one-rank NCCL group, then the dry-run over every cell (the
+    counts read as ``mesh``); then MESH_ARCH trained through the same
+    mesh (read as ``mesh_train``).  The group is torn down after."""
     _init_group(torch, "mesh")
     try:
         paths.start("mesh")
         phase_mesh_serve(torch)
         phase_mesh_dryrun(torch)
-        return paths.end("mesh")
+        out = {"mesh": paths.end("mesh")}
+        paths.start("mesh_train")
+        phase_mesh_train(torch)
+        out["mesh_train"] = paths.end("mesh_train")
+        return out
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2603,17 +2622,17 @@ def phase_mesh_serve(torch) -> None:
     ``make_smoke_mesh()`` (prefill in the gather regime, decode in the 2-D
     one, every collective through a one-rank NCCL group).
 
-    A 1 x 1 mesh changes no arithmetic, but on the card the MoE's combine
-    (``index_add_``, ``layers._combine``) adds each token's k expert
-    outputs with atomics, in an order that changes from run to run, so
-    in bf16 even two serves with no mesh differ (printed, with the
-    mesh's difference).  Gated: under ``torch.use_deterministic_algorithms``
-    (a sorted, ordered ``index_add_``) the two serves' greedy tokens are
-    equal and their final logits bit-equal; and in float32 at
-    MESH_FP32_LAYERS layers, in the default (atomic) mode, the logits
-    within MESH_FP32_TOL.  Printed: both serves' times, the memory each
-    adds, and the collectives and a profile of a prefill and a decode
-    step."""
+    A 1 x 1 mesh changes no arithmetic, and the MoE's combine
+    (``layers._combine``) adds each token's k expert outputs in a fixed
+    order, with no atomics.  Gated: in the default mode, two serves with
+    no mesh give equal greedy tokens and bit-equal final logits (the
+    mesh's difference from them is printed); under
+    ``torch.use_deterministic_algorithms`` (no ``warn_only``: an op with
+    no deterministic CUDA version raises) the mesh's serve equals the
+    serve with no mesh in the same way; and in float32 at
+    MESH_FP32_LAYERS layers the logits within MESH_FP32_TOL.  Printed:
+    both serves' times, the memory each adds, and the collectives and a
+    profile of a prefill and a decode step."""
     from repro_torch.launch import mesh as M
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
@@ -2629,12 +2648,9 @@ def phase_mesh_serve(torch) -> None:
     atomic = dict(mesh_vs_no_mesh=_same(runs["mesh"]["res"],
                                         runs["no_mesh"]["res"]),
                   no_mesh_vs_no_mesh=_same(again, runs["no_mesh"]["res"]))
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
+    with _deterministic(torch):
         ordered = _same(serve(cfg, gen=gen, mesh=mesh, **kw),
                         serve(cfg, gen=gen, **kw))
-    finally:
-        torch.use_deterministic_algorithms(False)
     steps = _mesh_steps(torch, cfg, params, mesh, MESH_LOAD)
     sample = runs["mesh"]["res"]["tokens"][0, :8].tolist()
     for r in runs.values():
@@ -2654,6 +2670,9 @@ def phase_mesh_serve(torch) -> None:
             runs["mesh"]["collective_calls"] > 0 and
             steps["decode_step"]["calls"] > 0,
             f"mesh: collectives {runs} {steps}")
+    same = atomic["no_mesh_vs_no_mesh"]
+    require(same["tokens_equal"] and same["logits_bit_equal"],
+            f"mesh: two bf16 serves with no mesh differ {same}")
     require(ordered["tokens_equal"] and ordered["logits_bit_equal"],
             f"mesh: deterministic bf16 serves differ {ordered}")
     require(fp32["tokens_equal"] and
@@ -2661,9 +2680,21 @@ def phase_mesh_serve(torch) -> None:
             f"mesh: float32 serves differ {fp32}")
 
 
+@contextlib.contextmanager
+def _deterministic(torch):
+    """``torch.use_deterministic_algorithms(True)`` for the block: an op
+    with no deterministic CUDA version raises (cuBLAS's workspace is fixed
+    by ``CUBLAS_WORKSPACE_CONFIG``, set in ``main``)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def _mesh_fp32(torch, mesh) -> dict:
     """MESH_ARCH in float32 cut to MESH_FP32_LAYERS layers, served with no
-    mesh and through ``mesh`` (the default, atomic ``index_add_``)."""
+    mesh and through ``mesh``."""
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
     cfg, reduced = _published(MESH_ARCH, "float32", MESH_FP32_LAYERS)
@@ -2707,6 +2738,210 @@ def phase_mesh_dryrun(torch) -> None:
                             "llama-3.2-vision-90b")})
     require(len(files) == DRYRUN_CELLS and not bad,
             f"mesh:dryrun: {len(files)} cells, bad totals {bad}")
+
+
+def _step_collectives(torch, mesh, loss_fn, params, data) -> dict:
+    """The collectives of one forward (the loss) and its backward through
+    ``mesh``, from the mesh's counts: the backward's own (``backward_*``:
+    the gathers' sum-scatters and the entries' sums) apart from the
+    forward collectives its recompute issues again.  No update."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    mesh.stats.update(dict.fromkeys(M.STATS, 0))
+    loss = loss_fn(params, data)
+    fwd = dict(mesh.stats)
+    grads = torch.autograd.grad(loss, leaves)
+    del grads, loss
+    after = dict(mesh.stats)
+    return {
+        "forward": {"calls": fwd["calls"], "bytes": fwd["bytes"]},
+        "recompute": {
+            "calls": after["calls"] - after["backward_calls"] - fwd["calls"],
+            "bytes": after["bytes"] - after["backward_bytes"] - fwd["bytes"]},
+        "backward": {"calls": after["backward_calls"],
+                     "bytes": after["backward_bytes"]}}
+
+
+def _mesh_train_run(torch, cfg, data, mesh, *, deterministic: bool,
+                    profile: bool = False) -> dict:
+    """MESH_TRAIN_STEPS steps of the train step from the seeded init (seed
+    0), through ``mesh`` (None: no mesh), under deterministic algorithms
+    or not, each step timed on the host clock to a synchronise: the
+    losses, step times, peak memory against the static bytes (weights,
+    gradients, moments), the run's seconds and its final parameters (on
+    the card: 10.5 GB beside the next run's ~54 GB).
+    ``profile``: the collectives of a forward and its backward and of a
+    whole step (through the mesh), and then a profiled step."""
+    from repro_torch import configs as C
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import (init_opt_state, make_loss_fn,
+                                              make_train_step)
+    from repro_torch.tree import tree_leaves
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    out = {}
+    mode = _deterministic(torch) if deterministic else contextlib.nullcontext()
+    with mode:
+        params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        opt = O.make_optimizer(C.get_arch(MESH_ARCH).optimizer,
+                               lr=O.cosine_schedule(
+                                   3e-4, warmup=1, total=MESH_TRAIN_STEPS))
+        state = init_opt_state(cfg, opt, params)
+        out["static_bytes"] = sum(
+            2 * t.numel() * t.element_size() for t in tree_leaves(params)) \
+            + sum(t.numel() * t.element_size() for t in tree_leaves(state))
+        kw = {}
+        if mesh is not None:
+            kw = dict(rules=M.make_rules(mesh, kind="train",
+                                         global_batch=MESH_TRAIN_LOAD[0],
+                                         cfg=cfg), mesh=mesh)
+            params = M.shard_tree(params, M.ep_specs(T.param_specs(cfg)),
+                                  mesh)
+            if profile:
+                out["collectives"] = _step_collectives(
+                    torch, mesh, make_loss_fn(cfg, **kw), params, data)
+                mesh.stats.update(dict.fromkeys(M.STATS, 0))
+        step_fn = make_train_step(cfg, opt, **kw)
+        losses, secs = [], []
+        for i in range(MESH_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, data, i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            if i == 0 and "collectives" in out:
+                step = {k: mesh.stats[k] for k in ("calls", "bytes")}
+                out["collectives"]["step"] = step
+                out["collectives"]["reduction_and_optimizer"] = {
+                    k: step[k] - sum(out["collectives"][p][k] for p in (
+                        "forward", "recompute", "backward"))
+                    for k in step}
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - live
+        out["final"] = [t.detach() for t in tree_leaves(params)]
+        if profile:
+            out["profile"] = profile_window(
+                torch, lambda: step_fn(params, state, data,
+                                       MESH_TRAIN_STEPS))
+    del params, state, step_fn
+    torch.cuda.empty_cache()
+    step_s = sum(secs[1:]) / len(secs[1:])
+    out.update(losses=losses, step_s=secs, step_ms=step_s * 1e3,
+               tokens_s=data["tokens"].numel() / step_s,
+               seconds=time.perf_counter() - start)
+    return out
+
+
+def _runs_differ(torch, a: dict, b: dict) -> dict:
+    """Two runs' losses and final parameters: equal bit for bit, and the
+    largest difference of a parameter (taken in its dtype, on the card);
+    the parameters are then freed."""
+    equal = [x.equal(y) for x, y in zip(a["final"], b["final"])]
+    diff = max((0.0 if same else float((x - y).abs().max()))
+               for same, x, y in zip(equal, a.pop("final"), b.pop("final")))
+    torch.cuda.empty_cache()
+    return dict(losses_equal=a["losses"] == b["losses"],
+                params_bit_equal=all(equal), params_max_abs_diff=diff)
+
+
+def phase_mesh_train(torch) -> None:
+    """MESH_ARCH at its published widths (bf16, AdamW with bf16 moments)
+    cut to MESH_TRAIN_LAYERS layers, MESH_TRAIN_STEPS steps on one batch
+    of MESH_TRAIN_LOAD through ``make_smoke_mesh()`` (train rules: the
+    experts gathered over ``data`` and summed over ``model`` in the
+    forward, sum-scattered and their entries summed in the backward; the
+    gradients reduced and the global norm summed through the mesh), then
+    the same steps with no mesh, each run from the same seeded init and
+    freed before the next.  Gated: finite, falling losses; under
+    deterministic algorithms the mesh's losses and final parameters
+    bit-equal to the run with no mesh (a 1 x 1 mesh changes no
+    arithmetic); float32 at MESH_FP32_LAYERS layers through the mesh on
+    the card within 1e-5 (loss) and 1e-4 (every gradient leaf, relative
+    L2) of no mesh on the host.  Printed: step ms and tokens/s with and
+    without the mesh (and with no mesh in the default mode), the
+    collectives of a step by part, peak memory against the static bytes,
+    a profiled step of each, and whether two runs with no mesh in the
+    default mode are bit-equal."""
+    from repro_torch.launch import mesh as M
+    start = time.perf_counter()
+    mesh = M.make_smoke_mesh()
+    cfg, reduced = _published(MESH_ARCH, layers=MESH_TRAIN_LAYERS)
+    batch, seq = MESH_TRAIN_LOAD
+    reduced = reduced + [f"batch x seq: {batch} x {seq} of the train_4k "
+                         "cell's 256 x 4,096"]
+    data = _train_batch(torch, cfg, batch, seq, 0, "cuda")
+    meshed = _mesh_train_run(torch, cfg, data, mesh, deterministic=True,
+                             profile=True)
+    plain = _mesh_train_run(torch, cfg, data, None, deterministic=True,
+                            profile=True)
+    ordered = _runs_differ(torch, meshed, plain)
+    atomic = [_mesh_train_run(torch, cfg, data, None, deterministic=False)
+              for _ in range(2)]
+    default_mode = _runs_differ(torch, *atomic)
+    fp32 = _mesh_train_fp32(torch, mesh)
+    emit("mesh:train", arch=MESH_ARCH, mesh=mesh.shape, backend="nccl",
+         layers=cfg.num_layers, reduced=reduced, dtype=str(cfg.dtype),
+         batch=batch, seq=seq, steps=MESH_TRAIN_STEPS,
+         mesh_run=meshed, no_mesh_run=plain,
+         deterministic_mesh_vs_no_mesh=ordered,
+         default_mode_no_mesh=dict(
+             step_ms=atomic[0]["step_ms"], tokens_s=atomic[0]["tokens_s"],
+             losses=atomic[0]["losses"],
+             seconds=[r["seconds"] for r in atomic], **default_mode),
+         fp32=fp32, seconds=time.perf_counter() - start)
+    losses = meshed["losses"]
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"mesh:train: losses {losses}")
+    require(ordered["losses_equal"] and ordered["params_bit_equal"],
+            f"mesh:train: the mesh's run differs from no mesh {ordered}")
+    require(fp32["loss_rel"] <= 1e-5 and fp32["max_grad_rel_l2"] <= 1e-4,
+            f"mesh:train: float32 against the host {fp32}")
+
+
+def _mesh_train_fp32(torch, mesh) -> dict:
+    """MESH_ARCH in float32 (matmul precision "highest") cut to
+    MESH_FP32_LAYERS layers, TRAIN_FP32_LOAD: the loss and its gradients
+    through ``mesh`` on the card against ``mesh=None`` on the host, from
+    the same weights (drawn on the card from a seed, copied to the host)
+    and batch."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import make_grad_fn
+    from repro_torch.tree import tree_leaves, tree_map
+    start = time.perf_counter()
+    torch.set_float32_matmul_precision("highest")
+    cfg, reduced = _published(MESH_ARCH, "float32", MESH_FP32_LAYERS)
+    batch, seq = TRAIN_FP32_LOAD
+    p_gpu = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+    p_cpu = tree_map(lambda t: t.to("cpu"), p_gpu)
+    data = _train_batch(torch, cfg, batch, seq, 2, "cpu")
+    t0 = time.perf_counter()
+    want, g_cpu = make_grad_fn(cfg)(p_cpu, data)
+    host_s = time.perf_counter() - t0
+    p_gpu = M.shard_tree(p_gpu, M.ep_specs(T.param_specs(cfg)), mesh)
+    rules = M.make_rules(mesh, kind="train", global_batch=batch, cfg=cfg)
+    got, g_gpu = make_grad_fn(cfg, rules=rules, mesh=mesh)(
+        p_gpu, {k: v.cuda() for k, v in data.items()})
+    rels = [_rel_l2(torch, a.cpu(), b) if float(b.norm()) > 0 else
+            float(a.abs().max())
+            for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu))]
+    want, got = float(want), float(got)
+    del p_cpu, p_gpu, g_cpu, g_gpu
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, reduced=reduced, batch=batch, seq=seq,
+                loss_card=got, loss_host=want,
+                loss_rel=abs(got - want) / abs(want), grad_leaves=len(rels),
+                max_grad_rel_l2=max(rels), host_s=host_s,
+                seconds=time.perf_counter() - start)
 
 
 def _train_flops(cfg, params, batch: int, seq: int) -> float:
@@ -2950,6 +3185,10 @@ def phase_scan_backward_fp64(torch) -> None:
 
 
 def main() -> int:
+    import os
+    # cuBLAS gives one result for one input only with a fixed workspace,
+    # which torch.use_deterministic_algorithms needs (set before any use)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

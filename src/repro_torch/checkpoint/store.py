@@ -18,9 +18,10 @@ bytes (``tensor.view(torch.uint8)``) and read back through
 Commit protocol: write into ``step_X.tmp/``, fsync, rename to ``step_X/``,
 then rewrite ``LATEST``: a crash at any point leaves either the previous
 checkpoint or a complete new one (``*.tmp`` dirs are removed by the next
-save).  The reference's elastic remesh (re-placing each leaf under
-another mesh's sharding) waits for training over a mesh (ROADMAP.md
-queue 1 item 5.7); ``load`` places the leaves on one device.
+save).  Elastic remesh: ``load(..., sharding=(specs, mesh))`` reads each
+leaf whole from the one shard file, as the reference does, and keeps this
+rank's block of it on the new mesh (``layers.shard_tree``), whatever
+mesh the checkpoint was written under.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_flatten_with_path, tree_unflatten
+from repro_torch.models.layers import shard_tree
+from repro_torch.tree import tree_flatten_with_path, tree_map, tree_unflatten
 
 
 def _leaves_with_names(tree) -> tuple[list[str], list]:
@@ -122,11 +124,14 @@ def _leaf(raw: np.ndarray, dtype: str, shape: list[int]) -> torch.Tensor:
 
 
 def load(ckpt_dir: str | Path, step: int, like: Any, *, shard: int = 0,
-         device=None) -> Any:
+         device=None, sharding=None) -> Any:
     """Restore the tree saved at ``step``: ``like`` supplies the structure
     (its leaves are not read), the manifest each leaf's dtype and shape;
     the leaves are placed on ``device``.  The leaf names must match
-    ``like``'s."""
+    ``like``'s.  ``sharding``, a pair (spec tree of ``like``'s structure,
+    ``launch.mesh.Mesh``), keeps only this rank's block of each leaf by
+    ``shard_tree`` (copied to ``device``): the reference's elastic restore
+    onto a new mesh."""
     dev = resolve_device(device)
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "MANIFEST.json").read_text())
@@ -138,15 +143,21 @@ def load(ckpt_dir: str | Path, step: int, like: Any, *, shard: int = 0,
             f"{len(like_leaves)})")
     with np.load(d / f"shard_{shard:05d}.npz") as data:
         leaves = [_leaf(data[f"leaf_{i:05d}"], manifest["dtypes"][i],
-                        manifest["shapes"][i]).to(dev)
+                        manifest["shapes"][i])
                   for i in range(manifest["n_leaves"])]
-    return tree_unflatten(like, leaves)
+    tree = tree_unflatten(like, leaves)
+    if sharding is None:
+        return tree_map(lambda x: x.to(dev), tree)
+    specs, mesh = sharding
+    return tree_map(lambda x: x.to(dev, copy=True),
+                    shard_tree(tree, specs, mesh))
 
 
 def load_latest(ckpt_dir: str | Path, like: Any, *, shard: int = 0,
-                device=None):
+                device=None, sharding=None):
     """(step, tree) of the newest committed checkpoint, or (None, None)."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None
-    return step, load(ckpt_dir, step, like, shard=shard, device=device)
+    return step, load(ckpt_dir, step, like, shard=shard, device=device,
+                      sharding=sharding)

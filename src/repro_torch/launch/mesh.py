@@ -17,13 +17,23 @@ axis of size 1 still goes through its (one-rank) group.
 shape the dry-run reads, with no process group; a collective on it
 raises.
 
-Placement in this slice (``shard_tree`` with ``ep_specs``): a rank holds
+Placement in this slice (``shard_tree`` with ``ep_specs``, defined in
+``models/layers.py`` and reached here): a rank holds
 its batch rows (``batch_specs``), its block of each expert leaf by
 ``transformer.param_specs`` (E over ``model``; D, or F for ``down``, over
 ``data``) and every other leaf whole.  ``interop.params_from`` followed by
 ``shard_tree`` carries the reference's weights to a rank.  The dense
 leaves' tensor-parallel / FSDP placement by ``param_specs`` is ROADMAP.md
 queue 1 item 5.6.
+
+Under autograd (training over a mesh) the collectives differentiate as
+the reference's ``shard_map`` transposes them: ``all_gather``'s backward
+is a sum-scatter over the same group; ``sum_partials`` (a ``psum`` of
+partials that every rank of the group then uses alike, as the MoE's
+output and the loss) passes its cotangent through; ``enter`` (a value
+held alike by the group entering work split over it, as the MoE's tokens
+and gates) sums the ranks' partial cotangents.  ``all_reduce`` itself
+writes in place and is not differentiable.
 """
 from __future__ import annotations
 
@@ -34,8 +44,12 @@ import os
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.layers import P, ShardingRules, is_spec
-from repro_torch.tree import tree_map
+from repro_torch.models.layers import P, ShardingRules
+# the placement helpers live beside P (checkpoint/ and train/ use them
+# too); the mesh's users reach them here
+from repro_torch.models.layers import ep_specs, shard_tree  # noqa: F401
+
+STATS = ("calls", "bytes", "backward_calls", "backward_bytes")
 
 
 class Mesh:
@@ -45,14 +59,16 @@ class Mesh:
     ``shape``: the axis sizes in order, as ``jax``'s ``mesh.shape`` reads;
     ``coords``: this rank's coordinate on each axis (None when virtual).
     ``stats`` counts the collectives this rank issued (``calls``) and the
-    bytes it handed them (``bytes``: each call's input)."""
+    bytes it handed them (``bytes``: each call's input); those issued by
+    a backward are counted there too, and apart in ``backward_calls`` and
+    ``backward_bytes``."""
 
     def __init__(self, shape: dict[str, int], *, group=None,
                  virtual: bool = False):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
-        self.stats = {"calls": 0, "bytes": 0}
+        self.stats = dict.fromkeys(STATS, 0)
         self.coords = None
         self._groups = None
         if virtual:
@@ -120,17 +136,15 @@ class Mesh:
             flat = flat * self.shape[a] + self.axis_index(a)
         return flat
 
-    def _count(self, x: torch.Tensor) -> None:
+    def _count(self, x: torch.Tensor, backward: bool = False) -> None:
+        n = x.numel() * x.element_size()
         self.stats["calls"] += 1
-        self.stats["bytes"] += x.numel() * x.element_size()
+        self.stats["bytes"] += n
+        if backward:
+            self.stats["backward_calls"] += 1
+            self.stats["backward_bytes"] += n
 
-    def all_gather(self, x: torch.Tensor, axes, dim: int = 0
-                   ) -> torch.Tensor:
-        """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the ranks'
-        ``x`` concatenated along ``dim`` in group order.  No axes: x."""
-        axes = self._axes(axes)
-        if not axes:
-            return x
+    def _gather(self, x, axes, dim: int) -> torch.Tensor:
         group = self._group(axes)
         n = math.prod(self.shape[a] for a in axes)
         x = x.contiguous()
@@ -143,16 +157,104 @@ class Mesh:
         return out.reshape(x.shape[:dim] + (n * x.shape[dim],) +
                            x.shape[dim + 1:])
 
+    def _sum_scatter(self, g, axes, dim: int) -> torch.Tensor:
+        """The transpose of ``_gather``: ``g`` cut along ``dim`` into the
+        group's blocks in group order, each block summed over the group;
+        this rank's block (a backward's collective)."""
+        group = self._group(axes)
+        n = math.prod(self.shape[a] for a in axes)
+        g = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
+        g = g.contiguous()
+        out = g.new_empty(g.shape[1:])
+        self._count(g, backward=True)
+        dist.reduce_scatter_tensor(
+            out, g.reshape((-1,) + tuple(g.shape[2:])), group=group)
+        return out
+
+    def _sum(self, x, axes, backward: bool = False) -> torch.Tensor:
+        self._count(x, backward)
+        dist.all_reduce(x, group=self._group(axes))
+        return x
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0
+                   ) -> torch.Tensor:
+        """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the ranks'
+        ``x`` concatenated along ``dim`` in group order.  No axes: x.
+        Under autograd its backward sums the cotangent over the group and
+        scatters it back (``reduce_scatter_tensor``, same order)."""
+        axes = self._axes(axes)
+        if not axes:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Gather.apply(x, self, axes, dim)
+        return self._gather(x, axes, dim)
+
     def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
         """``lax.psum(x, axes)``, in place on ``x`` (returned).  No
-        axes: x."""
+        axes: x.  Not differentiable: under autograd use
+        :meth:`sum_partials` or :meth:`enter`."""
         axes = self._axes(axes, any_order=True)
         if not axes:
             return x
-        group = self._group(axes)
-        self._count(x)
-        dist.all_reduce(x, group=group)
-        return x
+        return self._sum(x, axes)
+
+    def sum_partials(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``psum`` of partials whose sum every rank of the group then uses
+        identically (Megatron's ``g``): under autograd the forward sums a
+        copy and the backward passes the cotangent through (each rank's
+        cotangent is already the whole one); without it, ``x`` is summed
+        in place, as :meth:`all_reduce`.  No axes: x."""
+        axes = self._axes(axes, any_order=True)
+        if not axes:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _SumPartials.apply(x, self, axes)
+        return self._sum(x, axes)
+
+    def enter(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The counterpart of :meth:`sum_partials` where a value held
+        identically by the group enters work split over it (Megatron's
+        ``f``): the forward is the identity, the backward sums the ranks'
+        partial cotangents (on a copy).  No axes, or no autograd: x."""
+        axes = self._axes(axes, any_order=True)
+        if not axes or not (torch.is_grad_enabled() and x.requires_grad):
+            return x
+        return _Enter.apply(x, self, axes)
+
+
+class _Gather(torch.autograd.Function):
+    """``Mesh.all_gather`` with its backward: a sum-scatter over the same
+    group, in the same rank order."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh._gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._sum_scatter(g, ctx.axes, ctx.dim), None, None, None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh._sum(x.clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._sum(g.clone(), ctx.axes, backward=True), None, None
 
 
 def make_mesh(shape, axes, group=None) -> Mesh:
@@ -217,42 +319,6 @@ def make_rules(mesh, *, kind: str, global_batch: int,
         seq = "model"
     return ShardingRules(batch=b, tensor="model", fsdp="data", seq=seq,
                          moe_gather_weights=False)
-
-
-def _block(mesh: Mesh, x: torch.Tensor, spec) -> torch.Tensor:
-    for dim, ax in enumerate(tuple(spec or ())):
-        axes = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
-        if not axes:
-            continue
-        n = math.prod(mesh.shape[a] for a in axes)
-        chunk = -(-x.shape[dim] // n)
-        start = min(mesh.flat_index(axes) * chunk, x.shape[dim])
-        x = x.narrow(dim, start, min(chunk, x.shape[dim] - start))
-    return x
-
-
-def shard_tree(tree, spec_tree, mesh: Mesh):
-    """This rank's block of every leaf of ``tree`` by ``spec_tree`` (the
-    same structure, ``layers.P`` or None leaves): a dim split over axes
-    of ``n`` ranks in all comes in blocks of ``ceil(dim / n)``, as
-    ``dryrun._sharded_bytes`` reckons them (the last one shorter, or
-    empty).  Views, no copy.  It stands in for the reference's ``named``
-    + ``device_put``."""
-    return tree_map(lambda spec, x: _block(mesh, x, spec), spec_tree, tree,
-                    is_leaf=is_spec)
-
-
-def ep_specs(param_specs):
-    """The placement of this slice: the MoE leaves' specs as
-    ``param_specs`` gives them (the experts' ``up``, ``gate`` and
-    ``down``; the router's is whole), every other leaf whole (``P()``)."""
-    def walk(node, moe=False):
-        if is_spec(node):
-            return node if moe else P()
-        if isinstance(node, dict):
-            return {k: walk(v, moe or k == "moe") for k, v in node.items()}
-        return [walk(v, moe) for v in node]
-    return walk(param_specs)
 
 
 def batch_specs(mesh, rules: ShardingRules, input_tree):

@@ -18,8 +18,10 @@ Runs the smoke (reduced) configuration unless ``--full`` is given, on
 * ``--crash-at N`` exits hard (code 42) at step N, for restart drills
 
 The weights are drawn from a ``torch.Generator`` seeded with ``--seed``.
-``--remesh`` (the reference's restore onto another mesh) waits for
-training over a mesh (ROADMAP.md queue 1 item 5.7) and raises.
+``--remesh`` is accepted and read nowhere, as in the reference: this
+launcher builds no mesh and resumes every leaf whole, so a run with the
+flag resumes exactly as one without it.  A restore onto a mesh is
+``checkpoint.load(..., sharding=(specs, mesh))``.
 """
 from __future__ import annotations
 
@@ -56,8 +58,8 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--remesh", action="store_true",
-                    help="restore onto the current mesh (not ported: "
-                         "ROADMAP.md queue 1 item 5.7)")
+                    help="restore onto the current mesh regardless of the "
+                         "mesh the checkpoint was saved under")
     ap.add_argument("--max-retries", type=int, default=2)
     ap.add_argument("--crash-at", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
@@ -74,10 +76,6 @@ def _sync(dev: torch.device) -> None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.remesh:
-        raise NotImplementedError(
-            "--remesh restores onto another mesh, which waits for training "
-            "over a mesh (ROADMAP.md queue 1 item 5.7)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
                          "host")

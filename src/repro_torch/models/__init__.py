@@ -1,8 +1,9 @@
 """The LM substrate's models on PyTorch (port of ``repro/models``).
 
 ``config`` holds the configuration types, ``layers`` the plain layer
-functions, ``transformer`` the parameter tree, the forward pass, prefill
-and decode, for every stage kind (``attn``, ``attn_cross``, ``cross``,
-``mamba``, ``hybrid``, ``enc``) and FFN (dense, MoE, MoE + dense) of the
-ten assigned architectures.  Training waits (ROADMAP.md queue 1 item 5.4).
+functions, ``transformer`` the parameter tree, the forward pass, the
+training loss, prefill and decode, for every stage kind (``attn``,
+``attn_cross``, ``cross``, ``mamba``, ``hybrid``, ``enc``) and FFN (dense,
+MoE, MoE + dense) of the ten assigned architectures, on one device or
+over a ``launch.mesh.Mesh``.
 """

@@ -24,8 +24,8 @@ reference's; :func:`shard` is the identity, since eager PyTorch has no
 compiler to place activations and the reference's constraints change no
 value.  The one layer whose values depend on the mesh, ``moe_block``,
 runs expert-parallel over a ``launch.mesh.Mesh`` through its
-``torch.distributed`` groups (forward only; training over a mesh is
-ROADMAP.md queue 1 item 5.7).
+``torch.distributed`` groups, and under autograd through the mesh's
+differentiable collectives (the gather regime).
 """
 from __future__ import annotations
 
@@ -36,6 +36,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
+
+from repro_torch.tree import tree_map
 
 NEG = -1e30
 
@@ -63,6 +66,42 @@ class P(tuple):
 def is_spec(x) -> bool:
     """A leaf of a spec tree (``tree_leaves(..., is_leaf=is_spec)``)."""
     return isinstance(x, P) or x is None
+
+
+def _block(mesh, x: torch.Tensor, spec) -> torch.Tensor:
+    for dim, ax in enumerate(tuple(spec or ())):
+        axes = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
+        if not axes:
+            continue
+        n = math.prod(mesh.shape[a] for a in axes)
+        chunk = -(-x.shape[dim] // n)
+        start = min(mesh.flat_index(axes) * chunk, x.shape[dim])
+        x = x.narrow(dim, start, min(chunk, x.shape[dim] - start))
+    return x
+
+
+def shard_tree(tree, spec_tree, mesh):
+    """This rank's block of every leaf of ``tree`` by ``spec_tree`` (the
+    same structure, ``P`` or None leaves) on ``mesh`` (a
+    ``launch.mesh.Mesh``): a dim split over axes of ``n`` ranks in all
+    comes in blocks of ``ceil(dim / n)``, as ``dryrun._sharded_bytes``
+    reckons them (the last one shorter, or empty).  Views, no copy.  It stands in for the reference's ``named``
+    + ``device_put``."""
+    return tree_map(lambda spec, x: _block(mesh, x, spec), spec_tree, tree,
+                    is_leaf=is_spec)
+
+
+def ep_specs(param_specs):
+    """The placement of this slice: the MoE leaves' specs as
+    ``param_specs`` gives them (the experts' ``up``, ``gate`` and
+    ``down``; the router's is whole), every other leaf whole (``P()``)."""
+    def walk(node, moe=False):
+        if is_spec(node):
+            return node if moe else P()
+        if isinstance(node, dict):
+            return {k: walk(v, moe or k == "moe") for k, v in node.items()}
+        return [walk(v, moe) for v in node]
+    return walk(param_specs)
 
 
 def shard(x: torch.Tensor, spec) -> torch.Tensor:
@@ -416,12 +455,13 @@ def _dispatch(gates, idx, *, top_k: int, capacity: int, e_start: int,
     for the experts held elsewhere); an assignment's position within its
     expert comes from ``searchsorted``; those past ``capacity`` are
     dropped, contribute nothing and leave the token's other gates as they
-    are.  Returns (keep, buffer slot, token, gate) per sorted assignment;
-    a dropped one's slot is ``E_loc * capacity``, the buffer's sink row."""
+    are.  Returns (keep, buffer slot, flat index, gate) per sorted
+    assignment: its flat index is ``t * top_k + j`` for token t's j-th
+    choice; a dropped one's slot is ``E_loc * capacity``, the buffer's
+    sink row."""
     dev = idx.device
     n = idx.numel()
     flat_e = idx.reshape(-1)
-    flat_t = torch.arange(idx.shape[0], device=dev).repeat_interleave(top_k)
     local = (flat_e >= e_start) & (flat_e < e_start + E_loc)
     loc_e = torch.where(local, flat_e - e_start, E_loc)
     order = torch.argsort(loc_e, stable=True)
@@ -432,29 +472,37 @@ def _dispatch(gates, idx, *, top_k: int, capacity: int, e_start: int,
     keep = (pos_sorted < capacity) & (sorted_e < E_loc)
     buf_slot = torch.where(keep, sorted_e * capacity + pos_sorted,
                            E_loc * capacity)
-    return keep, buf_slot, flat_t[order], gates.reshape(-1)[order]
+    return keep, buf_slot, order, gates.reshape(-1)[order]
 
 
-def _grouped(x, keep_f, buf_slot, tok_sorted, E_loc: int, capacity: int):
+def _grouped(x, keep_f, buf_slot, flat, top_k: int, E_loc: int,
+             capacity: int):
     """Token rows of ``x`` [T, d] in the ``[E_loc, capacity, d]`` expert
     buffer (through a sink row for the dropped ones)."""
     x_buf = x.new_zeros((E_loc * capacity + 1, x.shape[1]))
-    x_buf[buf_slot] = x[tok_sorted] * keep_f[:, None]
+    x_buf[buf_slot] = x[flat // top_k] * keep_f[:, None]
     return x_buf[:-1].reshape(E_loc, capacity, x.shape[1])
 
 
-def _combine(y, keep_f, buf_slot, tok_sorted, gate_sorted, T: int):
+def _combine(y, keep_f, buf_slot, flat, gate_sorted, T: int, top_k: int):
     """The experts' outputs ``y`` [E_loc, capacity, D] back to their
-    tokens, times their gates: the partial output [T, D].  On CUDA
-    ``index_add_`` adds a token's k rows with atomics, in an order that
-    changes from run to run (so bf16 results do too), unless
-    ``torch.use_deterministic_algorithms`` orders it."""
+    tokens, times their gates: the partial output [T, D], with no atomics.
+    Each assignment's gated row goes to its own slot ``flat = t * top_k +
+    j`` of a [T, top_k, D] buffer (a dropped or non-local one writes a
+    zero row; the slots are distinct, so the write is a plain copy and its
+    backward a gather), then each token's rows are added left to right,
+    ``((r0 + r1) + r2) ...``, in y's dtype: one result for one input on
+    any device."""
     E_loc, capacity, D = y.shape
     y = y.reshape(E_loc * capacity, D)
     y_tok = y[buf_slot.clamp(max=E_loc * capacity - 1)] * keep_f[:, None]
-    out = y.new_zeros((T, D))
-    return out.index_add_(0, tok_sorted,
-                          y_tok * gate_sorted[:, None].to(y.dtype))
+    rows = y.new_empty((T * top_k, D))
+    rows[flat] = y_tok * gate_sorted[:, None].to(y.dtype)
+    rows = rows.view(T, top_k, D)
+    out = rows[:, 0]
+    for j in range(1, top_k):
+        out = out + rows[:, j]
+    return out
 
 
 def _moe_local_compute(x, gates, idx, w_up, w_gate, w_down, *, top_k: int,
@@ -463,18 +511,18 @@ def _moe_local_compute(x, gates, idx, w_up, w_gate, w_down, *, top_k: int,
     ``[e_start, e_start + E_loc)`` that ``w_*`` ([E_loc, ...]) hold.
     x: [T, D]; returns the partial output [T, D]."""
     E_loc = w_up.shape[0]
-    keep, buf_slot, tok, gate = _dispatch(
+    keep, buf_slot, flat, gate = _dispatch(
         gates, idx, top_k=top_k, capacity=capacity, e_start=e_start,
         E_loc=E_loc)
     keep_f = keep.to(x.dtype)
-    xb = _grouped(x, keep_f, buf_slot, tok, E_loc, capacity)
+    xb = _grouped(x, keep_f, buf_slot, flat, top_k, E_loc, capacity)
     h = torch.bmm(xb, w_up)
     if w_gate is not None:
         h = _act(activation, torch.bmm(xb, w_gate)) * h
     else:
         h = _act(activation, h)
-    return _combine(torch.bmm(h, w_down), keep_f, buf_slot, tok, gate,
-                    x.shape[0])
+    return _combine(torch.bmm(h, w_down), keep_f, buf_slot, flat, gate,
+                    x.shape[0], top_k)
 
 
 def _moe_local_compute_2d(xg, xg_d, gates, idx, w_up, w_gate, w_down, *,
@@ -489,11 +537,11 @@ def _moe_local_compute_2d(xg, xg_d, gates, idx, w_up, w_gate, w_down, *,
     xg: [T, D] the gathered tokens; xg_d: [T, D_loc] this rank's D-slice.
     Returns the partial output [T, D]."""
     E_loc = w_up.shape[0]
-    keep, buf_slot, tok, gate = _dispatch(
+    keep, buf_slot, flat, gate = _dispatch(
         gates, idx, top_k=top_k, capacity=capacity, e_start=e_start,
         E_loc=E_loc)
     keep_f = keep.to(xg.dtype)
-    xb = _grouped(xg_d, keep_f, buf_slot, tok, E_loc, capacity)
+    xb = _grouped(xg_d, keep_f, buf_slot, flat, top_k, E_loc, capacity)
     h = torch.bmm(xb, w_up)                           # partial over D
     if w_gate is not None:
         hg = mesh.all_reduce(torch.cat([h, torch.bmm(xb, w_gate)], -1),
@@ -504,15 +552,15 @@ def _moe_local_compute_2d(xg, xg_d, gates, idx, w_up, w_gate, w_down, *,
         h = _act(activation, mesh.all_reduce(h, fsdp_ax))
     f_loc = w_down.shape[1]
     h_f = h.narrow(2, mesh.axis_index(fsdp_ax) * f_loc, f_loc)
-    return _combine(torch.bmm(h_f, w_down), keep_f, buf_slot, tok, gate,
-                    xg.shape[0])
+    return _combine(torch.bmm(h_f, w_down), keep_f, buf_slot, flat, gate,
+                    xg.shape[0], top_k)
 
 
 def _local_experts(w, mesh, rules, n_experts: int, full: int):
     """This rank's block of an expert leaf [E, X, Y] under the reference's
     ``shard_map`` spec ``P(tensor, fsdp, None)``: experts over the tensor
     axis, dim 1 (D, or F for ``down``; ``full`` its whole size) over fsdp.
-    The leaf may arrive as that block (``launch.mesh.shard_tree``) or whole
+    The leaf may arrive as that block (:func:`shard_tree`) or whole
     along a dim whose axis ``param_specs`` dropped (the smoke twins' 8
     experts on 16 production shards), and is then sliced here."""
     n_t = mesh.shape[rules.tensor]
@@ -532,19 +580,43 @@ def _local_experts(w, mesh, rules, n_experts: int, full: int):
     return w
 
 
+def _moe_gather_body(xf, gates, idx, w_up, w_gate, w_down, *, mesh,
+                     rules: ShardingRules, top_k: int, capacity: int,
+                     activation: str, e_start: int) -> torch.Tensor:
+    """The gather regime's body on this rank: the expert blocks gathered
+    over fsdp, this rank's experts over its tokens, the partials summed
+    over the tensor axis.  Under autograd the gathers' backward is a
+    sum-scatter over fsdp and the sum's is the identity."""
+    if rules.fsdp is not None:
+        w_up = mesh.all_gather(w_up, rules.fsdp, dim=1)
+        w_down = mesh.all_gather(w_down, rules.fsdp, dim=1)
+        if w_gate is not None:
+            w_gate = mesh.all_gather(w_gate, rules.fsdp, dim=1)
+    out = _moe_local_compute(
+        xf, gates, idx, w_up, w_gate, w_down, top_k=top_k,
+        capacity=capacity, activation=activation, e_start=e_start)
+    return mesh.sum_partials(out, rules.tensor)
+
+
 def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
                  capacity_factor: float, activation: str, glu: bool, mesh,
                  rules: ShardingRules) -> torch.Tensor:
     """The reference's ``shard_map`` body, run on this rank: ``xf`` [T_loc,
     D] holds this rank's token rows (all of them when ``rules.batch`` is
-    None).  Returns this rank's rows of the output."""
+    None).  Returns this rank's rows of the output.
+
+    Under autograd (the gather regime only, which the train rules take)
+    the tokens and gates enter through ``mesh.enter`` over the tensor axis
+    (each tensor rank's cotangent covers its own experts only, so the
+    backward sums them), and the body runs under a non-reentrant
+    checkpoint, as the reference's ``jax.checkpoint``: the backward
+    gathers the experts again (ZeRO-3) instead of holding each layer's
+    gathered copy, and the recompute issues the same collectives in the
+    same order on every rank."""
     weights = [params["up"], params["down"]] + ([params["gate"]] if glu
                                                 else [])
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in [xf] + weights):
-        raise NotImplementedError(
-            "moe_block over a mesh runs forward only: training over a mesh "
-            "(the expert-parallel backward) is ROADMAP.md queue 1 item 5.7")
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [xf, gates] + weights)
     tensor_ax, fsdp_ax = rules.tensor, rules.fsdp
     batch_axes = rules.batch if isinstance(rules.batch, tuple) else \
         (rules.batch,)
@@ -554,6 +626,10 @@ def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
     n_shards = mesh.shape[tensor_ax]
     E_loc = n_experts // n_shards
     gather_w = rules.moe_gather_weights or fsdp_ax is None
+    if grad and not gather_w:
+        raise NotImplementedError(
+            "moe_block's 2-D (decode) regime over a mesh runs forward "
+            "only: train with the gather regime (make_rules(kind='train'))")
     capacity = max(int((T_loc if gather_w else T_loc * batch_size)
                        * top_k * capacity_factor / n_experts), top_k)
     F_full = params["up"].shape[2]
@@ -564,15 +640,15 @@ def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
     e_start = mesh.axis_index(tensor_ax) * E_loc
     if gather_w:
         # train / prefill: gather the FSDP-sharded expert weights on use
-        if fsdp_ax is not None:
-            w_up = mesh.all_gather(w_up, fsdp_ax, dim=1)
-            w_down = mesh.all_gather(w_down, fsdp_ax, dim=1)
-            if w_gate is not None:
-                w_gate = mesh.all_gather(w_gate, fsdp_ax, dim=1)
-        out = _moe_local_compute(
-            xf, gates, idx, w_up, w_gate, w_down, top_k=top_k,
+        body = functools.partial(
+            _moe_gather_body, mesh=mesh, rules=rules, top_k=top_k,
             capacity=capacity, activation=activation, e_start=e_start)
-        return mesh.all_reduce(out, tensor_ax)
+        if not grad:
+            return body(xf, gates, idx, w_up, w_gate, w_down)
+        return ckpt.checkpoint(
+            body, mesh.enter(xf, tensor_ax), mesh.enter(gates, tensor_ax),
+            idx, w_up, w_gate, w_down, use_reentrant=False,
+            preserve_rng_state=False)
     # decode: the weights stay 2-D sharded; gather the (few) tokens over
     # the batch axes, sum the partial expert activations
     xg = mesh.all_gather(xf, batch_axes, dim=0)
@@ -605,7 +681,9 @@ def moe_block(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     at ``capacity = max(int(T_loc * k * cf / E), k)`` and sums over the
     tensor axis; otherwise (decode) it gathers the tokens over the batch
     axes, keeps the weights 2-D sharded (capacity from the global T) and
-    sums over (tensor, fsdp).  Forward only over a mesh.
+    sums over (tensor, fsdp).  Over a mesh it trains in the gather regime
+    (``_moe_on_mesh``); the 2-D regime runs forward only, as the
+    reference's train rules never take it.
     """
     B, S, D = x.shape
     xf = x.reshape(B * S, D)

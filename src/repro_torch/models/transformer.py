@@ -526,14 +526,24 @@ def _chunk_loss(hb: torch.Tensor, tb: torch.Tensor, w: torch.Tensor
 
 
 def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            cross_src: torch.Tensor | None = None, loss_chunk: int = 1024
-            ) -> torch.Tensor:
+            cross_src: torch.Tensor | None = None,
+            rules: ShardingRules = NO_SHARD, mesh=None,
+            loss_chunk: int = 1024) -> torch.Tensor:
     """Next-token cross-entropy (float32 scalar), the mean over ``B * (S -
     1)`` positions, computed ``loss_chunk`` positions at a time so the
     [B, S, V] float32 logits never exist whole.  Under autograd each
     chunk's logits are recomputed in the backward (the reference's
-    ``@jax.checkpoint``), as is each layer (``forward``'s ``remat``)."""
-    hidden = forward(cfg, params, tokens, cross_src=cross_src)
+    ``@jax.checkpoint``), as is each layer (``forward``'s ``remat``).
+
+    Over a mesh (``rules`` / ``mesh`` as ``forward``'s), ``tokens`` hold
+    this rank's batch rows, and every rank returns the reference's global
+    mean: the ranks' sums over ``rules.batch`` (``Mesh.sum_partials``),
+    over the global ``B * (S - 1)``.  The sum's backward is the identity,
+    so each rank differentiates its own sum over the global count: its
+    gradients are partials that the train step sums over the batch
+    axes."""
+    hidden = forward(cfg, params, tokens, cross_src=cross_src, rules=rules,
+                     mesh=mesh)
     h = hidden[:, :-1]
     targets = tokens[:, 1:].long()
     B, S, _ = h.shape
@@ -547,7 +557,17 @@ def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                                             preserve_rng_state=False)
         else:
             total = total + _chunk_loss(*args)
+    if mesh is not None:
+        axes = _batch_axes(rules)
+        B *= math.prod(mesh.shape[a] for a in axes)
+        total = mesh.sum_partials(total, axes)
     return total / (B * S)
+
+
+def _batch_axes(rules: ShardingRules) -> tuple:
+    """The mesh axes ``rules.batch`` splits the batch rows over."""
+    b = rules.batch if isinstance(rules.batch, tuple) else (rules.batch,)
+    return tuple(a for a in b if a is not None)
 
 
 # ---------------------------------------------------------------------------

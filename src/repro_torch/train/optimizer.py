@@ -13,7 +13,9 @@ the reference's does for its dry-run (``launch/dryrun.py``).
 
 ``update(grads, state, params, step) -> (updates, state)`` is the
 reference's call; ``apply(grads, state, params, step) -> state`` adds the
-same updates to ``params`` in place.  Both compute one stack slice of a
+same updates to ``params`` in place.  Over a mesh both take a
+:class:`Placement` as well (``placement=``), the one addition to the
+reference's signature (see there).  Both compute one stack slice of a
 leaf at a time (its index over all but the last two dims: a layer of a
 ``[repeats, count, ...]`` stack, an expert), so a stacked leaf's float32
 temporaries are one slice's, never the whole stack's; the arithmetic is
@@ -43,6 +45,65 @@ class Optimizer:
     init_specs: Callable[[Any, Any], Any]
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where each parameter leaf lies over a ``launch.mesh.Mesh``:
+    ``specs`` holds each leaf's spec (``layers.P``) in flattening order,
+    the leaf being this rank's block by ``shard_tree``.
+
+    The reference's optimizer needs no such argument: under GSPMD its
+    global norm, Adafactor's row and column means and its update RMS are
+    global by construction.  Here each rank holds a block, so a sum over
+    a dim split across ranks is finished by an ``all_reduce`` over the
+    axes that split it (a replicated leaf counts once).  A mean over a
+    split dim is the ranks' local means summed over the group, over the
+    group's size, so the blocks must be equal (``make_train_step`` checks
+    it); on a mesh of one rank the arithmetic is that of no mesh."""
+    mesh: Any
+    specs: tuple
+
+    def axes(self, i: int, dim: int | None = None) -> tuple[str, ...]:
+        """The mesh axes splitting leaf ``i`` (along ``dim`` only, a
+        non-negative index, where given), in mesh order."""
+        spec = tuple(self.specs[i] or ())
+        entries = spec if dim is None else spec[dim:dim + 1]
+        named = set()
+        for ax in entries:
+            named.update(ax if isinstance(ax, tuple) else
+                         (ax,) if ax else ())
+        return tuple(a for a in self.mesh.axis_names if a in named)
+
+    def ranks(self, i: int, dim: int | None = None) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.axes(i, dim))
+
+    def mean(self, x: torch.Tensor, i: int, dim: int) -> torch.Tensor:
+        """``x``, a mean over this rank's part of leaf ``i``'s ``dim``,
+        made the mean over the whole dim."""
+        axes = self.axes(i, dim)
+        if not axes:
+            return x
+        return self.mesh.all_reduce(x, axes) / self.ranks(i, dim)
+
+    def sum_leaves(self, values: list) -> list:
+        """Each leaf's scalar partial sum (in leaf order) summed over the
+        axes splitting that leaf: one ``all_reduce`` per set of axes."""
+        values = list(values)
+        groups: dict[tuple, list[int]] = {}
+        for i in range(len(values)):
+            groups.setdefault(self.axes(i), []).append(i)
+        for axes, idx in groups.items():
+            if axes:
+                summed = self.mesh.all_reduce(
+                    torch.stack([values[i] for i in idx]), axes)
+                for i, v in zip(idx, summed.unbind(0)):
+                    values[i] = v
+        return values
+
+
+def _mean(placement, x, i: int, dim: int) -> torch.Tensor:
+    return x if placement is None else placement.mean(x, i, dim)
+
+
 def _slices(shape) -> list[tuple]:
     """The stack slices of a leaf: every index over all but its last two
     dims (one slice, the whole leaf, for a leaf of two dims or fewer)."""
@@ -59,26 +120,26 @@ def _constant(lr: float) -> Callable:
 
 def _update_and_apply(run: Callable) -> tuple[Callable, Callable]:
     """``update`` and ``apply`` from ``run(grads, state, params, step,
-    sink)``, which calls ``sink(i, idx, u)`` with the float32 update of
-    stack slice ``idx`` of leaf ``i``."""
-    def update(grads, state, params, step):
+    sink, placement)``, which calls ``sink(i, idx, u)`` with the float32
+    update of stack slice ``idx`` of leaf ``i``."""
+    def update(grads, state, params, step, placement=None):
         out = [torch.empty(g.shape, dtype=torch.float32, device=g.device)
                for g in tree_leaves(grads)]
 
         def sink(i, idx, u):
             out[i][idx] = u
-        state = run(grads, state, params, step, sink)
+        state = run(grads, state, params, step, sink, placement)
         it = iter(out)
         return tree_map(lambda _: next(it), grads), state
 
-    def apply(grads, state, params, step):
+    def apply(grads, state, params, step, placement=None):
         leaves = tree_leaves(params)
 
         def sink(i, idx, u):
             p = leaves[i][idx]
             p += u.to(p.dtype)
         with torch.no_grad():
-            return run(grads, state, params, step, sink)
+            return run(grads, state, params, step, sink, placement)
     return update, apply
 
 
@@ -86,8 +147,13 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, placement: Placement | None = None
+                ) -> torch.Tensor:
+    """The L2 norm over every leaf; over a mesh (``placement``) over every
+    leaf's whole, each leaf's sum of squares summed over its blocks."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if placement is not None:
+        leaves = placement.sum_leaves(leaves)
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -132,9 +198,9 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": count}
 
-    def run(grads, state, params, step, sink):
+    def run(grads, state, params, step, sink, placement):
         g_leaves = tree_leaves(grads)
-        scale = (_clip_scale(global_norm(grads), max_grad_norm)
+        scale = (_clip_scale(global_norm(grads, placement), max_grad_norm)
                  if max_grad_norm else None)
         count = state["count"] + 1
         c = count.to(torch.float32)
@@ -179,9 +245,10 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
               eps: float = 1e-30, clip_threshold: float = 1.0) -> Optimizer:
     """Factored second-moment optimizer.  The factor state is a list
     aligned with the flattened parameter order.  The update's RMS clip
-    spans the whole leaf, so each leaf takes two passes over its slices:
-    the first writes the new factors and sums the squared update, the
-    second recomputes the update from them and hands it on scaled."""
+    spans the whole leaf, so each leaf takes passes over its slices: the
+    factors' means (finished over the mesh, where a placement splits the
+    leaf), the squared update's sum (finished over the mesh for every
+    leaf at once), then the update recomputed and handed on scaled."""
     lr_fn = lr if callable(lr) else _constant(lr)
     f32 = torch.float32
 
@@ -199,40 +266,63 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
                 "count": torch.zeros((), dtype=torch.int32,
                                      device=leaves[0].device)}
 
-    def _denom(st, idx):
+    def _denom(st, idx, vr_mean):
         if "vr" in st:
             vr, vc = st["vr"][idx], st["vc"][idx]
-            return (vr[..., None] / torch.mean(
-                vr, dim=-1, keepdim=True)[..., None]) * vc[..., None, :]
+            return (vr[..., None] / vr_mean[idx][..., None]) * \
+                vc[..., None, :]
         return st["v"][idx]
 
-    def run(grads, state, params, step, sink):
+    def _factors(g, st, i, slices, beta, placement):
+        """The new row and column factors of leaf ``i`` (their means over
+        the whole leaf's dims), and the mean of the new row factor."""
+        row = torch.empty_like(st["vr"])
+        col = torch.empty_like(st["vc"])
+        for idx in slices:
+            g32 = g[idx].detach().to(f32)
+            # two square+reduce expressions, as the reference's
+            row[idx] = torch.mean(torch.square(g32), dim=-1)
+            col[idx] = torch.mean(torch.square(g32), dim=-2)
+        row = _mean(placement, row, i, g.dim() - 1) + eps
+        col = _mean(placement, col, i, g.dim() - 2) + eps
+        st["vr"].copy_(beta * st["vr"] + (1 - beta) * row)
+        st["vc"].copy_(beta * st["vc"] + (1 - beta) * col)
+        return _mean(placement, torch.mean(st["vr"], dim=-1, keepdim=True),
+                     i, g.dim() - 2)
+
+    def run(grads, state, params, step, sink, placement):
         count = state["count"] + 1
         c = count.to(f32)
         beta = 1.0 - c ** (-decay)
         neg_lr = -lr_fn(step)
-        for i, (g, st) in enumerate(zip(tree_leaves(grads), state["f"])):
+        g_leaves = tree_leaves(grads)
+        sq_sums = []
+        vr_means = []
+        for i, (g, st) in enumerate(zip(g_leaves, state["f"])):
             slices = _slices(g.shape)
+            vr_mean = None
+            if "vr" in st:
+                vr_mean = _factors(g, st, i, slices, beta, placement)
             sq_sum = torch.zeros((), dtype=f32, device=g.device)
             for idx in slices:
                 g32 = g[idx].detach().to(f32)
-                if "vr" in st:
-                    # two square+reduce expressions, as the reference's
-                    row = torch.mean(torch.square(g32), dim=-1) + eps
-                    col = torch.mean(torch.square(g32), dim=-2) + eps
-                    st["vr"][idx] = beta * st["vr"][idx] + (1 - beta) * row
-                    st["vc"][idx] = beta * st["vc"][idx] + (1 - beta) * col
-                else:
+                if "v" in st:
                     st["v"][idx] = beta * st["v"][idx] + \
                         (1 - beta) * (torch.square(g32) + eps)
-                u = g32 * torch.rsqrt(_denom(st, idx) + eps)
+                u = g32 * torch.rsqrt(_denom(st, idx, vr_mean) + eps)
                 sq_sum = sq_sum + torch.sum(torch.square(u))
+            sq_sums.append(sq_sum)
+            vr_means.append(vr_mean)
+        if placement is not None:
+            sq_sums = placement.sum_leaves(sq_sums)
+        for i, (g, st) in enumerate(zip(g_leaves, state["f"])):
             # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(sq_sum / g.numel() + 1e-30)
+            n = g.numel() * (1 if placement is None else placement.ranks(i))
+            rms = torch.sqrt(sq_sums[i] / n + 1e-30)
             div = torch.clamp(rms / clip_threshold, min=1.0)
-            for idx in slices:
+            for idx in _slices(g.shape):
                 u = g[idx].detach().to(f32) * torch.rsqrt(
-                    _denom(st, idx) + eps)
+                    _denom(st, idx, vr_means[i]) + eps)
                 sink(i, idx, neg_lr * (u / div))
         return {"f": state["f"], "count": count}
 

@@ -8,11 +8,12 @@ bit: the reference's params and optimizer state into the port and the
 port's into the reference, for a Mamba twin in bf16 (float32 leaves in a
 bf16 model, AdamW in bf16) and for arctic's twin (Adafactor's list
 state); the launcher's crash at step 3 and resume, bit-equal to a run
-without the crash.
+without the crash; a resume with ``--remesh`` bit-equal to one without.
 """
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -218,10 +219,36 @@ def test_launcher_crash_and_resume_bit_equal(tmp_path, capsys):
             np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_launcher_remesh_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="item 5.7"):
-        launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
-                       "--remesh"])
+def test_launcher_remesh_waits_for_the_mesh(tmp_path, capsys):
+    """``--remesh`` is accepted, as the reference's launcher accepts it,
+    and read nowhere (the launcher builds no mesh): from copies of one
+    checkpoint at step 1, a resume with the flag logs the losses and
+    commits the final checkpoint of a resume without it, bit for bit."""
+    args = ["--arch", "qwen2-0.5b", "--device", "cpu", "--batch", "2",
+            "--seq", "16", "--ckpt-every", "2", "--log-every", "1"]
+    assert launcher.main(args + ["--steps", "2", "--ckpt",
+                                 str(tmp_path / "base")]) == 0
+    outs = {}
+    for name, extra in (("plain", []), ("remesh", ["--remesh"])):
+        shutil.copytree(tmp_path / "base", tmp_path / name)
+        capsys.readouterr()
+        assert launcher.main(args + ["--steps", "4", "--ckpt",
+                                     str(tmp_path / name)] + extra) == 0
+        out = capsys.readouterr().out
+        assert "resumed from step 1" in out
+        outs[name] = [json.loads(ln) for ln in out.splitlines()
+                      if ln.startswith("{")]
+    assert [(hb["step"], hb["loss"]) for hb in outs["remesh"]] == \
+        [(hb["step"], hb["loss"]) for hb in outs["plain"]]
+    assert [hb["step"] for hb in outs["plain"]] == [2, 3]
+    final = [tmp_path / n / "step_00000003" for n in ("plain", "remesh")]
+    assert (final[0] / "MANIFEST.json").read_text() == \
+        (final[1] / "MANIFEST.json").read_text()
+    with np.load(final[0] / "shard_00000.npz") as a, \
+            np.load(final[1] / "shard_00000.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_launcher_needs_a_card_by_default():

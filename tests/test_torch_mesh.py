@@ -19,8 +19,8 @@ reference on the CPU.
   steps over the 2 x 2 mesh against the reference's steps jitted with the
   dry-run's in_shardings, logits and caches within 1e-4.
 - A 1 x 1 mesh (gloo, one rank, in this process) equals ``mesh=None`` bit
-  for bit; a virtual mesh's collective raises; ``moe_block`` over a mesh
-  under autograd raises, naming the ROADMAP item.
+  for bit; a virtual mesh's collective raises; ``moe_block``'s 2-D
+  (decode) regime under autograd raises.
 """
 import dataclasses
 import json
@@ -654,14 +654,18 @@ def test_virtual_mesh_runs_no_collective():
 
 
 def test_moe_over_a_mesh_under_autograd_raises(one_rank):
-    """Training over a mesh waits for ROADMAP.md queue 1 item 5.7."""
+    """The 2-D (decode) regime runs forward only, as the reference's train
+    rules never take it; the gather regime trains
+    (``test_torch_mesh_train.py``)."""
     w, x = _moe_torch()
     x.requires_grad_(True)
-    rules = PM.make_rules(one_rank, kind="train", global_batch=MOE["B"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5.7"):
-        PL.moe_block(w, x, n_experts=MOE["E"], top_k=MOE["K"],
-                     capacity_factor=1.25, activation="silu", glu=True,
-                     mesh=one_rank, rules=rules)
+    kw = dict(n_experts=MOE["E"], top_k=MOE["K"], capacity_factor=1.25,
+              activation="silu", glu=True, mesh=one_rank)
+    rules = PM.make_rules(one_rank, kind="decode", global_batch=MOE["B"])
+    with pytest.raises(NotImplementedError, match="forward only"):
+        PL.moe_block(w, x, rules=rules, **kw)
+    train = PM.make_rules(one_rank, kind="train", global_batch=MOE["B"])
+    assert PL.moe_block(w, x, rules=train, **kw).requires_grad
 
 
 def test_mesh_axes_out_of_order_raise(one_rank):

@@ -1,8 +1,9 @@
 """Run the env phase and the mesh path of ``chip_smoke.py`` alone, on one
 NVIDIA GPU: moonshot-v1-16b-a3b whole served through a 1 x 1 mesh on a
-one-rank NCCL group against the same serve with no mesh, and the
-dry-run's memory model over every cell on both production meshes, with
-the path's launch gate.
+one-rank NCCL group against the same serve with no mesh, the dry-run's
+memory model over every cell on both production meshes, and
+moonshot-v1-16b-a3b cut to 8 layers trained through the mesh against no
+mesh, with the paths' launch gates.
 
     python3 tools/mesh_phase.py
 
@@ -20,6 +21,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("mesh_phase: no CUDA device", file=sys.stderr)
@@ -32,7 +35,7 @@ def main() -> int:
     except smoke.SmokeFailure as exc:
         print(f"mesh_phase: FAILED: {exc}", file=sys.stderr)
         return 1
-    print(json.dumps({"launches": {"mesh": mesh}}))
+    print(json.dumps({"launches": mesh}))
     return 0
 
 
