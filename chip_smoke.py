@@ -27,7 +27,7 @@ set to 0 just before it and read just after:
   from the free list and a profiled repair step;
 - sharded (``core/distributed.py``, all shards on the one card, the
   merge's gather through a one-rank NCCL group): the reference test's
-  8 shards of 128, and half the FineWeb-like corpus in 8 shards of 3,125
+  8 shards of 128, and half the FineWeb-like corpus in 8 shards of 2,500
   with a global codec: sharded search waves and a routed insert wave;
 - serving (the LM substrate, ``repro_torch.launch.serve``): qwen2-0.5b at
   its published width (24 x 896, vocab 151,936, bf16, seeded random
@@ -61,7 +61,14 @@ set to 0 just before it and read just after:
   backward through its collectives), bit for bit the run with no mesh
   under deterministic algorithms, and in float32 at 2 layers within
   1e-5 / 1e-4 of the host (its counts read apart, as ``mesh_train``);
-  then RAG (``examples/rag_serving_torch.py``): the LM embeds 512
+  then the dense placement (every leaf held as its ``param_specs`` block
+  and gathered on use; counts read as ``mesh_dense``): qwen2-0.5b and
+  hymba-1.5b whole served at 4 x 64 + 32 and qwen2-0.5b trained at 8 x
+  256 through the same mesh, bit for bit the runs with no mesh under
+  deterministic algorithms, float32 at 2 layers against the host, and
+  the collectives of a prefill, a decode and a train step, by part, as
+  predicted (``_predict_collectives``); then RAG
+  (``examples/rag_serving_torch.py``): the LM embeds 512
   documents, the navis index is built over them on the card
   and a wave of 256 embedded queries retrieves from it (its counts are
   read apart, as ``rag``).
@@ -100,16 +107,17 @@ WAVE = 256                  # lanes per kernel check and per query wave
 RERANK_RTOL, RERANK_ATOL = 1e-5, 1e-3
 # The FineWeb-like cell (benchmarks/common.py:38-40, :72-77) keeps its
 # widths and is cut in scale only: N vectors (the paper's corpora hold
-# 60-120M; 50,000, not 100,000, so that the whole smoke stays well inside
-# its time limit on a slow host), built in seek waves of FINEWEB_BLOCK
+# 60-120M; 40,000, not 100,000, so that the whole smoke, the mesh path's
+# dense phase included, stays well inside its time limit on a slow host),
+# built in seek waves of FINEWEB_BLOCK
 # vertices instead of the benchmark's 64, which takes 8x as many
 # host-bound waves per pass (tools/build_block_cut.py times both).
-FINEWEB_N = 50_000
+FINEWEB_N = 40_000
 FINEWEB_BLOCK = 512
 # The sharded path: the first SHARDS x SHARD_N vectors of the FineWeb-like
 # corpus range-sharded into SHARDS shards of SHARD_N, each with
 # SHARD_HEADROOM slots for inserts, all on the one card.  Cut to half the
-# single engine's N (8 x 3,125) so that the whole smoke, with the
+# single engine's N (8 x 2,500) so that the whole smoke, with the
 # training path, stays inside its time limit.
 SHARDS = 8
 SHARD_N = FINEWEB_N // SHARDS // 2
@@ -205,6 +213,18 @@ DRYRUN_CELLS = 66
 MESH_TRAIN_LAYERS = 8
 MESH_TRAIN_STEPS = 4
 MESH_TRAIN_LOAD = (4, 512)
+# The dense placement (every leaf held as its param_specs block, gathered
+# on use): DENSE_SERVE at their published widths and depths (bf16,
+# serving's seed) served at MESH_LOAD through the 1 x 1 mesh and with no
+# mesh; DENSE_TRAIN trained MESH_TRAIN_STEPS AdamW steps at
+# DENSE_TRAIN_LOAD through the mesh and with none; float32 at
+# MESH_FP32_LAYERS layers through the mesh on the card against no mesh on
+# the host.  Every collective is counted by part against
+# _predict_collectives.
+DENSE_SERVE = ("qwen2-0.5b", "hymba-1.5b")
+DENSE_TRAIN = "qwen2-0.5b"
+DENSE_TRAIN_LOAD = (8, 256)
+DENSE_FP32_TOL = 1e-5
 
 KERNELS = {
     "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
@@ -252,6 +272,7 @@ PATH_KERNELS = {
     # torch.matmul), serving or training ...
     "mesh": ((), tuple(KERNELS)),
     "mesh_train": ((), tuple(KERNELS)),
+    "mesh_dense": ((), tuple(KERNELS)),
     # ... and the RAG wave runs the navis search
     "rag": (("pool_merge", "adc_distance", "casr_rerank"),
             ("rerank_l2", "rerank_l2_rows")),
@@ -2535,7 +2556,9 @@ def mesh_path(torch, paths: Paths) -> dict:
     """``launch/mesh.py`` on the card: MESH_ARCH served through a 1 x 1
     mesh on a one-rank NCCL group, then the dry-run over every cell (the
     counts read as ``mesh``); then MESH_ARCH trained through the same
-    mesh (read as ``mesh_train``).  The group is torn down after."""
+    mesh (read as ``mesh_train``); then the dense models served and
+    trained through it (read as ``mesh_dense``).  The group is torn down
+    after."""
     _init_group(torch, "mesh")
     try:
         paths.start("mesh")
@@ -2545,14 +2568,23 @@ def mesh_path(torch, paths: Paths) -> dict:
         paths.start("mesh_train")
         phase_mesh_train(torch)
         out["mesh_train"] = paths.end("mesh_train")
+        paths.start("mesh_dense")
+        phase_mesh_dense(torch)
+        out["mesh_dense"] = paths.end("mesh_dense")
         return out
     finally:
         torch.distributed.destroy_process_group()
 
 
+def _parts(mesh) -> dict:
+    """The mesh's collectives since its last reset, by part."""
+    return {k: dict(v) for k, v in sorted(mesh.parts.items())}
+
+
 def _mesh_steps(torch, cfg, params, mesh, load) -> dict:
-    """One prefill and one decode step at ``load`` through ``mesh``: the
-    collectives each issues (calls, and the bytes handed to them, from the
+    """One prefill and one decode step at ``load`` through ``mesh``, every
+    leaf held as its ``param_specs`` block: the collectives each issues
+    (calls and the bytes handed to them, in all and by part, from the
     mesh's own counts), and a profiled decode step with and without the
     mesh (device busy share, launches)."""
     from repro_torch.launch import mesh as M
@@ -2564,21 +2596,21 @@ def _mesh_steps(torch, cfg, params, mesh, load) -> dict:
     rules_p = M.make_rules(mesh, kind="prefill", global_batch=batch,
                            cfg=cfg)
     rules_d = M.make_rules(mesh, kind="decode", global_batch=batch, cfg=cfg)
-    held = M.shard_tree(params, M.ep_specs(T.param_specs(cfg)), mesh)
+    held = M.shard_tree(params, T.param_specs(cfg), mesh)
     tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
     out = {}
-    mesh.stats.update(calls=0, bytes=0)
+    mesh.reset_stats()
     logits, cache = make_prefill_step(cfg, rules=rules_p, mesh=mesh,
                                       max_seq=prompt + gen)(held, tokens)
-    out["prefill"] = dict(mesh.stats)
+    out["prefill"] = dict(mesh.stats, parts=_parts(mesh))
     cur = logits.argmax(-1)[:, None].int()
     decode = make_decode_step(cfg, rules=rules_d, mesh=mesh)
-    mesh.stats.update(calls=0, bytes=0)
+    mesh.reset_stats()
     decode(held, cache, cur, prompt)
-    out["decode_step"] = dict(mesh.stats)
+    out["decode_step"] = dict(mesh.stats, parts=_parts(mesh))
     out["profile_decode_step_mesh"] = profile_window(
         torch, lambda: decode(held, cache, cur, prompt + 1))
-    plain = make_decode_step(cfg)
+    plain = make_decode_step(cfg)         # a 1 x 1 mesh's cache is whole
     out["profile_decode_step_no_mesh"] = profile_window(
         torch, lambda: plain(params, cache, cur, prompt + 1))
     return out
@@ -2595,7 +2627,7 @@ def _serve_pair(torch, serve, cfg, mesh, kw, gen: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         live = torch.cuda.memory_allocated()
-        mesh.stats.update(calls=0, bytes=0)
+        mesh.reset_stats()
         res = serve(cfg, gen=gen, mesh=m, **kw)
         runs[name] = dict(
             res=res, prefill_s=res["prefill_s"],
@@ -2603,7 +2635,8 @@ def _serve_pair(torch, serve, cfg, mesh, kw, gen: int) -> dict:
             decode_ms_per_step=res["decode_s"] / gen * 1e3,
             serve_peak_bytes=torch.cuda.max_memory_allocated() - live,
             collective_calls=mesh.stats["calls"],
-            collective_bytes=mesh.stats["bytes"])
+            collective_bytes=mesh.stats["bytes"],
+            collective_parts=_parts(mesh))
     return runs
 
 
@@ -2652,6 +2685,10 @@ def phase_mesh_serve(torch) -> None:
         ordered = _same(serve(cfg, gen=gen, mesh=mesh, **kw),
                         serve(cfg, gen=gen, **kw))
     steps = _mesh_steps(torch, cfg, params, mesh, MESH_LOAD)
+    predicted = {"prefill": _predict_collectives(cfg, "prefill", batch,
+                                                 prompt),
+                 "decode_step": _predict_collectives(cfg, "decode", batch,
+                                                     1)}
     sample = runs["mesh"]["res"]["tokens"][0, :8].tolist()
     for r in runs.values():
         del r["res"]
@@ -2662,7 +2699,9 @@ def phase_mesh_serve(torch) -> None:
          layers=cfg.num_layers, reduced=reduced, dtype=str(cfg.dtype),
          batch=batch, prompt_len=prompt, decode_steps=gen, runs=runs,
          bf16_atomic=atomic, bf16_deterministic=ordered, fp32=fp32,
-         collectives=steps,
+         collectives=steps, predicted=predicted,
+         prediction_holds={k: steps[k]["parts"] == v
+                           for k, v in predicted.items()},
          mesh_adds_bytes=(runs["mesh"]["serve_peak_bytes"] -
                           runs["no_mesh"]["serve_peak_bytes"]),
          sample=sample)
@@ -2745,12 +2784,11 @@ def _step_collectives(torch, mesh, loss_fn, params, data) -> dict:
     ``mesh``, from the mesh's counts: the backward's own (``backward_*``:
     the gathers' sum-scatters and the entries' sums) apart from the
     forward collectives its recompute issues again.  No update."""
-    from repro_torch.launch import mesh as M
     from repro_torch.tree import tree_leaves
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    mesh.stats.update(dict.fromkeys(M.STATS, 0))
+    mesh.reset_stats()
     loss = loss_fn(params, data)
     fwd = dict(mesh.stats)
     grads = torch.autograd.grad(loss, leaves)
@@ -2766,15 +2804,17 @@ def _step_collectives(torch, mesh, loss_fn, params, data) -> dict:
 
 
 def _mesh_train_run(torch, cfg, data, mesh, *, deterministic: bool,
-                    profile: bool = False) -> dict:
-    """MESH_TRAIN_STEPS steps of the train step from the seeded init (seed
-    0), through ``mesh`` (None: no mesh), under deterministic algorithms
-    or not, each step timed on the host clock to a synchronise: the
-    losses, step times, peak memory against the static bytes (weights,
-    gradients, moments), the run's seconds and its final parameters (on
-    the card: 10.5 GB beside the next run's ~54 GB).
-    ``profile``: the collectives of a forward and its backward and of a
-    whole step (through the mesh), and then a profiled step."""
+                    profile: bool = False, arch: str = MESH_ARCH) -> dict:
+    """MESH_TRAIN_STEPS steps of the train step of ``arch``'s optimizer
+    from the seeded init (seed 0), through ``mesh`` (None: no mesh; every
+    leaf held as its ``param_specs`` block), under deterministic
+    algorithms or not, each step timed on the host clock to a
+    synchronise: the losses, step times, peak memory against the static
+    bytes (weights, gradients, moments), the run's seconds and its final
+    parameters (on the card: 10.5 GB beside the next run's ~54 GB for
+    MESH_ARCH).  ``profile``: the collectives of a forward and its
+    backward and of a whole step (through the mesh, in all and by part),
+    and then a profiled step."""
     from repro_torch import configs as C
     from repro_torch.launch import mesh as M
     from repro_torch.models import transformer as T
@@ -2791,7 +2831,7 @@ def _mesh_train_run(torch, cfg, data, mesh, *, deterministic: bool,
     with mode:
         params = T.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-        opt = O.make_optimizer(C.get_arch(MESH_ARCH).optimizer,
+        opt = O.make_optimizer(C.get_arch(arch).optimizer,
                                lr=O.cosine_schedule(
                                    3e-4, warmup=1, total=MESH_TRAIN_STEPS))
         state = init_opt_state(cfg, opt, params)
@@ -2803,12 +2843,11 @@ def _mesh_train_run(torch, cfg, data, mesh, *, deterministic: bool,
             kw = dict(rules=M.make_rules(mesh, kind="train",
                                          global_batch=MESH_TRAIN_LOAD[0],
                                          cfg=cfg), mesh=mesh)
-            params = M.shard_tree(params, M.ep_specs(T.param_specs(cfg)),
-                                  mesh)
+            params = M.shard_tree(params, T.param_specs(cfg), mesh)
             if profile:
                 out["collectives"] = _step_collectives(
                     torch, mesh, make_loss_fn(cfg, **kw), params, data)
-                mesh.stats.update(dict.fromkeys(M.STATS, 0))
+                mesh.reset_stats()
         step_fn = make_train_step(cfg, opt, **kw)
         losses, secs = [], []
         for i in range(MESH_TRAIN_STEPS):
@@ -2821,6 +2860,7 @@ def _mesh_train_run(torch, cfg, data, mesh, *, deterministic: bool,
             if i == 0 and "collectives" in out:
                 step = {k: mesh.stats[k] for k in ("calls", "bytes")}
                 out["collectives"]["step"] = step
+                out["collectives"]["step_parts"] = _parts(mesh)
                 out["collectives"]["reduction_and_optimizer"] = {
                     k: step[k] - sum(out["collectives"][p][k] for p in (
                         "forward", "recompute", "backward"))
@@ -2883,19 +2923,14 @@ def phase_mesh_train(torch) -> None:
     plain = _mesh_train_run(torch, cfg, data, None, deterministic=True,
                             profile=True)
     ordered = _runs_differ(torch, meshed, plain)
-    atomic = [_mesh_train_run(torch, cfg, data, None, deterministic=False)
-              for _ in range(2)]
-    default_mode = _runs_differ(torch, *atomic)
+    predicted = _predict_collectives(cfg, "train", batch, seq)
     fp32 = _mesh_train_fp32(torch, mesh)
     emit("mesh:train", arch=MESH_ARCH, mesh=mesh.shape, backend="nccl",
          layers=cfg.num_layers, reduced=reduced, dtype=str(cfg.dtype),
          batch=batch, seq=seq, steps=MESH_TRAIN_STEPS,
          mesh_run=meshed, no_mesh_run=plain,
-         deterministic_mesh_vs_no_mesh=ordered,
-         default_mode_no_mesh=dict(
-             step_ms=atomic[0]["step_ms"], tokens_s=atomic[0]["tokens_s"],
-             losses=atomic[0]["losses"],
-             seconds=[r["seconds"] for r in atomic], **default_mode),
+         deterministic_mesh_vs_no_mesh=ordered, predicted=predicted,
+         prediction_holds=meshed["collectives"]["step_parts"] == predicted,
          fp32=fp32, seconds=time.perf_counter() - start)
     losses = meshed["losses"]
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
@@ -2906,19 +2941,19 @@ def phase_mesh_train(torch) -> None:
             f"mesh:train: float32 against the host {fp32}")
 
 
-def _mesh_train_fp32(torch, mesh) -> dict:
-    """MESH_ARCH in float32 (matmul precision "highest") cut to
+def _mesh_train_fp32(torch, mesh, arch: str = MESH_ARCH) -> dict:
+    """``arch`` in float32 (matmul precision "highest") cut to
     MESH_FP32_LAYERS layers, TRAIN_FP32_LOAD: the loss and its gradients
-    through ``mesh`` on the card against ``mesh=None`` on the host, from
-    the same weights (drawn on the card from a seed, copied to the host)
-    and batch."""
+    through ``mesh`` on the card (every leaf its ``param_specs`` block)
+    against ``mesh=None`` on the host, from the same weights (drawn on
+    the card from a seed, copied to the host) and batch."""
     from repro_torch.launch import mesh as M
     from repro_torch.models import transformer as T
     from repro_torch.train.train_step import make_grad_fn
     from repro_torch.tree import tree_leaves, tree_map
     start = time.perf_counter()
     torch.set_float32_matmul_precision("highest")
-    cfg, reduced = _published(MESH_ARCH, "float32", MESH_FP32_LAYERS)
+    cfg, reduced = _published(arch, "float32", MESH_FP32_LAYERS)
     batch, seq = TRAIN_FP32_LOAD
     p_gpu = T.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
@@ -2927,7 +2962,7 @@ def _mesh_train_fp32(torch, mesh) -> dict:
     t0 = time.perf_counter()
     want, g_cpu = make_grad_fn(cfg)(p_cpu, data)
     host_s = time.perf_counter() - t0
-    p_gpu = M.shard_tree(p_gpu, M.ep_specs(T.param_specs(cfg)), mesh)
+    p_gpu = M.shard_tree(p_gpu, T.param_specs(cfg), mesh)
     rules = M.make_rules(mesh, kind="train", global_batch=batch, cfg=cfg)
     got, g_gpu = make_grad_fn(cfg, rules=rules, mesh=mesh)(
         p_gpu, {k: v.cuda() for k, v in data.items()})
@@ -2942,6 +2977,360 @@ def _mesh_train_fp32(torch, mesh) -> dict:
                 loss_rel=abs(got - want) / abs(want), grad_leaves=len(rels),
                 max_grad_rel_l2=max(rels), host_s=host_s,
                 seconds=time.perf_counter() - start)
+
+
+def _dense_serve(torch, arch: str, mesh) -> dict:
+    """``arch`` at its published widths and depth (bf16, serving's seed)
+    served at MESH_LOAD with no mesh and through ``mesh``, every leaf its
+    ``param_specs`` block: both serves' times, the memory each adds and
+    their collectives (``_serve_pair``); under deterministic algorithms
+    the mesh's serve against the serve with no mesh; a prefill and a
+    decode step's collectives by part against ``_predict_collectives``,
+    and a profiled decode step with the mesh and without."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    cfg, reduced = _published(arch)
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch, prompt, gen = MESH_LOAD
+    kw = dict(batch=batch, prompt_len=prompt, seed=0, device="cuda",
+              params=params)
+    runs = _serve_pair(torch, serve, cfg, mesh, kw, gen)
+    with _deterministic(torch):
+        ordered = _same(serve(cfg, gen=gen, mesh=mesh, **kw),
+                        serve(cfg, gen=gen, **kw))
+    steps = _mesh_steps(torch, cfg, params, mesh, MESH_LOAD)
+    predicted = {"prefill": _predict_collectives(cfg, "prefill", batch,
+                                                 prompt),
+                 "decode_step": _predict_collectives(cfg, "decode", batch,
+                                                     1)}
+    for r in runs.values():
+        del r["res"]
+    del params
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, reduced=reduced, dtype=str(cfg.dtype),
+                batch=batch, prompt_len=prompt, decode_steps=gen, runs=runs,
+                mesh_adds_bytes=(runs["mesh"]["serve_peak_bytes"] -
+                                 runs["no_mesh"]["serve_peak_bytes"]),
+                bf16_deterministic=ordered, collectives=steps,
+                predicted=predicted,
+                prediction_holds={k: steps[k]["parts"] == v
+                                  for k, v in predicted.items()})
+
+
+def _dense_serve_fp32(torch, arch: str, mesh) -> dict:
+    """``arch`` in float32 (matmul precision "highest") cut to
+    MESH_FP32_LAYERS layers: prefill of MESH_LOAD's prompts and
+    teacher-forced decode steps (the host's greedy tokens) through
+    ``mesh`` on the card against no mesh on the host, from the same
+    weights; the largest relative L2 of the logits over the steps."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import transformer as T
+    from repro_torch.train.serve_step import make_decode_step, \
+        make_prefill_step
+    from repro_torch.tree import tree_map
+    torch.set_float32_matmul_precision("highest")
+    cfg, reduced = _published(arch, "float32", MESH_FP32_LAYERS)
+    batch, prompt, _ = MESH_LOAD
+    steps = 4
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    p_gpu = M.shard_tree(tree_map(lambda t: t.to("cuda"), p_cpu),
+                         T.param_specs(cfg), mesh)
+    rp = M.make_rules(mesh, kind="prefill", global_batch=batch, cfg=cfg)
+    rd = M.make_rules(mesh, kind="decode", global_batch=batch, cfg=cfg)
+    prefill = make_prefill_step(cfg, rules=rp, mesh=mesh,
+                                max_seq=prompt + steps)
+    decode = make_decode_step(cfg, rules=rd, mesh=mesh)
+    tokens = prompt_tokens(cfg, batch, prompt, 3, "cpu")
+    rels = []
+    with torch.inference_mode():
+        lc, cc = T.prefill_step(cfg, p_cpu, tokens, max_seq=prompt + steps)
+        lg, cg = prefill(p_gpu, tokens.cuda())
+        for i in range(steps + 1):
+            rels.append(_rel_l2(torch, lg.cpu(), lc))
+            if i == steps:
+                break
+            nxt = lc.argmax(-1)[:, None].int()
+            lc, cc = T.decode_step(cfg, p_cpu, cc, nxt, prompt + i)
+            _, lg, cg = decode(p_gpu, cg, nxt.cuda(), prompt + i)
+    del p_gpu
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, reduced=reduced, batch=batch,
+                prompt_len=prompt, decode_steps=steps, logits_rel_l2=rels,
+                max_rel_l2=max(rels))
+
+
+def _dense_train(torch, mesh) -> dict:
+    """DENSE_TRAIN at its published widths and depth (bf16, its AdamW with
+    bf16 moments), MESH_TRAIN_STEPS steps at DENSE_TRAIN_LOAD through
+    ``mesh`` and with no mesh under deterministic algorithms
+    (``_mesh_train_run``), and a train step's collectives by part against
+    ``_predict_collectives``."""
+    cfg, reduced = _published(DENSE_TRAIN)
+    batch, seq = DENSE_TRAIN_LOAD
+    data = _train_batch(torch, cfg, batch, seq, 0, "cuda")
+    meshed = _mesh_train_run(torch, cfg, data, mesh, deterministic=True,
+                             profile=True, arch=DENSE_TRAIN)
+    plain = _mesh_train_run(torch, cfg, data, None, deterministic=True,
+                            profile=True, arch=DENSE_TRAIN)
+    ordered = _runs_differ(torch, meshed, plain)
+    predicted = _predict_collectives(cfg, "train", batch, seq)
+    return dict(arch=DENSE_TRAIN, layers=cfg.num_layers, reduced=reduced,
+                batch=batch, seq=seq, steps=MESH_TRAIN_STEPS,
+                mesh_run=meshed, no_mesh_run=plain,
+                mesh_adds_bytes=(meshed["peak_mem_bytes"] -
+                                 plain["peak_mem_bytes"]),
+                deterministic_mesh_vs_no_mesh=ordered, predicted=predicted,
+                prediction_holds=(meshed["collectives"]["step_parts"] ==
+                                  predicted))
+
+
+def phase_mesh_dense(torch) -> None:
+    """The dense placement through ``make_smoke_mesh()`` on the one-rank
+    NCCL group: every leaf held as its ``param_specs`` block and gathered
+    on use (FSDP over ``data``; the tensor-parallel attention, MLP, Mamba,
+    embedding and logits over ``model``; the residual sequence-parallel
+    in prefill and training; decode's caches split over the sequence).
+    DENSE_SERVE served (``_dense_serve``), DENSE_TRAIN trained
+    (``_dense_train``), and float32 at MESH_FP32_LAYERS layers against the
+    host.  Gated: under deterministic algorithms the greedy tokens and
+    final logits of each serve, and the losses and final parameters of
+    the train runs, bit-equal to no mesh (a 1 x 1 mesh runs the
+    arithmetic of no mesh); in float32, serving's logits within
+    DENSE_FP32_TOL relative L2 of the host's at every step, the loss
+    within 1e-5 and every gradient leaf within 1e-4 relative L2; the
+    collectives of a prefill, a decode and a train step, by part, in
+    calls and bytes, equal to ``_predict_collectives``.  Printed: step and
+    decode times with and without the mesh, the memory the mesh adds,
+    launches and idle share of a profiled decode step, the phase's
+    seconds."""
+    from repro_torch.launch import mesh as M
+    start = time.perf_counter()
+    mesh = M.make_smoke_mesh()
+    serves = {arch: _dense_serve(torch, arch, mesh) for arch in DENSE_SERVE}
+    train = _dense_train(torch, mesh)
+    fp32 = {"serve": {arch: _dense_serve_fp32(torch, arch, mesh)
+                      for arch in DENSE_SERVE},
+            "train": _mesh_train_fp32(torch, mesh, DENSE_TRAIN)}
+    emit("mesh:dense", mesh=mesh.shape, backend="nccl", serve=serves,
+         train=train, fp32=fp32, seconds=time.perf_counter() - start)
+    for arch, r in serves.items():
+        ordered = r["bf16_deterministic"]
+        require(ordered["tokens_equal"] and ordered["logits_bit_equal"],
+                f"mesh:dense: {arch}'s deterministic serves differ "
+                f"{ordered}")
+        require(all(r["prediction_holds"].values()),
+                f"mesh:dense: {arch}'s collectives {r['collectives']} "
+                f"against the prediction {r['predicted']}")
+        f = fp32["serve"][arch]
+        require(f["max_rel_l2"] <= DENSE_FP32_TOL,
+                f"mesh:dense: {arch} float32 serving against the host {f}")
+    ordered = train["deterministic_mesh_vs_no_mesh"]
+    require(ordered["losses_equal"] and ordered["params_bit_equal"],
+            f"mesh:dense: the train runs differ {ordered}")
+    require(train["prediction_holds"],
+            f"mesh:dense: a train step's collectives "
+            f"{train['mesh_run']['collectives']} against the prediction "
+            f"{train['predicted']}")
+    losses = train["mesh_run"]["losses"]
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"mesh:dense: losses {losses}")
+    f = fp32["train"]
+    require(f["loss_rel"] <= 1e-5 and f["max_grad_rel_l2"] <= 1e-4,
+            f"mesh:dense: float32 training against the host {f}")
+
+
+def _predict_collectives(cfg, kind: str, batch: int, seq: int) -> dict:
+    """The collectives one step issues through a 1 x 1 mesh (every group
+    of one rank), by part: ``{part: {"calls", "bytes"}}``, the bytes those
+    handed to the collectives.  ``kind``: "prefill" (a ``batch`` x ``seq``
+    prompt), "decode" (one token) or "train" (``lm_loss``'s forward, its
+    recompute and backward, the gradients' sums and AdamW's global norm).
+
+    Derived from the specs and the placement's rules, not from a run:
+    every leaf dim a spec splits is gathered where a layer uses it (over
+    ``data``: fsdp; over ``model``: tp), but a dim the layer keeps split
+    (the MLP's F; with whole heads, ``wq``'s and ``bq``'s columns and
+    ``wo``'s rows in train and prefill, ``wo``'s rows in decode; the
+    Mamba mixer's channels; the vocabulary); the residual's sequence
+    gathers and sum-scatters (sp) of the norms' outputs and the
+    row-parallel outputs, or K and V under ``seq_parallel_attn``; decode's
+    row-parallel sums (tp); the vocabulary's sums and gathers; the MoE's
+    expert gathers (3 leaves) and output (moe).  One rank's group combines
+    nothing (the loss and the decode attention take the plain
+    arithmetic).  In train, every collective of a decoder layer runs
+    twice (the layer is recomputed in the backward) but the sum-scatter
+    that ends it (the recompute stops after the last operation that saves
+    a tensor); each differentiable gather or sum-scatter has one backward
+    collective of its output's bytes, and Mamba's ``x_proj`` sum one;
+    then one gradient sum per leaf its spec does not split over both
+    axes, and AdamW's norm one per set of axes."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import is_spec
+    from repro_torch.tree import tree_leaves
+    out: dict = {}
+
+    def add(part, nbytes, times=1):
+        c = out.setdefault(part, {"calls": 0, "bytes": 0})
+        c["calls"] += times
+        c["bytes"] += int(nbytes) * times
+
+    one = M.Mesh({"data": 1, "model": 1}, virtual=True)
+    rules = M.make_rules(one, kind="decode" if kind == "decode" else
+                         "prefill", global_batch=batch, cfg=cfg)
+    specs = T.param_specs(cfg)
+    a = cfg.dtype.itemsize
+    D = cfg.d_model
+    train = kind == "train"
+    T_ = batch * (1 if kind == "decode" else seq)
+    fwd = 2 if train else 1            # the layer's recompute
+    bwd = 1 if train else 0
+
+    def axes(spec, dim):
+        spec = tuple(spec or ())
+        e = spec[dim] if dim < len(spec) else None
+        return e if isinstance(e, tuple) else ((e,) if e else ())
+
+    def gather(spec, shape, dims, times, part=None):
+        """Leaf gathers of ``dims`` (each hands the leaf whole)."""
+        n = math.prod(shape) * a
+        for d in dims:
+            for ax in axes(spec, d):
+                add(part or ("fsdp" if ax == "data" else "tp"), n, times)
+
+    def act(part, nbytes, last=False):
+        """A layer's activation collective and its backward; ``last``:
+        the sum-scatter that ends the layer, after which nothing saves a
+        tensor, so that the recompute stops before it."""
+        add(part, nbytes, (1 if last else fwd) + bwd)
+
+    blocks = specs["blocks"]
+    for pi, pat in enumerate(cfg.patterns):
+        for j, st in enumerate(pat.stages):
+            n_layers = pat.repeats * st.count
+            ls = blocks[pi][j]
+            for _ in range(n_layers):
+                _predict_layer(cfg, st, ls, kind, rules, T_, batch, seq,
+                               gather, act, add, axes, fwd, bwd, a)
+    # the embedding and the vocabulary
+    vsplit = axes(specs["embed"], 0) if cfg.tie_embeddings else \
+        axes(specs["lm_head"], 1)
+    if axes(specs["embed"], 0):
+        add("vocab", T_ * D * a, 1 + bwd)
+    if not cfg.tie_embeddings:
+        gather(specs["lm_head"], (D, cfg.vocab_size), (0,),
+               1 + bwd if train else 1)
+    if kind != "train" and vsplit:
+        add("vocab", batch * cfg.vocab_size * 4)     # the logits
+    if train:
+        if vsplit:
+            add("sp", T_ * D * a, 2)                 # the final hidden
+        add("loss", 4)
+        pspecs = tree_leaves(specs, is_leaf=is_spec)
+        shapes = tree_leaves(T.param_shapes(cfg))
+        groups = {}
+        for sp, sh in zip(pspecs, shapes):
+            named = {x for d in range(sh.dim()) for x in axes(sp, d)}
+            if named != {"data", "model"}:
+                add("grad", sh.numel() * sh.element_size())
+            if named:
+                groups[tuple(sorted(named))] = groups.get(
+                    tuple(sorted(named)), 0) + 1
+        for count in groups.values():
+            add("opt", 4 * count)
+    return out
+
+
+def _predict_layer(cfg, st, ls, kind, rules, T_, batch, seq, gather, act,
+                   add, axes, fwd, bwd, a) -> None:
+    """One decoder layer's share of ``_predict_collectives``."""
+    D, KV, hd, H = cfg.d_model, cfg.num_kv_heads, cfg.hd, cfg.num_heads
+    train, decode = kind == "train", kind == "decode"
+    times = fwd + bwd
+    x = T_ * D * a                                  # a [B, S, D] activation
+    sp = not decode
+    kinds = ("attn", "enc", "attn_cross")
+    seq_local = sp and rules.seq_parallel_attn and st.kind in kinds
+
+    def lspec(tree, name):
+        return tree[name][2:]           # drop the stack dims
+
+    if st.kind != "mamba":
+        at = ls["attn"]
+        whole_q = not axes(lspec(at, "wq"), 1)
+        shapes = {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
+                  "wo": (H * hd, D), "bq": (H * hd,), "bk": (KV * hd,),
+                  "bv": (KV * hd,)}
+        if decode:
+            dims = {"wq": (0, 1), "wk": (0, 1), "wv": (0, 1), "wo": (1,),
+                    "bq": (0,), "bk": (0,), "bv": (0,)}
+        elif seq_local or whole_q:
+            dims = {"wq": (0, 1), "wk": (0, 1), "wv": (0, 1), "wo": (0, 1),
+                    "bq": (0,), "bk": (0,), "bv": (0,)}
+        else:
+            dims = {"wq": (0,), "wk": (0, 1), "wv": (0, 1), "wo": (1,),
+                    "bq": (), "bk": (0,), "bv": (0,)}
+        for name, d in dims.items():
+            if name in at:
+                gather(lspec(at, name), shapes[name], d, times)
+        if decode:
+            if axes(lspec(at, "wo"), 0):
+                add("tp", batch * D * a)
+        elif seq_local:
+            act("sp", T_ * KV * hd * a)
+            act("sp", T_ * KV * hd * a)
+        else:
+            act("sp", x)                              # the norm's gather
+            if not whole_q:
+                act("sp", x)                          # wo's sum-scatter
+    if st.kind in ("mamba", "hybrid"):
+        mx = ls["mixer"]
+        di, R, N = cfg.d_inner, cfg.dt_rank, cfg.ssm_state
+        gather(lspec(mx, "in_proj"), (D, 2 * di), (0, 1), times)
+        gather(lspec(mx, "out_proj"), (di, D), (1,), times)
+        if st.kind == "mamba" and sp:
+            act("sp", x)                              # the norm's gather
+        if decode:
+            add("tp", batch * (R + 2 * N) * a)        # x_proj
+            add("tp", batch * D * a)                  # out_proj
+        else:
+            act("tp", T_ * (R + 2 * N) * a)           # x_proj (+ its enter)
+            act("sp", x, last=st.kind == "mamba")     # out_proj
+    if st.kind == "mamba":
+        return
+    # the FFN
+    if sp:
+        act("sp", x)                                  # ln2's gather
+    if cfg.moe_experts:
+        mo = ls["moe"]
+        E, F, k = cfg.moe_experts, cfg.moe_d_ff, cfg.moe_top_k
+        names = ("up", "down") + (("gate",) if cfg.glu else ())
+        if decode:
+            cap = max(int(T_ * k * cfg.capacity_factor / E), k)
+            add("moe", T_ * D * a)                    # the tokens
+            add("moe", T_ * k * 4)                    # the gates
+            add("moe", T_ * k * 8)                    # the experts' ids
+            add("moe", E * cap * F * a * (2 if cfg.glu else 1))
+            add("moe", T_ * D * a)                    # the output
+        else:
+            for name in names:
+                shp = (E, F, D) if name == "down" else (E, D, F)
+                gather(lspec(mo, name), shp, (1,), times, part="moe")
+            act("moe", x, last=not cfg.moe_dense_residual)
+    if not cfg.moe_experts or cfg.moe_dense_residual:
+        ml = ls["mlp"]
+        Fd = cfg.d_ff
+        for name, shp, d in (("up", (D, Fd), (0,)), ("gate", (D, Fd), (0,)),
+                             ("down", (Fd, D), (1,))):
+            if name in ml:
+                gather(lspec(ml, name), shp, d, times)
+        if axes(lspec(ml, "up"), 1):
+            if decode:
+                add("tp", batch * D * a)
+            else:
+                act("sp", x, last=True)
 
 
 def _train_flops(cfg, params, batch: int, seq: int) -> float:
@@ -3186,6 +3575,7 @@ def phase_scan_backward_fp64(torch) -> None:
 
 def main() -> int:
     import os
+    t_start = time.perf_counter()
     # cuBLAS gives one result for one input only with a fixed workspace,
     # which torch.use_deterministic_algorithms needs (set before any use)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3256,6 +3646,7 @@ def main() -> int:
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths.values())
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}
+    emit("smoke", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(records.values())}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

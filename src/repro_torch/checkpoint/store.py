@@ -20,8 +20,10 @@ then rewrite ``LATEST``: a crash at any point leaves either the previous
 checkpoint or a complete new one (``*.tmp`` dirs are removed by the next
 save).  Elastic remesh: ``load(..., sharding=(specs, mesh))`` reads each
 leaf whole from the one shard file, as the reference does, and keeps this
-rank's block of it on the new mesh (``layers.shard_tree``), whatever
-mesh the checkpoint was written under.
+rank's block of it on the new mesh (``layers.shard_tree``: with
+``transformer.param_specs`` and the optimizer's ``init_specs``, the
+dense leaves' blocks as well as the experts'), whatever mesh the
+checkpoint was written under.
 """
 from __future__ import annotations
 

@@ -17,26 +17,42 @@ axis of size 1 still goes through its (one-rank) group.
 shape the dry-run reads, with no process group; a collective on it
 raises.
 
-Placement in this slice (``shard_tree`` with ``ep_specs``, defined in
-``models/layers.py`` and reached here): a rank holds
-its batch rows (``batch_specs``), its block of each expert leaf by
-``transformer.param_specs`` (E over ``model``; D, or F for ``down``, over
-``data``) and every other leaf whole.  ``interop.params_from`` followed by
-``shard_tree`` carries the reference's weights to a rank.  The dense
-leaves' tensor-parallel / FSDP placement by ``param_specs`` is ROADMAP.md
-queue 1 item 5.6.
+Placement (``shard_tree`` with ``transformer.param_specs``, defined in
+``models/layers.py`` and reached here): a rank holds its batch rows
+(``batch_specs``) and its block of every parameter leaf by the
+reference's specs (FSDP over ``data``, tensor-parallel columns or rows,
+the embedding's vocabulary rows and the experts over ``model``); the
+layers gather a leaf's blocks on use (``layers`` "Sharding") and drop the
+gathered copy after.  ``interop.params_from`` followed by ``shard_tree``
+carries the reference's weights to a rank.
 
 Under autograd (training over a mesh) the collectives differentiate as
 the reference's ``shard_map`` transposes them: ``all_gather``'s backward
-is a sum-scatter over the same group; ``sum_partials`` (a ``psum`` of
-partials that every rank of the group then uses alike, as the MoE's
-output and the loss) passes its cotangent through; ``enter`` (a value
-held alike by the group entering work split over it, as the MoE's tokens
-and gates) sums the ranks' partial cotangents.  ``all_reduce`` itself
-writes in place and is not differentiable.
+is a sum-scatter over the same group, and ``sum_scatter``'s (a
+row-parallel product's partials summed and cut along the sequence) an
+all-gather; ``sum_partials`` (a ``psum`` of partials that every rank of
+the group then uses alike, as the loss and the Mamba mixer's dt, B and
+C) passes its cotangent through, and ``share`` (a gather whose result
+every rank then uses alike, as the vocabulary-parallel loss's maxima and
+sums) takes this rank's slice of it; ``enter`` (a value held alike by
+the group entering work split over it, as those dt, B and C entering
+the mixer's channel blocks) sums the ranks' partial cotangents.
+``all_reduce`` itself writes in place and is not differentiable.
+
+Every collective names its ``part`` (a required keyword), and ``Mesh.parts`` counts calls and
+bytes by part (a backward's under its forward's part): ``fsdp`` (leaves
+gathered over ``rules.fsdp``), ``tp`` (leaves gathered over
+``rules.tensor``, and the decode's row-parallel sums), ``sp`` (the
+residual's sequence gathers and sum-scatters over ``rules.act_seq``),
+``vocab`` (the embedding's sums, the loss's maxima and sums, the logits'
+gathers), ``decode_seq`` (the decode attention's partials over
+``rules.seq``), ``moe``, ``loss`` (the loss summed over the batch axes),
+``grad`` (the train step's gradient sums) and ``opt`` (the optimizer's
+norms and means).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 import os
@@ -47,9 +63,11 @@ import torch.distributed as dist
 from repro_torch.models.layers import P, ShardingRules
 # the placement helpers live beside P (checkpoint/ and train/ use them
 # too); the mesh's users reach them here
-from repro_torch.models.layers import ep_specs, shard_tree  # noqa: F401
+from repro_torch.models.layers import shard_tree  # noqa: F401
 
 STATS = ("calls", "bytes", "backward_calls", "backward_bytes")
+PARTS = ("fsdp", "tp", "sp", "vocab", "decode_seq", "moe", "loss", "grad",
+         "opt")
 
 
 class Mesh:
@@ -61,7 +79,9 @@ class Mesh:
     ``stats`` counts the collectives this rank issued (``calls``) and the
     bytes it handed them (``bytes``: each call's input); those issued by
     a backward are counted there too, and apart in ``backward_calls`` and
-    ``backward_bytes``."""
+    ``backward_bytes``; ``parts`` counts both by the collective's part
+    (``PARTS``), ``{part: {"calls", "bytes"}}``.  ``reset_stats`` zeroes
+    both."""
 
     def __init__(self, shape: dict[str, int], *, group=None,
                  virtual: bool = False):
@@ -69,6 +89,7 @@ class Mesh:
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
         self.stats = dict.fromkeys(STATS, 0)
+        self.parts = {}
         self.coords = None
         self._groups = None
         if virtual:
@@ -136,20 +157,37 @@ class Mesh:
             flat = flat * self.shape[a] + self.axis_index(a)
         return flat
 
-    def _count(self, x: torch.Tensor, backward: bool = False) -> None:
+    def reset_stats(self) -> None:
+        self.stats.update(dict.fromkeys(STATS, 0))
+        self.parts = {}
+
+    def group_size(self, axes) -> int:
+        """The number of ranks over ``axes`` (a name, a tuple; None entries
+        dropped)."""
+        return math.prod(self.shape[a]
+                         for a in self._axes(axes, any_order=True))
+
+    def _count(self, x: torch.Tensor, part: str,
+               backward: bool = False) -> None:
+        if part not in PARTS:
+            raise ValueError(f"unknown collective part {part!r}")
         n = x.numel() * x.element_size()
         self.stats["calls"] += 1
         self.stats["bytes"] += n
         if backward:
             self.stats["backward_calls"] += 1
             self.stats["backward_bytes"] += n
+        by = self.parts.setdefault(part, {"calls": 0, "bytes": 0})
+        by["calls"] += 1
+        by["bytes"] += n
 
-    def _gather(self, x, axes, dim: int) -> torch.Tensor:
+    def _gather(self, x, axes, dim: int, part: str,
+                backward: bool = False) -> torch.Tensor:
         group = self._group(axes)
         n = math.prod(self.shape[a] for a in axes)
         x = x.contiguous()
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        self._count(x)
+        self._count(x, part, backward)
         dist.all_gather_into_tensor(out, x, group=group)
         if dim == 0:
             return out
@@ -157,27 +195,32 @@ class Mesh:
         return out.reshape(x.shape[:dim] + (n * x.shape[dim],) +
                            x.shape[dim + 1:])
 
-    def _sum_scatter(self, g, axes, dim: int) -> torch.Tensor:
+    def _sum_scatter(self, g, axes, dim: int, part: str,
+                     backward: bool = False) -> torch.Tensor:
         """The transpose of ``_gather``: ``g`` cut along ``dim`` into the
         group's blocks in group order, each block summed over the group;
-        this rank's block (a backward's collective)."""
+        this rank's block."""
         group = self._group(axes)
         n = math.prod(self.shape[a] for a in axes)
+        if g.shape[dim] % n:
+            raise ValueError(f"a sum-scatter of dim {dim} of {g.shape[dim]} "
+                             f"over {axes} of {n} ranks")
         g = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
         g = g.contiguous()
         out = g.new_empty(g.shape[1:])
-        self._count(g, backward=True)
+        self._count(g, part, backward)
         dist.reduce_scatter_tensor(
             out, g.reshape((-1,) + tuple(g.shape[2:])), group=group)
         return out
 
-    def _sum(self, x, axes, backward: bool = False) -> torch.Tensor:
-        self._count(x, backward)
+    def _sum(self, x, axes, part: str,
+             backward: bool = False) -> torch.Tensor:
+        self._count(x, part, backward)
         dist.all_reduce(x, group=self._group(axes))
         return x
 
-    def all_gather(self, x: torch.Tensor, axes, dim: int = 0
-                   ) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0, *,
+                   part: str) -> torch.Tensor:
         """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the ranks'
         ``x`` concatenated along ``dim`` in group order.  No axes: x.
         Under autograd its backward sums the cotangent over the group and
@@ -186,19 +229,47 @@ class Mesh:
         if not axes:
             return x
         if torch.is_grad_enabled() and x.requires_grad:
-            return _Gather.apply(x, self, axes, dim)
-        return self._gather(x, axes, dim)
+            return _Gather.apply(x, self, axes, dim, part)
+        return self._gather(x, axes, dim, part)
 
-    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+    def share(self, x: torch.Tensor, axes, dim: int = 0, *,
+              part: str) -> torch.Tensor:
+        """:meth:`all_gather` of values whose gathered whole every rank of
+        the group then uses identically (the vocabulary-parallel loss's
+        maxima and sums): under autograd the backward takes this rank's
+        slice of the cotangent, with no collective."""
+        axes = self._axes(axes)
+        if not axes:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Share.apply(x, self, axes, dim, part)
+        return self._gather(x, axes, dim, part)
+
+    def sum_scatter(self, x: torch.Tensor, axes, dim: int, *,
+                    part: str) -> torch.Tensor:
+        """Partials summed over the group and cut along ``dim`` into its
+        blocks in group order; this rank's block (``psum_scatter(...,
+        tiled=True)``, the dim a multiple of the group's size).  Under
+        autograd the backward all-gathers the cotangent.  No axes: x."""
+        axes = self._axes(axes)
+        if not axes:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _SumScatter.apply(x, self, axes, dim, part)
+        return self._sum_scatter(x, axes, dim, part)
+
+    def all_reduce(self, x: torch.Tensor, axes, *,
+                   part: str) -> torch.Tensor:
         """``lax.psum(x, axes)``, in place on ``x`` (returned).  No
         axes: x.  Not differentiable: under autograd use
         :meth:`sum_partials` or :meth:`enter`."""
         axes = self._axes(axes, any_order=True)
         if not axes:
             return x
-        return self._sum(x, axes)
+        return self._sum(x, axes, part)
 
-    def sum_partials(self, x: torch.Tensor, axes) -> torch.Tensor:
+    def sum_partials(self, x: torch.Tensor, axes, *,
+                     part: str) -> torch.Tensor:
         """``psum`` of partials whose sum every rank of the group then uses
         identically (Megatron's ``g``): under autograd the forward sums a
         copy and the backward passes the cotangent through (each rank's
@@ -208,10 +279,11 @@ class Mesh:
         if not axes:
             return x
         if torch.is_grad_enabled() and x.requires_grad:
-            return _SumPartials.apply(x, self, axes)
-        return self._sum(x, axes)
+            return _SumPartials.apply(x, self, axes, part)
+        return self._sum(x, axes, part)
 
-    def enter(self, x: torch.Tensor, axes) -> torch.Tensor:
+    def enter(self, x: torch.Tensor, axes, *,
+              part: str) -> torch.Tensor:
         """The counterpart of :meth:`sum_partials` where a value held
         identically by the group enters work split over it (Megatron's
         ``f``): the forward is the identity, the backward sums the ranks'
@@ -219,7 +291,7 @@ class Mesh:
         axes = self._axes(axes, any_order=True)
         if not axes or not (torch.is_grad_enabled() and x.requires_grad):
             return x
-        return _Enter.apply(x, self, axes)
+        return _Enter.apply(x, self, axes, part)
 
 
 class _Gather(torch.autograd.Function):
@@ -227,34 +299,65 @@ class _Gather(torch.autograd.Function):
     group, in the same rank order."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim):
-        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
-        return mesh._gather(x, axes, dim)
+    def forward(ctx, x, mesh, axes, dim, part):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.part = mesh, axes, dim, part
+        return mesh._gather(x, axes, dim, part)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh._sum_scatter(g, ctx.axes, ctx.dim), None, None, None
+        return (ctx.mesh._sum_scatter(g, ctx.axes, ctx.dim, ctx.part,
+                                      backward=True), None, None, None,
+                None)
+
+
+class _Share(torch.autograd.Function):
+    """``Mesh.share``: a gather whose backward is this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, part):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.at = mesh.flat_index(axes) * x.shape[dim]
+        return mesh._gather(x, axes, dim, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.at, ctx.n), None, None, None, None
+
+
+class _SumScatter(torch.autograd.Function):
+    """``Mesh.sum_scatter`` with its backward: an all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, part):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.part = mesh, axes, dim, part
+        return mesh._sum_scatter(x, axes, dim, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._gather(g, ctx.axes, ctx.dim, ctx.part,
+                                 backward=True), None, None, None, None)
 
 
 class _SumPartials(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        return mesh._sum(x.clone(), axes)
+    def forward(ctx, x, mesh, axes, part):
+        return mesh._sum(x.clone(), axes, part)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 class _Enter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
+    def forward(ctx, x, mesh, axes, part):
+        ctx.mesh, ctx.axes, ctx.part = mesh, axes, part
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh._sum(g.clone(), ctx.axes, backward=True), None, None
+        return (ctx.mesh._sum(g.clone(), ctx.axes, ctx.part, backward=True),
+                None, None, None)
 
 
 def make_mesh(shape, axes, group=None) -> Mesh:
@@ -313,12 +416,9 @@ def make_rules(mesh, *, kind: str, global_batch: int,
             sp = sp or (cfg.num_kv_heads * cfg.hd * 2 <= cfg.d_model)
         return ShardingRules(batch=b, tensor="model", fsdp="data", seq=None,
                              act_seq="model", seq_parallel_attn=sp)
-    if b is None:
-        seq = tuple(a for a in ("pod", "data", "model") if a in mesh.shape)
-    else:
-        seq = "model"
-    return ShardingRules(batch=b, tensor="model", fsdp="data", seq=seq,
-                         moe_gather_weights=False)
+    rules = ShardingRules(batch=b, tensor="model", fsdp="data",
+                          moe_gather_weights=False)
+    return dataclasses.replace(rules, seq=rules.cache_seq(mesh))
 
 
 def batch_specs(mesh, rules: ShardingRules, input_tree):

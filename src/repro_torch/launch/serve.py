@@ -74,9 +74,10 @@ def serve(cfg: T.ModelConfig, *, batch: int, prompt_len: int, gen: int,
 
     ``mesh`` (a ``launch.mesh.Mesh``): serve through it with the rules of
     ``make_rules`` for prefill and decode; this rank takes its rows of the
-    prompts and the source and its block of the expert leaves
-    (``shard_tree`` with ``ep_specs``; ``params`` whole), and returns its
-    rows."""
+    prompts and the source and its block of every leaf by ``param_specs``
+    (``shard_tree``; ``params`` whole), gathers a leaf's blocks where a
+    layer uses it, holds its block of the decode caches, and returns its
+    rows, the logits whole."""
     dev = resolve_device(device)
     if params is None:
         params = T.init_params(
@@ -90,7 +91,7 @@ def serve(cfg: T.ModelConfig, *, batch: int, prompt_len: int, gen: int,
                                cfg=cfg)
         rules_d = M.make_rules(mesh, kind="decode", global_batch=batch,
                                cfg=cfg)
-        params = M.shard_tree(params, M.ep_specs(T.param_specs(cfg)), mesh)
+        params = M.shard_tree(params, T.param_specs(cfg), mesh)
         data = {"tokens": tokens, "cross": cross_src}
         if cross_src is None:
             del data["cross"]

@@ -21,7 +21,10 @@ The weights are drawn from a ``torch.Generator`` seeded with ``--seed``.
 ``--remesh`` is accepted and read nowhere, as in the reference: this
 launcher builds no mesh and resumes every leaf whole, so a run with the
 flag resumes exactly as one without it.  A restore onto a mesh is
-``checkpoint.load(..., sharding=(specs, mesh))``.
+``checkpoint.load(..., sharding=(specs, mesh))`` with ``specs`` the
+parameters' ``param_specs`` and the optimizer's ``init_specs`` of them:
+each rank then holds its block of every leaf, as
+``make_train_step(rules=, mesh=)`` takes them.
 """
 from __future__ import annotations
 

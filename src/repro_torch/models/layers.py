@@ -20,12 +20,30 @@ them, router logits and the SSM state in float32.  Masked logits are
 filled with -1e30, not -inf.
 
 Sharding: :class:`ShardingRules` and the spec type :class:`P` are the
-reference's; :func:`shard` is the identity, since eager PyTorch has no
-compiler to place activations and the reference's constraints change no
-value.  The one layer whose values depend on the mesh, ``moe_block``,
-runs expert-parallel over a ``launch.mesh.Mesh`` through its
-``torch.distributed`` groups, and under autograd through the mesh's
-differentiable collectives (the gather regime).
+reference's.  With no mesh every layer is the one-device function.  Over
+a ``launch.mesh.Mesh`` (the ``*_mesh`` functions, with an :class:`OnMesh`
+and the layer's leaves as this rank's blocks by ``param_specs``, with
+their specs) a layer places its work where the reference's hints place
+it: a dim a leaf's spec splits over ``rules.fsdp`` is all-gathered just
+before use (:func:`gather_leaf`; its backward, a sum-scatter, hands back
+a gradient block) and the gathered copy dropped after; the MLP's ``up`` /
+``gate`` columns and ``down`` rows, the query heads and ``wo``'s rows,
+the Mamba mixer's channels and ``x_proj`` / ``out_proj`` rows and the
+embedding's vocabulary rows stay split over ``rules.tensor``
+(tensor-parallel: the row-parallel partials are summed over it), and
+``wk`` / ``wv`` are gathered whole, as the reference keeps K and V
+whole on every rank.  A leaf whose block does not hold whole heads, or
+whose dim the spec left whole, is gathered (or used) whole and computed
+whole.  Under sequence parallelism (``rules.act_seq``, train and
+prefill) the residual holds this rank's block of the sequence: a norm's
+output is gathered along it before a tensor-parallel product and the
+row-parallel sums become sum-scatters along it; with
+``seq_parallel_attn`` the queries stay sequence-split and only K and V
+are gathered.  In decode the KV caches hold this rank's block of
+positions over ``rules.seq`` and the attention combines the blocks'
+partial maxima, sums and PV products.  Where a split's group has one
+rank the arithmetic is that of no mesh (its collectives pass through a
+one-rank group), so a 1 x 1 mesh is bit-equal to no mesh.
 """
 from __future__ import annotations
 
@@ -68,15 +86,22 @@ def is_spec(x) -> bool:
     return isinstance(x, P) or x is None
 
 
+def _span(mesh, size: int, axes) -> tuple[int, int]:
+    """This rank's ceiling block ``(start, length)`` of a dim of ``size``
+    split over ``axes``: blocks of ``ceil(size / n)``, the last shorter or
+    empty."""
+    axes = _axes(axes)
+    if not axes:
+        return 0, size
+    chunk = -(-size // mesh.group_size(axes))
+    start = min(mesh.flat_index(axes) * chunk, size)
+    return start, min(chunk, size - start)
+
+
 def _block(mesh, x: torch.Tensor, spec) -> torch.Tensor:
     for dim, ax in enumerate(tuple(spec or ())):
-        axes = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
-        if not axes:
-            continue
-        n = math.prod(mesh.shape[a] for a in axes)
-        chunk = -(-x.shape[dim] // n)
-        start = min(mesh.flat_index(axes) * chunk, x.shape[dim])
-        x = x.narrow(dim, start, min(chunk, x.shape[dim] - start))
+        if _axes(ax):
+            x = x.narrow(dim, *_span(mesh, x.shape[dim], ax))
     return x
 
 
@@ -89,25 +114,6 @@ def shard_tree(tree, spec_tree, mesh):
     + ``device_put``."""
     return tree_map(lambda spec, x: _block(mesh, x, spec), spec_tree, tree,
                     is_leaf=is_spec)
-
-
-def ep_specs(param_specs):
-    """The placement of this slice: the MoE leaves' specs as
-    ``param_specs`` gives them (the experts' ``up``, ``gate`` and
-    ``down``; the router's is whole), every other leaf whole (``P()``)."""
-    def walk(node, moe=False):
-        if is_spec(node):
-            return node if moe else P()
-        if isinstance(node, dict):
-            return {k: walk(v, moe or k == "moe") for k, v in node.items()}
-        return [walk(v, moe) for v in node]
-    return walk(param_specs)
-
-
-def shard(x: torch.Tensor, spec) -> torch.Tensor:
-    """The identity: eager PyTorch has no compiler to place activations,
-    and the reference's constraint changes no value."""
-    return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,18 +138,147 @@ class ShardingRules:
     moe_gather_weights: bool = True
     seq_parallel_attn: bool = False
 
-    def act(self, *rest) -> P | None:
-        """Spec for an activation whose leading dim is batch."""
-        if self.batch is None and all(r is None for r in rest):
-            return None
-        return P(self.batch, *rest)
-
-    def residual(self) -> P | None:
-        """Spec for the [B, S, D] residual stream at layer boundaries."""
-        return self.act(self.act_seq, None)
+    def cache_seq(self, mesh) -> Any:
+        """The decode caches' sequence axes on ``mesh`` (a
+        ``launch.mesh.Mesh``) for these rules' batch: the tensor axis where
+        the batch rows split over the batch axes, else (a batch that fills
+        none of them) every axis of the mesh.  The decode rules' ``seq``,
+        and the layout in which prefill leaves the caches."""
+        return self.tensor if self.batch is not None else mesh.axis_names
 
 
 NO_SHARD = ShardingRules()
+
+
+def _axes(entry) -> tuple[str, ...]:
+    """A spec entry (None, a name or a tuple of names) as a tuple."""
+    return entry if isinstance(entry, tuple) else ((entry,) if entry else ())
+
+
+def spec_axes(spec, dim: int) -> tuple[str, ...]:
+    """The mesh axes ``spec`` splits ``dim`` over (none past its end)."""
+    spec = tuple(spec or ())
+    return _axes(spec[dim]) if dim < len(spec) else ()
+
+
+@dataclasses.dataclass(frozen=True)
+class OnMesh:
+    """A layer's mesh (a ``launch.mesh.Mesh``) and rules.  Sequence
+    parallelism (``rules.act_seq``) splits the sequence over the tensor
+    axis itself (``make_rules``'s), so that a tensor-parallel product's
+    partials are summed and cut along the sequence in one collective."""
+    mesh: Any
+    rules: ShardingRules
+
+    def __post_init__(self):
+        act, t = self.rules.act_seq, self.rules.tensor
+        if act is not None and _axes(act) != _axes(t):
+            raise ValueError(f"sequence parallelism over {act!r} needs the "
+                             f"tensor axis {t!r} to be the same")
+
+    @property
+    def sp(self) -> bool:
+        return self.rules.act_seq is not None
+
+    def n(self, axes) -> int:
+        return self.mesh.group_size(axes)
+
+    def span(self, size: int, axes) -> tuple[int, int]:
+        """This rank's ``shard_tree`` block ``(start, length)`` of a dim
+        of ``size`` split over ``axes``."""
+        return _span(self.mesh, size, axes)
+
+    def seq_span(self, S: int) -> tuple[int, int]:
+        """This rank's block of a sequence of ``S`` under sequence
+        parallelism (the sequence must split evenly)."""
+        n = self.n(self.rules.act_seq)
+        if S % n:
+            raise ValueError(f"a sequence of {S} does not split over "
+                             f"{self.rules.act_seq!r} of {n}")
+        return self.mesh.flat_index(self.rules.act_seq) * (S // n), S // n
+
+
+def _part(rules: ShardingRules, axes) -> str:
+    return "fsdp" if set(_axes(axes)) & set(_axes(rules.fsdp)) else "tp"
+
+
+def gather_padded(mesh, x: torch.Tensor, axes, dim: int, size: int, *,
+                  part: str) -> torch.Tensor:
+    """``x``, this rank's ceiling block of a dim of ``size`` split over
+    ``axes``, gathered whole along ``dim``: a short or empty block is
+    padded to the ceiling first and the whole trimmed to ``size`` after
+    (under autograd the pad's cotangent is dropped)."""
+    axes = _axes(axes)
+    if not axes:
+        return x
+    chunk = -(-size // mesh.group_size(axes))
+    if x.shape[dim] < chunk:
+        pad = list(x.shape)
+        pad[dim] = chunk - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    out = mesh.all_gather(x, axes, dim, part=part)
+    return out if out.shape[dim] == size else out.narrow(dim, 0, size)
+
+
+def gather_leaf(on: OnMesh, w: torch.Tensor, spec, sizes: dict
+                ) -> torch.Tensor:
+    """Leaf block ``w`` gathered whole along each dim of ``sizes``
+    (``{dim: whole length}``) over the axes its spec splits it (FSDP's
+    ``fsdp`` gathers count as ``fsdp``, the others as ``tp``); a dim the
+    spec leaves whole passes as it is."""
+    for dim, size in sizes.items():
+        axes = spec_axes(spec, dim)
+        if axes:
+            if w.shape[dim] != on.span(size, axes)[1]:
+                raise ValueError(f"a leaf of shape {tuple(w.shape)} is not "
+                                 f"this rank's block of dim {dim} of {size} "
+                                 f"over {axes}")
+            w = gather_padded(on.mesh, w, axes, dim, size,
+                              part=_part(on.rules, axes))
+        elif w.shape[dim] != size:
+            raise ValueError(f"a leaf of shape {tuple(w.shape)} whose spec "
+                             f"{spec} leaves dim {dim} of {size} whole")
+    return w
+
+
+def local_block(on: OnMesh, w: torch.Tensor, spec, dim: int, size: int,
+                axes) -> torch.Tensor:
+    """Leaf ``w``, checked to be this rank's block over ``axes`` of a dim
+    of ``size`` (its spec must split ``dim`` over them)."""
+    if set(spec_axes(spec, dim)) != set(_axes(axes)) or \
+            w.shape[dim] != on.span(size, axes)[1]:
+        raise ValueError(f"a leaf of shape {tuple(w.shape)} by {spec} is "
+                         f"not this rank's block of dim {dim} over {axes}")
+    return w
+
+
+def seq_gather(on: OnMesh, x: torch.Tensor) -> torch.Tensor:
+    """The residual layout's value made whole along the sequence (dim 1):
+    gathered over ``act_seq`` under sequence parallelism (``sp``), else as
+    it is."""
+    if not on.sp:
+        return x
+    return on.mesh.all_gather(x, on.rules.act_seq, 1, part="sp")
+
+
+def seq_own(on: OnMesh, y: torch.Tensor) -> torch.Tensor:
+    """A value whole along the sequence and alike on the tensor group, cut
+    to the residual layout (this rank's block under ``sp``)."""
+    if not on.sp:
+        return y
+    start, length = on.seq_span(y.shape[1])
+    return y.narrow(1, start, length)
+
+
+def reduce_out(on: OnMesh, y: torch.Tensor, part: str = "sp"
+               ) -> torch.Tensor:
+    """A row-parallel product's partials over the tensor axis, summed into
+    the residual layout: sum-scattered along the sequence under ``sp``
+    (``part``), else summed (``tp``)."""
+    if on.sp:
+        return on.mesh.sum_scatter(y, on.rules.act_seq, 1, part=part)
+    return on.mesh.sum_partials(y, on.rules.tensor,
+                                part="tp" if part == "sp" else part)
 
 
 @functools.lru_cache(maxsize=None)
@@ -290,14 +425,15 @@ def attention_core(q, k, v, *, causal: bool, window: int = 0,
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
-                      chunk: int = 1024) -> torch.Tensor:
+                      chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention over KV chunks (a Python loop where the
     reference scans).  Never materialises [B, H, Sq, Sk]; the peak
-    transient is [B, H, Sq, chunk]."""
+    transient is [B, H, Sq, chunk].  ``q_offset``: q[0]'s position."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     if Sk <= chunk:
-        return attention_core(q, k, v, causal=causal, window=window)
+        return attention_core(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
     n_chunks = -(-Sk // chunk)
     pad = n_chunks * chunk - Sk
     if pad:
@@ -305,7 +441,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     scale = 1.0 / math.sqrt(D)
     dev = q.device
-    qpos = torch.arange(Sq, device=dev)
+    qpos = torch.arange(Sq, device=dev) + q_offset
     m = torch.full((B, H, Sq), -math.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
@@ -330,11 +466,14 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.permute(0, 2, 1, 3).to(q.dtype)           # [B, Sq, H, D]
 
 
+CHUNK_THRESHOLD = 2048     # tokens above which self-attention is chunked
+
+
 def self_attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                    head_dim: int, qkv_bias: bool, rope_theta: float,
                    causal: bool, window: int, positions: torch.Tensor,
-                   use_rope: bool = True, chunk_threshold: int = 2048
-                   ) -> torch.Tensor:
+                   use_rope: bool = True,
+                   chunk_threshold: int = CHUNK_THRESHOLD) -> torch.Tensor:
     """Full-sequence self-attention (train / prefill path); chunked above
     ``chunk_threshold`` tokens."""
     q, k, v = _qkv(params, x, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
@@ -391,6 +530,74 @@ def project_cross_kv(params: dict, kv_src: torch.Tensor, *, n_kv: int,
 # Decode-path attention (KV cache, ring buffers for windows)
 # ---------------------------------------------------------------------------
 
+def _decode_qkv(params: dict, x: torch.Tensor, pos: int, *, n_heads: int,
+                n_kv: int, head_dim: int, qkv_bias: bool, rope_theta: float,
+                use_rope: bool):
+    """The new token's q, k, v [B, 1, heads, head_dim], rotated to ``pos``."""
+    q, k, v = _qkv(params, x, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+                   qkv_bias=qkv_bias)
+    if use_rope:
+        posv = torch.full((1,), pos, device=x.device)
+        q = rope(q, posv, rope_theta)
+        k = rope(k, posv, rope_theta)
+    return q, k, v
+
+
+def _decode_attend(q, k, v, cache_k, cache_v, pos: int, *, n_heads: int,
+                   head_dim: int, window: int, start: int = 0,
+                   S_cache: int | None = None, gather=None) -> torch.Tensor:
+    """The decode attention over a block of cache slots -> o [B, 1,
+    n_heads * head_dim].  ``cache_k`` / ``cache_v`` hold slots ``[start,
+    start + L)`` of ``S_cache`` (default: all of them); the new token's K /
+    V row is written in place where the block holds its slot (``pos``, or
+    ``pos % S_cache`` for a ring).  With ``gather`` None the block is the
+    whole cache and takes the softmax; else ``gather`` (over the other
+    blocks' ranks) returns every block's partial ``[m | s | pv]`` in rank
+    order, combined by :func:`_combine_blocks`."""
+    L = cache_k.shape[1]
+    S_cache = S_cache or L
+    slot = pos % S_cache if window else pos
+    if slot >= S_cache:
+        raise IndexError(f"position {pos} past a cache of {S_cache}")
+    if start <= slot < start + L:
+        cache_k[:, slot - start] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot - start] = v[:, 0].to(cache_v.dtype)
+    # validity: slot i holds a position (for a ring: the newest S_cache
+    # positions).  The reference's precedence makes the window case
+    # ((idx <= pos) & (idx > pos - S_cache)) | (pos >= S_cache).
+    idx = torch.arange(start, start + L, device=q.device)
+    valid = idx <= pos
+    if window:
+        valid = (valid & (idx > pos - S_cache)) | (pos >= S_cache)
+    kf = _repeat_kv(cache_k.to(q.dtype), n_heads)
+    vf = _repeat_kv(cache_v.to(q.dtype), n_heads)
+    logits = _scores(q, kf) * (1.0 / math.sqrt(head_dim))
+    logits = torch.where(valid[None, None, None, :], logits, NEG)
+    if gather is None:
+        o = _pv(torch.softmax(logits, dim=-1).to(q.dtype), vf)
+    else:
+        m = logits.amax(dim=-1, keepdim=True)                # [B, H, 1, 1]
+        p = torch.exp(logits - m)
+        part = torch.cat([m, p.sum(dim=-1, keepdim=True),
+                          _pv(p, vf.float())], dim=-1)
+        o = _combine_blocks(gather(part)).to(q.dtype)
+    B = q.shape[0]
+    return o.permute(0, 2, 1, 3).reshape(B, 1, n_heads * head_dim)
+
+
+def _combine_blocks(parts: torch.Tensor) -> torch.Tensor:
+    """The decode attention's per-block ``[m | s | pv]`` (float32, the
+    blocks on dim 0 in rank order) combined left to right: ``sum_r
+    exp(m_r - M) pv_r / sum_r exp(m_r - M) s_r``, M the largest m."""
+    M = parts[..., :1].amax(dim=0)
+    num = den = None
+    for r in range(parts.shape[0]):
+        wr = torch.exp(parts[r, ..., :1] - M)
+        dn, nm = wr * parts[r, ..., 1:2], wr * parts[r, ..., 2:]
+        num, den = (nm, dn) if num is None else (num + nm, den + dn)
+    return num / den
+
+
 def decode_self_attention(params: dict, x: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
                           pos: int, *, n_heads: int, n_kv: int,
@@ -405,30 +612,11 @@ def decode_self_attention(params: dict, x: torch.Tensor,
     new token's K/V row is written into ``cache_k`` / ``cache_v`` in place
     (they are returned too).  Returns (out, cache_k, cache_v).
     """
-    B = x.shape[0]
-    S_cache = cache_k.shape[1]
-    q, k, v = _qkv(params, x, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
-                   qkv_bias=qkv_bias)
-    if use_rope:
-        posv = torch.full((1,), pos, device=x.device)
-        q = rope(q, posv, rope_theta)
-        k = rope(k, posv, rope_theta)
-    slot = pos % S_cache if window else pos
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    # validity: slot i holds a position (for a ring: the newest S_cache
-    # positions).  The reference's precedence makes the window case
-    # ((idx <= pos) & (idx > pos - S_cache)) | (pos >= S_cache).
-    idx = torch.arange(S_cache, device=x.device)
-    valid = idx <= pos
-    if window:
-        valid = (valid & (idx > pos - S_cache)) | (pos >= S_cache)
-    kf = _repeat_kv(cache_k.to(q.dtype), n_heads)
-    vf = _repeat_kv(cache_v.to(q.dtype), n_heads)
-    logits = _scores(q, kf) * (1.0 / math.sqrt(head_dim))
-    logits = torch.where(valid[None, None, None, :], logits, NEG)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    o = _pv(probs, vf).permute(0, 2, 1, 3).reshape(B, 1, n_heads * head_dim)
+    q, k, v = _decode_qkv(params, x, pos, n_heads=n_heads, n_kv=n_kv,
+                          head_dim=head_dim, qkv_bias=qkv_bias,
+                          rope_theta=rope_theta, use_rope=use_rope)
+    o = _decode_attend(q, k, v, cache_k, cache_v, pos, n_heads=n_heads,
+                       head_dim=head_dim, window=window)
     return o @ params["wo"], cache_k, cache_v
 
 
@@ -545,11 +733,11 @@ def _moe_local_compute_2d(xg, xg_d, gates, idx, w_up, w_gate, w_down, *,
     h = torch.bmm(xb, w_up)                           # partial over D
     if w_gate is not None:
         hg = mesh.all_reduce(torch.cat([h, torch.bmm(xb, w_gate)], -1),
-                             fsdp_ax)
+                             fsdp_ax, part="moe")
         h, g = hg.split(h.shape[-1], dim=-1)
         h = _act(activation, g) * h
     else:
-        h = _act(activation, mesh.all_reduce(h, fsdp_ax))
+        h = _act(activation, mesh.all_reduce(h, fsdp_ax, part="moe"))
     f_loc = w_down.shape[1]
     h_f = h.narrow(2, mesh.axis_index(fsdp_ax) * f_loc, f_loc)
     return _combine(torch.bmm(h_f, w_down), keep_f, buf_slot, flat, gate,
@@ -585,17 +773,21 @@ def _moe_gather_body(xf, gates, idx, w_up, w_gate, w_down, *, mesh,
                      activation: str, e_start: int) -> torch.Tensor:
     """The gather regime's body on this rank: the expert blocks gathered
     over fsdp, this rank's experts over its tokens, the partials summed
-    over the tensor axis.  Under autograd the gathers' backward is a
-    sum-scatter over fsdp and the sum's is the identity."""
+    over the tensor axis (under sequence parallelism they are returned as
+    they are: the caller sum-scatters them along the sequence).  Under
+    autograd the gathers' backward is a sum-scatter over fsdp and the
+    sum's is the identity."""
     if rules.fsdp is not None:
-        w_up = mesh.all_gather(w_up, rules.fsdp, dim=1)
-        w_down = mesh.all_gather(w_down, rules.fsdp, dim=1)
+        w_up = mesh.all_gather(w_up, rules.fsdp, dim=1, part="moe")
+        w_down = mesh.all_gather(w_down, rules.fsdp, dim=1, part="moe")
         if w_gate is not None:
-            w_gate = mesh.all_gather(w_gate, rules.fsdp, dim=1)
+            w_gate = mesh.all_gather(w_gate, rules.fsdp, dim=1, part="moe")
     out = _moe_local_compute(
         xf, gates, idx, w_up, w_gate, w_down, top_k=top_k,
         capacity=capacity, activation=activation, e_start=e_start)
-    return mesh.sum_partials(out, rules.tensor)
+    if rules.act_seq is not None:
+        return out
+    return mesh.sum_partials(out, rules.tensor, part="moe")
 
 
 def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
@@ -605,10 +797,13 @@ def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
     D] holds this rank's token rows (all of them when ``rules.batch`` is
     None).  Returns this rank's rows of the output.
 
-    Under autograd (the gather regime only, which the train rules take)
-    the tokens and gates enter through ``mesh.enter`` over the tensor axis
-    (each tensor rank's cotangent covers its own experts only, so the
-    backward sums them), and the body runs under a non-reentrant
+    Under sequence parallelism (``rules.act_seq``: train and prefill) the
+    rows are the whole sequence of this rank's batch rows, gathered by the
+    layer's norm, whose backward (a sum-scatter over the tensor axis) sums
+    the tensor ranks' partial cotangents; the output is this rank's
+    partial, which ``moe_block`` sum-scatters along the sequence.  It
+    trains only so (the train rules'): without sequence parallelism it
+    runs forward only.  Under autograd the body runs under a non-reentrant
     checkpoint, as the reference's ``jax.checkpoint``: the backward
     gathers the experts again (ZeRO-3) instead of holding each layer's
     gathered copy, and the recompute issues the same collectives in the
@@ -626,10 +821,14 @@ def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
     n_shards = mesh.shape[tensor_ax]
     E_loc = n_experts // n_shards
     gather_w = rules.moe_gather_weights or fsdp_ax is None
-    if grad and not gather_w:
+    if rules.act_seq is not None and not gather_w:
+        raise NotImplementedError("moe_block's 2-D (decode) regime runs "
+                                  "without sequence parallelism")
+    if grad and rules.act_seq is None:
         raise NotImplementedError(
-            "moe_block's 2-D (decode) regime over a mesh runs forward "
-            "only: train with the gather regime (make_rules(kind='train'))")
+            "moe_block over a mesh without sequence parallelism (the 2-D "
+            "decode regime among them) runs forward only: train under "
+            "make_rules(kind='train')")
     capacity = max(int((T_loc if gather_w else T_loc * batch_size)
                        * top_k * capacity_factor / n_experts), top_k)
     F_full = params["up"].shape[2]
@@ -646,14 +845,13 @@ def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
         if not grad:
             return body(xf, gates, idx, w_up, w_gate, w_down)
         return ckpt.checkpoint(
-            body, mesh.enter(xf, tensor_ax), mesh.enter(gates, tensor_ax),
-            idx, w_up, w_gate, w_down, use_reentrant=False,
+            body, xf, gates, idx, w_up, w_gate, w_down, use_reentrant=False,
             preserve_rng_state=False)
     # decode: the weights stay 2-D sharded; gather the (few) tokens over
     # the batch axes, sum the partial expert activations
-    xg = mesh.all_gather(xf, batch_axes, dim=0)
-    gg = mesh.all_gather(gates, batch_axes, dim=0)
-    ig = mesh.all_gather(idx, batch_axes, dim=0)
+    xg = mesh.all_gather(xf, batch_axes, dim=0, part="moe")
+    gg = mesh.all_gather(gates, batch_axes, dim=0, part="moe")
+    ig = mesh.all_gather(idx, batch_axes, dim=0, part="moe")
     d_loc = w_up.shape[1]
     xg_d = xg.narrow(1, mesh.axis_index(fsdp_ax) * d_loc, d_loc)
     out = _moe_local_compute_2d(
@@ -662,7 +860,7 @@ def _moe_on_mesh(params, xf, gates, idx, *, n_experts: int, top_k: int,
         e_start=e_start)
     # partial over the expert partition (tensor) and the D / F shards
     # (fsdp); pod replicas computed the same work
-    out = mesh.all_reduce(out, (tensor_ax, fsdp_ax))
+    out = mesh.all_reduce(out, (tensor_ax, fsdp_ax), part="moe")
     return out.narrow(0, mesh.flat_index(batch_axes) * T_loc, T_loc)
 
 
@@ -681,9 +879,12 @@ def moe_block(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     at ``capacity = max(int(T_loc * k * cf / E), k)`` and sums over the
     tensor axis; otherwise (decode) it gathers the tokens over the batch
     axes, keeps the weights 2-D sharded (capacity from the global T) and
-    sums over (tensor, fsdp).  Over a mesh it trains in the gather regime
-    (``_moe_on_mesh``); the 2-D regime runs forward only, as the
-    reference's train rules never take it.
+    sums over (tensor, fsdp).  Over a mesh it trains only under the train
+    rules (the gather regime with sequence parallelism, ``_moe_on_mesh``);
+    otherwise it runs forward only.  Under sequence parallelism
+    (``rules.act_seq``) x holds the whole sequence of the rank's rows (the
+    norm's gathered output) and the result is the residual layout: this
+    rank's block of the sequence, the partials sum-scattered along it.
     """
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
@@ -693,7 +894,10 @@ def moe_block(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
                            top_k=top_k, capacity_factor=capacity_factor,
                            activation=activation, glu=glu, mesh=mesh,
                            rules=rules)
-        return shard(out.reshape(B, S, D), rules.residual())
+        out = out.reshape(B, S, D)
+        if rules.act_seq is not None:
+            out = reduce_out(OnMesh(mesh, rules), out, part="moe")
+        return out
     T = B * S
     capacity = max(int(T * top_k * capacity_factor / n_experts), top_k)
     out = _moe_local_compute(
@@ -862,6 +1066,33 @@ def mamba_mixer(params: dict, x: torch.Tensor, *, d_state: int
     return (y * _act("silu", z)) @ params["out_proj"]
 
 
+def _mamba_step(w: dict, xc: torch.Tensor, z: torch.Tensor,
+                conv_state: torch.Tensor, ssm_state: torch.Tensor, *,
+                d_state: int, sum_proj=None) -> torch.Tensor:
+    """One decode step of the mixer from its input projection ``xc``,
+    ``z`` [B, di]: the states updated in place, the gated output [B, di]
+    (before ``out_proj``).  ``sum_proj`` finishes ``x_proj``'s product
+    (over a mesh, its partials over the channel blocks)."""
+    hist = torch.cat([conv_state, xc[:, None]], dim=1)        # [B, K, di]
+    conv = torch.einsum("bkd,kd->bd", hist, w["conv_w"]) + w["conv_b"]
+    conv_state.copy_(hist[:, 1:])
+    xc = _act("silu", conv)
+    proj = xc @ w["x_proj"]
+    if sum_proj is not None:
+        proj = sum_proj(proj)
+    dt_rank = w["dt_proj"].shape[0]
+    dt, Bc, Cc = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
+    dt = softplus(dt @ w["dt_proj"] + w["dt_bias"])
+    A = -torch.exp(w["A_log"].float())
+    dA = torch.exp(dt.float()[..., None] * A)                 # [B, di, N]
+    dBx = (dt * xc).float()[..., None] * Bc.float()[:, None, :]
+    h = dA * ssm_state + dBx
+    ssm_state.copy_(h)
+    y = torch.einsum("bdn,bn->bd", h, Cc.float())
+    y = (y + xc.float() * w["D"]).to(z.dtype)
+    return y * _act("silu", z)
+
+
 def mamba_decode(params: dict, x: torch.Tensor, conv_state: torch.Tensor,
                  ssm_state: torch.Tensor, *, d_state: int):
     """Single-token Mamba step.  x: [B, 1, D]; conv_state: [B, K-1, di]
@@ -871,23 +1102,7 @@ def mamba_decode(params: dict, x: torch.Tensor, conv_state: torch.Tensor,
     written in place (and returned).  Returns (out [B, 1, D], conv_state,
     ssm_state)."""
     xc, z = (x[:, 0] @ params["in_proj"]).chunk(2, dim=-1)   # [B, di]
-    hist = torch.cat([conv_state, xc[:, None]], dim=1)        # [B, K, di]
-    conv = torch.einsum("bkd,kd->bd", hist, params["conv_w"]) + \
-        params["conv_b"]
-    conv_state.copy_(hist[:, 1:])
-    xc = _act("silu", conv)
-    proj = xc @ params["x_proj"]
-    dt_rank = params["dt_proj"].shape[0]
-    dt, Bc, Cc = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
-    dt = softplus(dt @ params["dt_proj"] + params["dt_bias"])
-    A = -torch.exp(params["A_log"].float())
-    dA = torch.exp(dt.float()[..., None] * A)                 # [B, di, N]
-    dBx = (dt * xc).float()[..., None] * Bc.float()[:, None, :]
-    h = dA * ssm_state + dBx
-    ssm_state.copy_(h)
-    y = torch.einsum("bdn,bn->bd", h, Cc.float())
-    y = (y + xc.float() * params["D"]).to(x.dtype)
-    y = y * _act("silu", z)
+    y = _mamba_step(params, xc, z, conv_state, ssm_state, d_state=d_state)
     return (y @ params["out_proj"])[:, None], conv_state, ssm_state
 
 
@@ -907,3 +1122,296 @@ def lm_logits(params: dict, x: torch.Tensor, *, tied: bool) -> torch.Tensor:
     """Logits in float32, the product taken in the activation dtype."""
     w = params["embed"].T if tied else params["lm_head"]
     return (x @ w).float()
+
+
+# ---------------------------------------------------------------------------
+# The layers over a mesh (``params`` this rank's blocks, ``specs`` theirs)
+# ---------------------------------------------------------------------------
+
+def mlp_mesh(params: dict, specs: dict, h: torch.Tensor, on: OnMesh, *,
+             activation: str, glu: bool) -> torch.Tensor:
+    """The MLP over a mesh.  ``h``: the norm's output, whole along the
+    sequence and alike on the tensor group.  The D dims are gathered over
+    fsdp; ``up`` / ``gate`` columns and ``down`` rows split over the
+    tensor axis stay split (column- then row-parallel, the partials summed
+    by ``reduce_out``); an F the spec leaves whole is computed whole and
+    cut to the residual layout."""
+    D = h.shape[-1]
+    names = ("up", "down") + (("gate",) if glu else ())
+    w = {k: gather_leaf(on, params[k], specs[k], {1 if k == "down" else 0: D})
+         for k in names}
+    y = mlp(w, h, activation=activation, glu=glu)
+    if spec_axes(specs["up"], 1):
+        return reduce_out(on, y)
+    return seq_own(on, y)
+
+
+def _head_span(on: OnMesh, spec_wq, n_heads: int, head_dim: int):
+    """(first head, heads) of this rank's block of the query columns, or
+    None where the spec leaves them whole or a block does not hold whole
+    heads (the leaf is then gathered and the heads computed whole)."""
+    axes = spec_axes(spec_wq, 1)
+    if not axes or -(-n_heads * head_dim // on.n(axes)) % head_dim:
+        return None
+    start, length = on.span(n_heads * head_dim, axes)
+    return start // head_dim, length // head_dim
+
+
+def _attn_leaves(on: OnMesh, params: dict, specs: dict, D: int, *,
+                 n_heads: int, n_kv: int, head_dim: int, qkv_bias: bool,
+                 q_whole: bool, o_whole: bool) -> dict:
+    """The attention leaves for use: ``wk`` / ``wv`` (and biases) whole;
+    ``wq`` / ``bq`` columns and ``wo`` rows whole or this rank's block;
+    the D dims gathered over fsdp."""
+    Hd, KVd = n_heads * head_dim, n_kv * head_dim
+    sizes = {"wq": {0: D, **({1: Hd} if q_whole else {})},
+             "wk": {0: D, 1: KVd}, "wv": {0: D, 1: KVd},
+             "wo": {**({0: Hd} if o_whole else {}), 1: D}}
+    if qkv_bias:
+        sizes.update(bq={0: Hd} if q_whole else {}, bk={0: KVd},
+                     bv={0: KVd})
+    return {k: gather_leaf(on, params[k], specs[k], sz)
+            for k, sz in sizes.items()}
+
+
+def attention_mesh(params: dict, specs: dict, h: torch.Tensor, on: OnMesh,
+                   *, n_heads: int, n_kv: int, head_dim: int,
+                   qkv_bias: bool, rope_theta: float, causal: bool,
+                   window: int, positions: torch.Tensor, use_rope: bool,
+                   chunk_threshold: int, seq_local: bool = False):
+    """Self-attention over a mesh (train / prefill) -> (out in the residual
+    layout, k, v [B, S, KV, hd] whole along the sequence, for the cache).
+
+    ``h`` whole along the sequence: the query heads of this rank's
+    ``wq`` columns against K and V of every head (``wk`` / ``wv``
+    gathered whole), ``wo`` row-parallel and the partials summed; where
+    the columns do not hold whole heads, every leaf is gathered and the
+    heads computed whole.  ``seq_local`` (``seq_parallel_attn``): ``h`` is
+    this rank's block of the sequence, every leaf whole, and only K and V
+    are gathered along the sequence."""
+    B, S, D = h.shape
+    heads = None if seq_local else _head_span(on, specs["wq"], n_heads,
+                                              head_dim)
+    w = _attn_leaves(on, params, specs, D, n_heads=n_heads, n_kv=n_kv,
+                     head_dim=head_dim, qkv_bias=qkv_bias,
+                     q_whole=heads is None, o_whole=heads is None)
+    s0 = 0
+    if seq_local:
+        s0 = on.seq_span(S * on.n(on.rules.act_seq))[0]
+        positions = positions[s0:s0 + S]
+    q, k, v = _qkv(w, h, n_heads=heads[1] if heads else n_heads, n_kv=n_kv,
+                   head_dim=head_dim, qkv_bias=qkv_bias)
+    if use_rope:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    if seq_local:
+        k = on.mesh.all_gather(k, on.rules.act_seq, 1, part="sp")
+        v = on.mesh.all_gather(v, on.rules.act_seq, 1, part="sp")
+    kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
+    if heads:
+        kf, vf = kf.narrow(2, *heads), vf.narrow(2, *heads)
+    if k.shape[1] > chunk_threshold:
+        o = chunked_attention(q, kf, vf, causal=causal, window=window,
+                              q_offset=s0)
+    else:
+        o = attention_core(q, kf, vf, causal=causal, window=window,
+                           q_offset=s0)
+    o = o.reshape(B, S, -1) @ w["wo"]
+    if heads:
+        o = reduce_out(on, o)
+    elif not seq_local:
+        o = seq_own(on, o)
+    return o, k, v
+
+
+def project_cross_kv_mesh(params: dict, specs: dict, kv_src: torch.Tensor,
+                          on: OnMesh, *, n_kv: int, head_dim: int,
+                          qkv_bias: bool):
+    """:func:`project_cross_kv` with ``wk`` / ``wv`` gathered whole."""
+    D = kv_src.shape[-1]
+    KVd = n_kv * head_dim
+    w = {k: gather_leaf(on, params[k], specs[k],
+                        {0: D, 1: KVd} if k[0] == "w" else {0: KVd})
+         for k in ("wk", "wv") + (("bk", "bv") if qkv_bias else ())}
+    return project_cross_kv(w, kv_src, n_kv=n_kv, head_dim=head_dim,
+                            qkv_bias=qkv_bias)
+
+
+def cross_attention_mesh(params: dict, specs: dict, h: torch.Tensor, kv_src,
+                         on: OnMesh, *, n_heads: int, n_kv: int,
+                         head_dim: int, qkv_bias: bool) -> torch.Tensor:
+    """Cross-attention over a mesh, split as :func:`attention_mesh`'s
+    query heads; the source (or its cached ``(k, v)``) is whole."""
+    B, Sq, D = h.shape
+    heads = _head_span(on, specs["wq"], n_heads, head_dim)
+    w = _attn_leaves(on, params, specs, D, n_heads=n_heads, n_kv=n_kv,
+                     head_dim=head_dim, qkv_bias=qkv_bias,
+                     q_whole=heads is None, o_whole=heads is None)
+    q = h @ w["wq"]
+    if qkv_bias:
+        q = q + w["bq"]
+    q = q.reshape(B, Sq, heads[1] if heads else n_heads, head_dim)
+    if isinstance(kv_src, tuple):
+        k, v = kv_src
+    else:
+        k, v = project_cross_kv(w, kv_src, n_kv=n_kv, head_dim=head_dim,
+                                qkv_bias=qkv_bias)
+    kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
+    if heads:
+        kf, vf = kf.narrow(2, *heads), vf.narrow(2, *heads)
+    o = attention_core(q, kf, vf, causal=False).reshape(B, Sq, -1) @ w["wo"]
+    return reduce_out(on, o) if heads else seq_own(on, o)
+
+
+def decode_attention_mesh(params: dict, specs: dict, x: torch.Tensor,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          pos: int, on: OnMesh, *, n_heads: int, n_kv: int,
+                          head_dim: int, qkv_bias: bool, rope_theta: float,
+                          window: int, use_rope: bool = True):
+    """One-token decode over a mesh.  ``cache_k`` / ``cache_v`` hold this
+    rank's block of the positions over ``rules.seq`` (an even split):
+    the token's K / V row is written by the rank whose block holds its
+    slot; each rank takes every head over its positions (``wq``, ``wk``,
+    ``wv`` gathered whole) to a partial max, sum of exponentials and PV
+    product, gathered over ``rules.seq`` and combined in rank order
+    (:func:`_decode_attend`); ``wo`` is row-parallel, summed over the
+    tensor axis.  A seq group of one rank takes
+    :func:`decode_self_attention`'s softmax."""
+    D = x.shape[-1]
+    w = _attn_leaves(on, params, specs, D, n_heads=n_heads, n_kv=n_kv,
+                     head_dim=head_dim, qkv_bias=qkv_bias, q_whole=True,
+                     o_whole=False)
+    q, k, v = _decode_qkv(w, x, pos, n_heads=n_heads, n_kv=n_kv,
+                          head_dim=head_dim, qkv_bias=qkv_bias,
+                          rope_theta=rope_theta, use_rope=use_rope)
+    seq = _axes(on.rules.seq)
+    n, L = on.n(seq), cache_k.shape[1]
+    o = _decode_attend(
+        q, k, v, cache_k, cache_v, pos, n_heads=n_heads, head_dim=head_dim,
+        window=window, start=on.mesh.flat_index(seq) * L, S_cache=L * n,
+        gather=None if n == 1 else lambda part: on.mesh.all_gather(
+            part[None], seq, 0, part="decode_seq"))
+    rows = spec_axes(specs["wo"], 0)
+    if not rows:
+        return o @ w["wo"], cache_k, cache_v
+    o = o.narrow(-1, *on.span(n_heads * head_dim, rows)) @ w["wo"]
+    return on.mesh.sum_partials(o, rows, part="tp"), cache_k, cache_v
+
+
+def _mamba_leaves(on: OnMesh, params: dict, specs: dict, D: int,
+                  d_inner: int) -> dict:
+    """The mixer's leaves for this rank's channel block over the tensor
+    axis (``cache_specs`` splits the states the same way): ``in_proj``
+    gathered whole (its column block cuts across ``[x | z]``), the
+    per-channel leaves and ``x_proj`` / ``out_proj`` rows this rank's
+    block, ``out_proj``'s D gathered over fsdp."""
+    t = on.rules.tensor
+
+    def loc(k, dim):
+        return local_block(on, params[k], specs[k], dim, d_inner, t)
+    w = {k: loc(k, dim) for k, dim in (
+        ("conv_w", 1), ("conv_b", 0), ("x_proj", 0), ("dt_proj", 1),
+        ("dt_bias", 0), ("A_log", 0), ("D", 0))}
+    w["in_proj"] = gather_leaf(on, params["in_proj"], specs["in_proj"],
+                               {0: D, 1: 2 * d_inner})
+    w["out_proj"] = gather_leaf(on, loc("out_proj", 0), specs["out_proj"],
+                                {1: D})
+    w["channels"] = on.span(d_inner, t)
+    return w
+
+
+def _in_proj(w: dict, h: torch.Tensor, d_inner: int):
+    """(xc, z) of this rank's channels; all of them as one product."""
+    c0, cl = w["channels"]
+    if cl == d_inner:
+        return (h @ w["in_proj"]).chunk(2, dim=-1)
+    wi = w["in_proj"]
+    return h @ wi[:, c0:c0 + cl], h @ wi[:, d_inner + c0:d_inner + c0 + cl]
+
+
+def mamba_mixer_mesh(params: dict, specs: dict, h: torch.Tensor,
+                     on: OnMesh, *, d_state: int, d_inner: int):
+    """The Mamba mixer over a mesh -> (out in the residual layout, xc
+    before the conv and the last SSM state, both of this rank's
+    channels).  ``h`` whole along the sequence (the scan runs over all of
+    it); the channels split over the tensor axis need no collective but
+    ``x_proj``'s partial dt, B and C, summed before use, and
+    ``out_proj``'s row-parallel partials."""
+    w = _mamba_leaves(on, params, specs, h.shape[-1], d_inner)
+    xc, z = _in_proj(w, h, d_inner)
+    xcv = _act("silu", _causal_conv(xc, w["conv_w"], w["conv_b"]))
+    # the partials of dt, B and C, summed; each rank reads the sum with its
+    # own channels, so under autograd the backward sums as well
+    proj, t = xcv @ w["x_proj"], on.rules.tensor
+    if torch.is_grad_enabled() and proj.requires_grad:
+        proj = on.mesh.enter(on.mesh.sum_partials(proj, t, part="tp"), t,
+                             part="tp")
+    else:
+        proj = on.mesh.all_reduce(proj, t, part="tp")
+    dt_rank = w["dt_proj"].shape[0]
+    dt, Bc, Cc = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
+    dt = softplus(dt @ w["dt_proj"] + w["dt_bias"])
+    y, h_last = selective_scan(xcv, dt, Bc, Cc, w["A_log"], w["D"])
+    out = reduce_out(on, (y * _act("silu", z)) @ w["out_proj"])
+    return out, xc, h_last
+
+
+def mamba_decode_mesh(params: dict, specs: dict, x: torch.Tensor,
+                      conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                      on: OnMesh, *, d_state: int, d_inner: int):
+    """:func:`mamba_decode` over a mesh, the states this rank's channel
+    block (``cache_specs``); ``x_proj``'s and ``out_proj``'s partials
+    summed over the tensor axis."""
+    w = _mamba_leaves(on, params, specs, x.shape[-1], d_inner)
+    xc, z = _in_proj(w, x[:, 0], d_inner)
+    t = on.rules.tensor
+    y = _mamba_step(w, xc, z, conv_state, ssm_state, d_state=d_state,
+                    sum_proj=lambda p: on.mesh.all_reduce(p, t, part="tp"))
+    y = on.mesh.sum_partials(y @ w["out_proj"], t, part="tp")
+    return y[:, None], conv_state, ssm_state
+
+
+def embed_mesh(table: torch.Tensor, spec, tokens: torch.Tensor, on: OnMesh,
+               *, scale: bool, vocab: int) -> torch.Tensor:
+    """The embedding over a mesh, in the residual layout (``tokens`` whole
+    along the sequence).  Vocabulary rows split over the tensor axis:
+    each rank looks up its rows (the others add zero) and the partials
+    are summed (sum-scattered along the sequence under ``sp``)."""
+    axes = spec_axes(spec, 0)
+    if not axes:
+        return seq_own(on, embed(table, tokens, scale=scale))
+    if set(axes) != set(_axes(on.rules.tensor)):
+        raise ValueError(f"the embedding's rows split over {axes}, not the "
+                         f"tensor axis {on.rules.tensor!r}")
+    v0, vl = on.span(vocab, axes)
+    local = tokens.long() - v0
+    own = ((local >= 0) & (local < vl))[..., None]
+    if vl:
+        x = table[local.clamp(0, vl - 1)] * own.to(table.dtype)
+    else:
+        x = table.new_zeros(tokens.shape + (table.shape[1],))
+    x = reduce_out(on, x, part="vocab")
+    if scale:
+        x = x * _const(math.sqrt(table.shape[1]), table.dtype)
+    return x.to(table.dtype)
+
+
+def vocab_columns(on: OnMesh, params: dict, specs: dict, D: int, *,
+                  tied: bool):
+    """The LM head's columns this rank holds, ``[D, V_block]`` (the tied
+    embedding's rows transposed, or ``lm_head`` with D gathered over
+    fsdp), and the axes splitting the vocabulary (none: whole)."""
+    if tied:
+        return params["embed"].T, spec_axes(specs["embed"], 0)
+    w = gather_leaf(on, params["lm_head"], specs["lm_head"], {0: D})
+    return w, spec_axes(specs["lm_head"], 1)
+
+
+def lm_logits_mesh(params: dict, specs: dict, x: torch.Tensor, on: OnMesh,
+                   *, tied: bool, vocab: int) -> torch.Tensor:
+    """Logits over a mesh (``x`` alike on the tensor group): this rank's
+    vocabulary columns, then gathered whole over their axes."""
+    w, axes = vocab_columns(on, params, specs, x.shape[-1], tied=tied)
+    logits = (x @ w).float()
+    return gather_padded(on.mesh, logits, axes, logits.dim() - 1, vocab,
+                         part="vocab")

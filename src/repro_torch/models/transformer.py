@@ -28,15 +28,21 @@ slen, KV, hd]`` with ``slen = min(window, max_seq)``, ``xk`` / ``xv``
 Sharding: ``param_specs`` and ``cache_specs`` give the reference's
 partition specs (``layers.P``), ``param_shapes`` and ``cache_shapes`` the
 same trees on the meta device; the dry-run's memory model reads them.
-``forward``, ``encode``, ``prefill_step`` and ``decode_step`` take the
-reference's ``rules`` and ``mesh``; only the MoE block reads them (the
-reference's other constraints place values, they do not change them).
+``forward``, ``lm_loss``, ``prefill_step`` and ``decode_step`` take the
+reference's ``rules`` and a ``launch.mesh.Mesh``: over a mesh the tree
+holds this rank's block of every leaf by ``param_specs`` and the layers
+run their ``layers.*_mesh`` forms (see ``layers``): FSDP gathers on use,
+tensor-parallel attention, MLP, Mamba, embedding and logits, the residual
+sequence-parallel under ``rules.act_seq`` (``forward`` then returns this
+rank's block of the sequence), a vocabulary-parallel loss, and decode
+caches split over ``rules.seq`` (``ShardingRules.cache_seq``).
 
 The functions take the tree; :class:`Transformer` holds the same leaves as
 ``nn.Parameter``\\ s under the reference's names and calls them.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 
@@ -302,28 +308,54 @@ def _layer(stage: dict, r: int, c: int) -> dict:
             for k, v in stage.items()}
 
 
+def _layer_specs(stage: dict) -> dict:
+    """A stacked stage's specs with the two stack dims dropped: any layer
+    ``[r, c]``'s."""
+    return {k: _layer_specs(v) if isinstance(v, dict) else P(*v[2:])
+            for k, v in stage.items()}
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill-shaped, full sequence)
 # ---------------------------------------------------------------------------
 
-def _ffn_apply(lp: dict, h: torch.Tensor, cfg: ModelConfig,
-               rules: ShardingRules = NO_SHARD, mesh=None) -> torch.Tensor:
-    if cfg.moe_experts:
-        out = L.moe_block(lp["moe"], h, n_experts=cfg.moe_experts,
-                          top_k=cfg.moe_top_k,
-                          capacity_factor=cfg.capacity_factor,
-                          activation=cfg.activation, glu=cfg.glu,
-                          mesh=mesh, rules=rules)
-        if cfg.moe_dense_residual:
-            out = out + L.mlp(lp["mlp"], h, activation=cfg.activation,
-                              glu=cfg.glu)
-        return out
-    return L.mlp(lp["mlp"], h, activation=cfg.activation, glu=cfg.glu)
+def _mlp(cfg: ModelConfig, lp: dict, ls: dict | None, h: torch.Tensor,
+         on: L.OnMesh | None) -> torch.Tensor:
+    if on is None:
+        return L.mlp(lp["mlp"], h, activation=cfg.activation, glu=cfg.glu)
+    return L.mlp_mesh(lp["mlp"], ls["mlp"], h, on, activation=cfg.activation,
+                      glu=cfg.glu)
+
+
+def _ffn(cfg: ModelConfig, lp: dict, ls: dict | None, h: torch.Tensor,
+         on: L.OnMesh | None) -> torch.Tensor:
+    """The FFN: the MoE (with arctic's dense residual beside it) or the
+    MLP.  Here and below ``on`` is the mesh (None: no mesh) and ``ls``
+    the layer's specs, which split ``lp``'s leaves over it."""
+    if not cfg.moe_experts:
+        return _mlp(cfg, lp, ls, h, on)
+    out = L.moe_block(lp["moe"], h, n_experts=cfg.moe_experts,
+                      top_k=cfg.moe_top_k,
+                      capacity_factor=cfg.capacity_factor,
+                      activation=cfg.activation, glu=cfg.glu,
+                      mesh=None if on is None else on.mesh,
+                      rules=NO_SHARD if on is None else on.rules)
+    if cfg.moe_dense_residual:
+        out = out + _mlp(cfg, lp, ls, h, on)
+    return out
 
 
 def _norm(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.apply_norm(lp, x, kind=cfg.norm, eps=cfg.norm_eps,
                         plus_one=cfg.norm_plus_one)
+
+
+def _gnorm(on: L.OnMesh | None, lp: dict, x: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """The norm, then (sequence parallelism) gathered along the sequence,
+    as the reference's ``_gnorm`` pins it."""
+    h = _norm(lp, x, cfg)
+    return h if on is None else L.seq_gather(on, h)
 
 
 def _attn_kwargs(cfg: ModelConfig, kind: str = "attn") -> dict:
@@ -339,24 +371,36 @@ def _cross_kwargs(cfg: ModelConfig) -> dict:
                 head_dim=cfg.hd, qkv_bias=cfg.qkv_bias)
 
 
-def _cross_kv(cfg: ModelConfig, lp: dict, src: torch.Tensor):
+def _cross_kv(cfg: ModelConfig, lp: dict, ls: dict | None, src: torch.Tensor,
+              on: L.OnMesh | None):
     """A cross layer's (xk, xv) of the source, as prefill caches them."""
-    k, v = L.project_cross_kv(lp["xattn"], src, n_kv=cfg.num_kv_heads,
-                              head_dim=cfg.hd, qkv_bias=cfg.qkv_bias)
+    kw = dict(n_kv=cfg.num_kv_heads, head_dim=cfg.hd, qkv_bias=cfg.qkv_bias)
+    if on is None:
+        k, v = L.project_cross_kv(lp["xattn"], src, **kw)
+    else:
+        k, v = L.project_cross_kv_mesh(lp["xattn"], ls["xattn"], src, on, **kw)
     return k.to(cfg.dtype), v.to(cfg.dtype)
 
 
-def _gated_cross(cfg: ModelConfig, lp: dict, x: torch.Tensor, kv, *,
-                 rules: ShardingRules, mesh) -> torch.Tensor:
+def _cross_attn(cfg: ModelConfig, lp: dict, ls: dict | None, h: torch.Tensor,
+                kv, on: L.OnMesh | None) -> torch.Tensor:
+    if on is None:
+        return L.cross_attention(lp["xattn"], h, kv, **_cross_kwargs(cfg))
+    return L.cross_attention_mesh(lp["xattn"], ls["xattn"], h, kv, on,
+                                  **_cross_kwargs(cfg))
+
+
+def _gated_cross(cfg: ModelConfig, lp: dict, ls: dict | None,
+                 x: torch.Tensor, kv, on: L.OnMesh | None) -> torch.Tensor:
     """A ``cross`` layer: cross-attention and the FFN, each scaled by the
     tanh of its float32 gate (zero at init: the layer then adds nothing).
     ``kv`` is the source [B, Se, D] or its (xk, xv)."""
-    h = _norm(lp["ln1"], x, cfg)
-    c = L.cross_attention(lp["xattn"], h, kv, **_cross_kwargs(cfg))
-    x = x + torch.tanh(lp["gate_attn"]).to(x.dtype) * c
-    h = _norm(lp["ln2"], x, cfg)
+    h = _gnorm(on, lp["ln1"], x, cfg)
+    x = x + torch.tanh(lp["gate_attn"]).to(x.dtype) * \
+        _cross_attn(cfg, lp, ls, h, kv, on)
+    h = _gnorm(on, lp["ln2"], x, cfg)
     return x + torch.tanh(lp["gate_mlp"]).to(x.dtype) * \
-        _ffn_apply(lp, h, cfg, rules, mesh)
+        _ffn(cfg, lp, ls, h, on)
 
 
 def _fuse(cfg: ModelConfig, lp: dict, a: torch.Tensor, m: torch.Tensor
@@ -367,23 +411,22 @@ def _fuse(cfg: ModelConfig, lp: dict, a: torch.Tensor, m: torch.Tensor
                   L.rms_norm(lp["ssm_norm"], m, cfg.norm_eps))
 
 
-def _cross_and_ffn(cfg: ModelConfig, kind: str, lp: dict, x: torch.Tensor,
-                   kv, *, rules: ShardingRules, mesh) -> torch.Tensor:
+def _cross_and_ffn(cfg: ModelConfig, kind: str, lp: dict, ls: dict | None,
+                   x: torch.Tensor, kv, on: L.OnMesh | None) -> torch.Tensor:
     """The tail of an attention layer: ``attn_cross``'s cross-attention
     over ``kv``, then the FFN."""
     if kind == "attn_cross":
-        h = _norm(lp["lnx"], x, cfg)
-        x = x + L.cross_attention(lp["xattn"], h, kv, **_cross_kwargs(cfg))
-    h = _norm(lp["ln2"], x, cfg)
-    return x + _ffn_apply(lp, h, cfg, rules, mesh)
+        h = _gnorm(on, lp["lnx"], x, cfg)
+        x = x + _cross_attn(cfg, lp, ls, h, kv, on)
+    h = _gnorm(on, lp["ln2"], x, cfg)
+    return x + _ffn(cfg, lp, ls, h, on)
 
 
 def _layer_fwd(cfg: ModelConfig, spec: StageSpec, lp: dict, x: torch.Tensor,
-               *, positions: torch.Tensor, cross_src,
-               rules: ShardingRules = NO_SHARD, mesh=None) -> torch.Tensor:
+               *, positions: torch.Tensor, cross_src) -> torch.Tensor:
     kind = spec.kind
     if kind == "cross":
-        return _gated_cross(cfg, lp, x, cross_src, rules=rules, mesh=mesh)
+        return _gated_cross(cfg, lp, None, x, cross_src, None)
     h = _norm(lp["ln1"], x, cfg)
     if kind == "mamba":
         return x + L.mamba_mixer(lp["mixer"], h, d_state=cfg.ssm_state)
@@ -397,8 +440,58 @@ def _layer_fwd(cfg: ModelConfig, spec: StageSpec, lp: dict, x: torch.Tensor,
         x = x + _fuse(cfg, lp, a, m)
     else:
         x = x + a
-    return _cross_and_ffn(cfg, kind, lp, x, cross_src, rules=rules,
-                          mesh=mesh)
+    return _cross_and_ffn(cfg, kind, lp, None, x, cross_src, None)
+
+
+def _layer_mesh(cfg: ModelConfig, spec: StageSpec, lp: dict, ls: dict,
+                x: torch.Tensor, *, positions: torch.Tensor, cross_src,
+                on: L.OnMesh, threshold: int, cache: dict | None = None,
+                max_seq: int = 0) -> torch.Tensor:
+    """One layer over a mesh (train / prefill): ``lp`` this rank's blocks,
+    ``ls`` their specs, ``x`` the residual layout.  ``cache``, where given
+    (prefill), receives the layer's cache leaves: K / V whole along the
+    sequence, the Mamba states of this rank's channels."""
+    kind = spec.kind
+    if kind == "cross":
+        kv = cross_src
+        if cache is not None:
+            cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, ls, cross_src,
+                                                      on)
+        return _gated_cross(cfg, lp, ls, x, kv, on)
+    if kind not in ("attn", "enc", "attn_cross", "mamba", "hybrid"):
+        raise ValueError(f"unknown layer kind {kind}")
+    seq_local = (on.sp and on.rules.seq_parallel_attn and
+                 kind in ("attn", "enc", "attn_cross"))
+    h = _norm(lp["ln1"], x, cfg)
+    if not seq_local:
+        h = L.seq_gather(on, h)
+    if kind != "mamba":          # attention first, as _layer_fwd's order
+        a, k, v = L.attention_mesh(
+            lp["attn"], ls["attn"], h, on, causal=kind != "enc",
+            window=spec.window, positions=positions,
+            chunk_threshold=threshold, seq_local=seq_local,
+            **_attn_kwargs(cfg, kind))
+        if cache is not None:
+            S = k.shape[1]
+            cache["k"] = _fill_kv_cache(k.to(cfg.dtype), spec.window, S,
+                                        max_seq)
+            cache["v"] = _fill_kv_cache(v.to(cfg.dtype), spec.window, S,
+                                        max_seq)
+    if kind in ("mamba", "hybrid"):
+        m, xc, h_last = L.mamba_mixer_mesh(lp["mixer"], ls["mixer"], h, on,
+                                           d_state=cfg.ssm_state,
+                                           d_inner=cfg.d_inner)
+        if cache is not None:
+            K1 = cfg.conv_kernel - 1
+            cache["conv"] = F.pad(xc, (0, 0, K1, 0))[:, -K1:].to(cfg.dtype)
+            cache["ssm"] = h_last
+        if kind == "mamba":
+            return x + m
+    x = x + (_fuse(cfg, lp, a, m) if kind == "hybrid" else a)
+    kv = cross_src
+    if kind == "attn_cross" and cache is not None:
+        cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, ls, cross_src, on)
+    return _cross_and_ffn(cfg, kind, lp, ls, x, kv, on)
 
 
 def _layers(patterns):
@@ -426,26 +519,31 @@ def _unstack(stage: dict, repeats: int, count: int) -> list:
 def _run_patterns(cfg: ModelConfig, patterns, blocks, x: torch.Tensor, *,
                   positions: torch.Tensor, cross_src=None,
                   rules: ShardingRules = NO_SHARD, mesh=None,
-                  remat: bool = True) -> torch.Tensor:
+                  remat: bool = True, specs=None) -> torch.Tensor:
     """The layers in scan order.  Under autograd with ``remat``, each
     layer is recomputed in the backward from its input (the reference's
     ``nothing_saveable`` checkpoint), so only the layers' inputs are kept
-    between forward and backward."""
+    between forward and backward (over a mesh the recompute gathers its
+    leaves again).  Over a mesh ``specs`` are ``blocks``' specs."""
     remat = remat and torch.is_grad_enabled()
     layers = [[_unstack(stage, pat.repeats, spec.count)
                for stage, spec in zip(blocks[pi], pat.stages)]
               for pi, pat in enumerate(patterns)]
+    fn, kw = _layer_fwd, {}
+    if mesh is not None:
+        fn, kw = _layer_mesh, dict(on=L.OnMesh(mesh, rules),
+                                   threshold=L.CHUNK_THRESHOLD)
     for spec, pi, j, r, c in _layers(patterns):
-        lp = layers[pi][j][r][c]
+        args = (cfg, spec, layers[pi][j][r][c])
+        if mesh is not None:
+            args += (_layer_specs(specs[pi][j]),)
         if remat:
-            x = ckpt.checkpoint(_layer_fwd, cfg, spec, lp, x,
-                                positions=positions, cross_src=cross_src,
-                                rules=rules, mesh=mesh,
+            x = ckpt.checkpoint(fn, *args, x, positions=positions,
+                                cross_src=cross_src, **kw,
                                 use_reentrant=False,
                                 preserve_rng_state=False)
         else:
-            x = _layer_fwd(cfg, spec, lp, x, positions=positions,
-                           cross_src=cross_src, rules=rules, mesh=mesh)
+            x = fn(*args, x, positions=positions, cross_src=cross_src, **kw)
     return x
 
 
@@ -458,10 +556,17 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
     S = frames.shape[1]
     x = frames.to(cfg.dtype) + enc["pos_embed"][None, :S]
     patterns = (Pattern(1, (StageSpec("enc", cfg.encoder_layers, 0),)),)
+    specs = None
+    if mesh is not None:
+        specs = param_specs(cfg)["encoder"]["blocks"]
+        x = L.seq_own(L.OnMesh(mesh, rules), x)
     x = _run_patterns(cfg, patterns, enc["blocks"], x,
                       positions=torch.arange(S, device=x.device),
-                      rules=rules, mesh=mesh)
-    return _norm(enc["final_norm"], x, cfg)
+                      rules=rules, mesh=mesh, specs=specs)
+    x = _norm(enc["final_norm"], x, cfg)
+    if mesh is not None:         # the decoder's cross layers read it whole
+        x = L.seq_gather(L.OnMesh(mesh, rules), x)
+    return x
 
 
 def _cross_source(cfg: ModelConfig, params: dict, cross_src, *,
@@ -479,13 +584,23 @@ def _cross_source(cfg: ModelConfig, params: dict, cross_src, *,
     return cross_src
 
 
-def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
-           ) -> torch.Tensor:
+def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  on: L.OnMesh | None) -> torch.Tensor:
+    """Token embeddings; over a mesh (``on``) in the residual layout."""
+    if on is None:
+        return L.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    return L.embed_mesh(params["embed"], param_specs(cfg)["embed"], tokens,
+                        on, scale=cfg.embed_scale, vocab=cfg.vocab_size)
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           on: L.OnMesh | None = None) -> torch.Tensor:
     """Token embeddings plus learned positions 0..S-1 where the model has
-    them."""
-    x = L.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    them; over a mesh (``on``) in the residual layout."""
+    x = _embed_tokens(cfg, params, tokens, on)
     if cfg.max_position:
-        x = x + params["pos_embed"][None, :tokens.shape[1]]
+        pe = params["pos_embed"][None, :tokens.shape[1]]
+        x = x + (pe if on is None else L.seq_own(on, pe))
     return x
 
 
@@ -495,23 +610,37 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             remat: bool = True) -> torch.Tensor:
     """Full-sequence forward -> final hidden states [B, S, D].
     ``cross_src``: whisper's frames or llama-vision's patches [B, Se, D].
-    ``rules`` / ``mesh``: the MoE block's (``layers.moe_block``; tokens
-    and the source hold this rank's batch rows).  ``remat``: under
+    ``rules`` / ``mesh``: tokens and the source hold this rank's batch
+    rows, the tree this rank's blocks; under sequence parallelism the
+    result is this rank's block of the sequence.  ``remat``: under
     autograd, recompute each decoder layer in the backward (the encoder's
     always are, as in the reference)."""
-    x = _embed(cfg, params, tokens)
+    on = None if mesh is None else L.OnMesh(mesh, rules)
+    x = _embed(cfg, params, tokens, on)
     positions = torch.arange(tokens.shape[1], device=x.device)
     cross_src = _cross_source(cfg, params, cross_src, rules=rules,
                               mesh=mesh)
     x = _run_patterns(cfg, cfg.patterns, params["blocks"], x,
                       positions=positions, cross_src=cross_src, rules=rules,
-                      mesh=mesh, remat=remat)
+                      mesh=mesh, remat=remat,
+                      specs=None if on is None else
+                      param_specs(cfg)["blocks"])
     return _norm(params["final_norm"], x, cfg)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict, x: torch.Tensor
                        ) -> torch.Tensor:
     return L.lm_logits(params, x, tied=cfg.tie_embeddings)
+
+
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
+            on: L.OnMesh | None) -> torch.Tensor:
+    """Float32 logits of ``x`` (alike on the tensor group over a mesh:
+    each rank's vocabulary columns, gathered whole)."""
+    if on is None:
+        return logits_from_hidden(cfg, params, x)
+    return L.lm_logits_mesh(params, param_specs(cfg), x, on,
+                            tied=cfg.tie_embeddings, vocab=cfg.vocab_size)
 
 
 def _chunk_loss(hb: torch.Tensor, tb: torch.Tensor, w: torch.Tensor
@@ -525,6 +654,31 @@ def _chunk_loss(hb: torch.Tensor, tb: torch.Tensor, w: torch.Tensor
     return torch.sum(lse - tgt)
 
 
+def _chunk_loss_vocab(hb: torch.Tensor, tb: torch.Tensor, w: torch.Tensor,
+                      on: L.OnMesh, axes, v0: int) -> torch.Tensor:
+    """:func:`_chunk_loss` with the vocabulary split over ``axes``: ``w``
+    holds this rank's columns from ``v0``.  Each rank's max (held
+    constant: the log-sum-exp does not depend on it), sum of exponentials
+    and target logit (zero where another rank owns the target) are
+    gathered (``Mesh.share``) and combined in rank order, so every rank
+    holds the same loss and differentiates its own columns."""
+    logits = (hb @ w).float()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    s = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+    local = tb[..., None] - v0
+    own = (local >= 0) & (local < logits.shape[-1])
+    tgt = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)) * own
+    parts = on.mesh.share(torch.cat([m, s, tgt], dim=-1)[None], axes, 0,
+                          part="vocab")
+    M = parts[..., :1].amax(dim=0)
+    se, tg = None, None
+    for r in range(parts.shape[0]):
+        e = torch.exp(parts[r, ..., :1] - M) * parts[r, ..., 1:2]
+        t = parts[r, ..., 2:]
+        se, tg = (e, t) if se is None else (se + e, tg + t)
+    return torch.sum(M + torch.log(se) - tg)
+
+
 def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             cross_src: torch.Tensor | None = None,
             rules: ShardingRules = NO_SHARD, mesh=None,
@@ -536,31 +690,54 @@ def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``@jax.checkpoint``), as is each layer (``forward``'s ``remat``).
 
     Over a mesh (``rules`` / ``mesh`` as ``forward``'s), ``tokens`` hold
-    this rank's batch rows, and every rank returns the reference's global
-    mean: the ranks' sums over ``rules.batch`` (``Mesh.sum_partials``),
-    over the global ``B * (S - 1)``.  The sum's backward is the identity,
-    so each rank differentiates its own sum over the global count: its
-    gradients are partials that the train step sums over the batch
-    axes."""
+    this rank's batch rows and every rank returns the reference's global
+    mean.  With the vocabulary split (the tied embedding's rows or
+    ``lm_head``'s columns over the tensor axis), the final hidden is
+    gathered along the sequence and each chunk's loss is
+    vocabulary-parallel (:func:`_chunk_loss_vocab`; a group of one rank
+    takes the plain loss); with it whole, each rank takes the positions
+    of its sequence block.  The ranks' sums are summed over the batch
+    axes (and the sequence's, where it split the positions:
+    ``Mesh.sum_partials``, whose backward is the identity), over the
+    global ``B * (S - 1)``: each rank's gradients are partials that the
+    train step sums."""
     hidden = forward(cfg, params, tokens, cross_src=cross_src, rules=rules,
                      mesh=mesh)
-    h = hidden[:, :-1]
+    B, S = tokens.shape[0], tokens.shape[1] - 1
     targets = tokens[:, 1:].long()
-    B, S, _ = h.shape
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = params["embed"].T if cfg.tie_embeddings else params.get("lm_head")
+    chunk_loss, extra, axes, v0 = _chunk_loss, (), (), 0
+    if mesh is None:
+        h = hidden[:, :-1]
+    else:
+        on = L.OnMesh(mesh, rules)
+        w, axes = L.vocab_columns(on, params, param_specs(cfg),
+                                  hidden.shape[-1],
+                                  tied=cfg.tie_embeddings)
+        if axes:
+            h = L.seq_gather(on, hidden)[:, :-1]
+            if on.n(axes) > 1:
+                v0 = on.span(cfg.vocab_size, axes)[0]
+                chunk_loss = functools.partial(_chunk_loss_vocab, on=on,
+                                               axes=axes, v0=v0)
+        else:
+            s0, sl = on.seq_span(S + 1) if on.sp else (0, S + 1)
+            n = max(0, min(sl, S - s0))
+            h, targets = hidden[:, :n], targets[:, s0:s0 + n]
+            extra = L._axes(rules.act_seq) if on.sp else ()
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c0 in range(0, S, loss_chunk):
+    for c0 in range(0, h.shape[1], loss_chunk):
         args = (h[:, c0:c0 + loss_chunk], targets[:, c0:c0 + loss_chunk], w)
         if torch.is_grad_enabled():
-            total = total + ckpt.checkpoint(_chunk_loss, *args,
+            total = total + ckpt.checkpoint(chunk_loss, *args,
                                             use_reentrant=False,
                                             preserve_rng_state=False)
         else:
-            total = total + _chunk_loss(*args)
+            total = total + chunk_loss(*args)
     if mesh is not None:
         axes = _batch_axes(rules)
         B *= math.prod(mesh.shape[a] for a in axes)
-        total = mesh.sum_partials(total, axes)
+        total = mesh.sum_partials(total, axes + extra, part="loss")
     return total / (B * S)
 
 
@@ -640,53 +817,74 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
 # ---------------------------------------------------------------------------
 
 def _layer_decode(cfg: ModelConfig, spec: StageSpec, lp: dict, cache: dict,
-                  x: torch.Tensor, *, pos: int, rules: ShardingRules,
-                  mesh) -> torch.Tensor:
+                  x: torch.Tensor, *, pos: int, ls: dict | None = None,
+                  on: L.OnMesh | None = None) -> torch.Tensor:
     """One layer of one-token decode; ``cache`` holds this layer's cache
-    views, updated in place."""
+    views, updated in place.  Over a mesh (``on``, ``ls`` the layer's
+    specs) the self-attention caches this rank's block of the positions,
+    the Mamba states its channels."""
     kind = spec.kind
     if kind == "cross":
-        return _gated_cross(cfg, lp, x, (cache["xk"], cache["xv"]),
-                            rules=rules, mesh=mesh)
+        return _gated_cross(cfg, lp, ls, x, (cache["xk"], cache["xv"]), on)
     if kind not in ("attn", "attn_cross", "mamba", "hybrid"):
         raise ValueError(f"layer kind {kind} has no decode step")
     h = _norm(lp["ln1"], x, cfg)
     if kind in ("mamba", "hybrid"):
-        m, _, _ = L.mamba_decode(lp["mixer"], h, cache["conv"], cache["ssm"],
-                                 d_state=cfg.ssm_state)
+        if on is None:
+            m, _, _ = L.mamba_decode(lp["mixer"], h, cache["conv"],
+                                     cache["ssm"], d_state=cfg.ssm_state)
+        else:
+            m, _, _ = L.mamba_decode_mesh(lp["mixer"], ls["mixer"], h,
+                                          cache["conv"], cache["ssm"], on,
+                                          d_state=cfg.ssm_state,
+                                          d_inner=cfg.d_inner)
         if kind == "mamba":
             return x + m
-    a, _, _ = L.decode_self_attention(lp["attn"], h, cache["k"], cache["v"],
-                                      pos, window=spec.window,
-                                      **_attn_kwargs(cfg))
+    kw = dict(window=spec.window, **_attn_kwargs(cfg))
+    if on is None:
+        a, _, _ = L.decode_self_attention(lp["attn"], h, cache["k"],
+                                          cache["v"], pos, **kw)
+    else:
+        a, _, _ = L.decode_attention_mesh(lp["attn"], ls["attn"], h,
+                                          cache["k"], cache["v"], pos, on,
+                                          **kw)
     x = x + (_fuse(cfg, lp, a, m) if kind == "hybrid" else a)
     kv = (cache["xk"], cache["xv"]) if kind == "attn_cross" else None
-    return _cross_and_ffn(cfg, kind, lp, x, kv, rules=rules, mesh=mesh)
+    return _cross_and_ffn(cfg, kind, lp, ls, x, kv, on)
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: list,
                 tokens: torch.Tensor, pos: int, *,
                 rules: ShardingRules = NO_SHARD, mesh=None):
     """One-token decode.  tokens: [B, 1]; ``pos`` an int (aligned batch).
-    ``rules`` / ``mesh``: the MoE block's (tokens and cache hold this
-    rank's batch rows).
+    ``rules`` / ``mesh`` (the decode rules): tokens hold this rank's batch
+    rows, the tree this rank's blocks and the cache the layout
+    ``prefill_step`` over the same mesh gives it; the logits are
+    whole on every rank.
 
     Returns (logits [B, V] float32, cache).  The cache is updated in place
     (the reference returns a new one) and returned.
     """
     pos = int(pos)
-    x = L.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    on = None if mesh is None else L.OnMesh(mesh, rules)
+    if on is not None and on.sp:
+        raise ValueError("decode takes the decode rules (no sequence "
+                         "parallelism): make_rules(kind='decode')")
+    x = _embed_tokens(cfg, params, tokens, on)
     if cfg.max_position:
         # the reference's dynamic_slice clamps the row: positions past the
         # table read its last row
         x = x + params["pos_embed"][min(pos, cfg.max_position - 1)]
     blocks = params["blocks"]
+    specs = None if on is None else param_specs(cfg)["blocks"]
     for spec, pi, j, r, c in _layers(cfg.patterns):
-        x = _layer_decode(cfg, spec, _layer(blocks[pi][j], r, c),
-                          {k: v[r, c] for k, v in cache[pi][j].items()}, x,
-                          pos=pos, rules=rules, mesh=mesh)
+        lp = _layer(blocks[pi][j], r, c)
+        lc = {k: v[r, c] for k, v in cache[pi][j].items()}
+        x = _layer_decode(cfg, spec, lp, lc, x, pos=pos, on=on,
+                          ls=None if on is None else
+                          _layer_specs(specs[pi][j]))
     x = _norm(params["final_norm"], x, cfg)
-    return logits_from_hidden(cfg, params, x)[:, 0], cache
+    return _logits(cfg, params, x, on)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -730,15 +928,16 @@ def _mamba_prefill(cfg: ModelConfig, mp: dict, h: torch.Tensor):
 
 def _layer_prefill(cfg: ModelConfig, spec: StageSpec, lp: dict,
                    x: torch.Tensor, *, positions: torch.Tensor, max_seq: int,
-                   cross_src, rules: ShardingRules, mesh):
+                   cross_src):
     """Like ``_layer_fwd`` but also returns this layer's cache leaves (a
     dict); chunked attention only above ``PREFILL_CHUNK_THRESHOLD``
     tokens."""
     kind = spec.kind
     cache: dict = {}
     if kind == "cross":
-        cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, cross_src)
-        return _gated_cross(cfg, lp, x, kv, rules=rules, mesh=mesh), cache
+        cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, None, cross_src,
+                                                  None)
+        return _gated_cross(cfg, lp, None, x, kv, None), cache
     if kind not in ("attn", "attn_cross", "mamba", "hybrid"):
         raise ValueError(f"layer kind {kind} has no prefill step")
     h = _norm(lp["ln1"], x, cfg)
@@ -765,9 +964,9 @@ def _layer_prefill(cfg: ModelConfig, spec: StageSpec, lp: dict,
     x = x + (_fuse(cfg, lp, a, m) if kind == "hybrid" else a)
     kv = None
     if kind == "attn_cross":
-        cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, cross_src)
-    return _cross_and_ffn(cfg, kind, lp, x, kv, rules=rules,
-                          mesh=mesh), cache
+        cache["xk"], cache["xv"] = kv = _cross_kv(cfg, lp, None, cross_src,
+                                                  None)
+    return _cross_and_ffn(cfg, kind, lp, None, x, kv, None), cache
 
 
 def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
@@ -782,22 +981,35 @@ def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     slots (slot = position % window), so ``decode_step`` continues
     seamlessly.  ``cross_src``: whisper's frames (encoded here) or
     llama-vision's patches; the cross layers cache their K/V over it.
-    ``rules`` / ``mesh``: the MoE block's (tokens, source and the cache
-    made hold this rank's batch rows).  Each stage's leaves are stacked
-    from the layers' outputs, as the reference's scan stacks them.
+    ``rules`` / ``mesh``: tokens, source and the cache made hold this
+    rank's batch rows, the tree this rank's blocks; the cache is laid out
+    for ``decode_step`` under the decode rules of the same mesh and batch:
+    each self-attention K / V this rank's block of the positions over
+    ``rules.cache_seq(mesh)`` (an even split), the Mamba states this
+    rank's channels.  Each stage's leaves are stacked from the
+    layers' outputs, as the reference's scan stacks them.
     """
     B, S = tokens.shape
     max_seq = max_seq or S
-    x = _embed(cfg, params, tokens)
+    on = None if mesh is None else L.OnMesh(mesh, rules)
+    x = _embed(cfg, params, tokens, on)
     positions = torch.arange(S, device=x.device)
     cross_src = _cross_source(cfg, params, cross_src, rules=rules, mesh=mesh)
     cache: list = [[{} for _ in pat.stages] for pat in cfg.patterns]
     blocks = params["blocks"]
+    specs = None if on is None else param_specs(cfg)["blocks"]
     for spec, pi, j, r, c in _layers(cfg.patterns):
-        x, leaves = _layer_prefill(cfg, spec, _layer(blocks[pi][j], r, c), x,
-                                   positions=positions, max_seq=max_seq,
-                                   cross_src=cross_src, rules=rules,
-                                   mesh=mesh)
+        lp = _layer(blocks[pi][j], r, c)
+        if on is None:
+            x, leaves = _layer_prefill(cfg, spec, lp, x, positions=positions,
+                                       max_seq=max_seq, cross_src=cross_src)
+        else:
+            leaves = {}
+            x = _layer_mesh(cfg, spec, lp, _layer_specs(specs[pi][j]), x,
+                            positions=positions, cross_src=cross_src, on=on,
+                            threshold=PREFILL_CHUNK_THRESHOLD, cache=leaves,
+                            max_seq=max_seq)
+            leaves = _seq_blocks(leaves, mesh, rules.cache_seq(mesh))
         stage = cache[pi][j]
         for name, leaf in leaves.items():
             if name not in stage:
@@ -805,7 +1017,27 @@ def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                     (cfg.patterns[pi].repeats, spec.count) + leaf.shape)
             stage[name][r, c] = leaf
     x = _norm(params["final_norm"], x, cfg)
-    return logits_from_hidden(cfg, params, x[:, -1:])[:, 0], cache
+    last = x[:, -1:]
+    if on is not None and on.sp and on.n(rules.act_seq) > 1:
+        # the last rank's block holds it
+        last = mesh.all_gather(last, rules.act_seq, 1, part="sp")[:, -1:]
+    return _logits(cfg, params, last, on)[:, 0], cache
+
+
+def _seq_blocks(leaves: dict, mesh, seq) -> dict:
+    """A layer's self-attention K / V cut to this rank's block of the
+    positions over the axes ``seq``, which must split them evenly."""
+    axes = L._axes(seq)
+    n = mesh.group_size(axes)
+    for name in ("k", "v"):
+        if name in leaves and axes:
+            slen = leaves[name].shape[1]
+            if slen % n:
+                raise ValueError(f"a cache of {slen} positions does not "
+                                 f"split over {axes} of {n}")
+            at = mesh.flat_index(axes) * (slen // n)
+            leaves[name] = leaves[name].narrow(1, at, slen // n)
+    return leaves
 
 
 # ---------------------------------------------------------------------------

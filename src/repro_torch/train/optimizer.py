@@ -82,7 +82,8 @@ class Placement:
         axes = self.axes(i, dim)
         if not axes:
             return x
-        return self.mesh.all_reduce(x, axes) / self.ranks(i, dim)
+        return (self.mesh.all_reduce(x, axes, part="opt") /
+                self.ranks(i, dim))
 
     def sum_leaves(self, values: list) -> list:
         """Each leaf's scalar partial sum (in leaf order) summed over the
@@ -94,7 +95,7 @@ class Placement:
         for axes, idx in groups.items():
             if axes:
                 summed = self.mesh.all_reduce(
-                    torch.stack([values[i] for i in idx]), axes)
+                    torch.stack([values[i] for i in idx]), axes, part="opt")
                 for i, v in zip(idx, summed.unbind(0)):
                     values[i] = v
         return values

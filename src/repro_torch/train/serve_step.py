@@ -15,7 +15,8 @@ def make_prefill_step(cfg: T.ModelConfig, *, rules=NO_SHARD, mesh=None,
     float32, cache)``; ``cross_src`` is whisper's frames or llama-vision's
     patches.  Over a ``launch.mesh.Mesh`` (``rules`` from ``make_rules(...,
     kind="prefill")``), every input and output holds this rank's batch
-    rows."""
+    rows, ``params`` this rank's blocks by ``param_specs``, and the cache
+    the decode step's layout (``transformer.prefill_step``)."""
     @torch.inference_mode()
     def prefill_step(params, tokens, cross_src=None):
         return T.prefill_step(cfg, params, tokens, max_seq=max_seq,

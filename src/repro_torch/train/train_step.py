@@ -8,27 +8,26 @@ leaves (set to require grad); the optimizer then adds its updates to the
 parameters in place, under ``torch.no_grad``, one stack slice at a time
 (``Optimizer.apply``), and writes its state in place.
 
-Over a mesh (``rules`` / ``mesh``, the reference's arguments) each rank
-holds its batch rows and its block of every parameter leaf by
-``ep_specs(param_specs)`` (``layers.shard_tree``).  After
-``autograd.grad`` each rank's gradient leaf is a partial that
-``_reduce_grads`` finishes through the mesh, so that it equals the
-reference's ``jax.grad`` leaf cut to the rank's block; the optimizer's
-global reductions then go through the mesh too
+Over a mesh (``rules`` / ``mesh``, the reference's arguments, the train
+rules' sequence parallelism on) each rank holds its batch rows and its
+block of every parameter leaf by ``param_specs`` (``layers.shard_tree``);
+the layers gather a leaf's blocks on use, and the gathers' backward hands
+back gradient blocks.  After ``autograd.grad`` each rank's gradient leaf
+is a partial that ``_reduce_grads`` finishes through the mesh, so that it
+equals the reference's ``jax.grad`` leaf cut to the rank's block; the
+optimizer's global reductions then go through the mesh too
 (``optimizer.Placement``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import NO_SHARD, ep_specs, is_spec
+from repro_torch.models.layers import NO_SHARD, is_spec
 from repro_torch.train.optimizer import Optimizer, Placement
-from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
-                              tree_unflatten)
-
-EXPERT_LEAVES = ("up", "gate", "down")
-
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 def make_loss_fn(cfg: T.ModelConfig, *, rules=NO_SHARD, mesh=None):
     def loss_fn(params, batch):
@@ -42,41 +41,38 @@ def _grad_axes(cfg, rules, place: Placement) -> list[tuple[tuple, float]]:
     """For each parameter leaf (flattening order), the mesh axes its
     gradient is summed over and the factor it is scaled by.
 
-    - A leaf held whole on every rank (``P()``) is a partial over the
-      batch axes (each rank differentiates its own rows' loss; the MoE's
-      ``mesh.enter`` made it whole over the tensor axis): summed over
-      ``rules.batch``.
-    - An expert leaf (``moe`` ``up`` / ``gate`` / ``down``): the gather's
-      backward already summed its block over fsdp, so it is summed over
-      the batch axes, the tensor and the fsdp axis that its spec does not
-      name (``pod`` on pod x data x model; for a leaf that arrived whole
-      along a dim, ``_local_experts`` cut it and its gradient is zero
-      outside this rank's block, so the axis of that dim too).  Where
-      fsdp splits no batch rows, its ranks held the same rows and the
-      sum-scatter counted them each: scaled by 1 / its size.
-    """
+    The rule, for every leaf alike: summed over the mesh axes its spec
+    does not name, then scaled by 1 / the size of the batch axes that
+    split no rows (``rules.batch`` None: a global batch that fills no
+    batch axis).  Why: a rank's gradient block is its own work's part of
+    the whole.  Along an axis the spec names, the work of the other ranks
+    touches other blocks, except where the layer gathered the leaf over
+    that axis, and then the gather's backward (a sum-scatter) has summed
+    their parts into this block already.  Along an axis the spec does not
+    name, the ranks hold the same block and did different work (other
+    batch rows, other positions of the sequence, other query heads,
+    vocabulary columns, channels or experts: every such split reads the
+    leaf whole or cuts its own part out of it, whose gradient is zero
+    elsewhere), so their parts are summed.  Where the batch axes split no
+    rows their ranks did the same work, so the sum over them (in either
+    way) counted it once per rank, and the scale takes that back."""
     mesh = place.mesh
     batch = set(T._batch_axes(rules))
+    dup = math.prod(mesh.shape[a] for a in mesh.axis_names
+                    if a in ("pod", "data") and a not in batch)
     out = []
-    for i, (path, _) in enumerate(tree_flatten_with_path(
-            T.param_shapes(cfg))):
-        if "moe" in path and path[-1] in EXPERT_LEAVES:
-            named = set(place.axes(i))
-            axes = (batch | {rules.tensor, rules.fsdp}) - named - {None}
-            scale = (1.0 / mesh.shape[rules.fsdp]
-                     if rules.fsdp is not None and rules.fsdp not in batch
-                     else 1.0)
-        else:
-            axes, scale = batch, 1.0
-        out.append((tuple(a for a in mesh.axis_names if a in axes), scale))
+    for i in range(len(place.specs)):
+        named = set(place.axes(i))
+        axes = tuple(a for a in mesh.axis_names if a not in named)
+        out.append((axes, 1.0 / dup))
     return out
 
 
 def _placement(cfg, mesh) -> Placement:
-    """The placement of the parameter leaves on ``mesh``: the experts in
-    blocks, every other leaf whole (``ep_specs``), each split dim checked
-    to split into equal blocks (the optimizer's means assume it)."""
-    specs = ep_specs(T.param_specs(cfg))
+    """The placement of the parameter leaves on ``mesh``: every leaf by
+    ``param_specs``, each split dim checked to split into equal blocks
+    (the optimizer's means assume it)."""
+    specs = T.param_specs(cfg)
     place = Placement(mesh, tuple(tree_leaves(specs, is_leaf=is_spec)))
     for i, leaf in enumerate(tree_leaves(T.param_shapes(cfg))):
         for dim, size in enumerate(leaf.shape):
@@ -91,7 +87,7 @@ def _reduce_grads(mesh, grad_axes, grads) -> None:
     """Each gradient leaf summed in place over its axes and scaled."""
     for g, (axes, scale) in zip(grads, grad_axes):
         if axes:
-            mesh.all_reduce(g, axes)
+            mesh.all_reduce(g, axes, part="grad")
         if scale != 1.0:
             g.mul_(scale)
 
@@ -134,6 +130,11 @@ def make_grad_fn(cfg: T.ModelConfig, *, rules=NO_SHARD, mesh=None,
 
 
 def _grad_fn(cfg, rules, mesh, place: Placement | None, microbatches: int):
+    if mesh is not None and (rules.act_seq is None or
+                             rules.act_seq != rules.tensor):
+        raise ValueError("training over a mesh takes the train rules, "
+                         "sequence-parallel over the tensor axis "
+                         "(make_rules(kind='train'))")
     loss_fn = make_loss_fn(cfg, rules=rules, mesh=mesh)
     grad_axes = (_grad_axes(cfg, rules, place) if mesh is not None
                  else None)
@@ -181,8 +182,8 @@ def make_train_step(cfg: T.ModelConfig, optimizer: Optimizer, *,
 
     Over a mesh, ``batch`` holds this rank's rows (``batch_specs``), the
     parameters and the optimizer state this rank's blocks by
-    ``ep_specs(param_specs)``; the loss is the global one on every
-    rank."""
+    ``param_specs`` (and ``optimizer.init_specs``); the loss is the
+    global one on every rank."""
     placement = _placement(cfg, mesh) if mesh is not None else None
     grads_of = _grad_fn(cfg, rules, mesh, placement, microbatches)
 

@@ -52,7 +52,7 @@ def _setup(mesh, arch_id, twin, global_batch):
 
 def _params(mesh, cfg, twin):
     whole = interop.params_from(twin["params"], "cpu")
-    return M.shard_tree(whole, M.ep_specs(T.param_specs(cfg)), mesh)
+    return M.shard_tree(whole, T.param_specs(cfg), mesh)
 
 
 def _grads(mesh, arch_id, twin, rows=None):
@@ -69,7 +69,7 @@ def _grads(mesh, arch_id, twin, rows=None):
 
 def _twin(mesh, arch_id, twin, microbatches, one_row):
     cfg, rules, data = _setup(mesh, arch_id, twin, twin["tokens"].shape[0])
-    mesh.stats.update(dict.fromkeys(M.STATS, 0))
+    mesh.reset_stats()
     out = _grads(mesh, arch_id, twin)
     out["stats"] = dict(mesh.stats)
     if one_row:
@@ -101,7 +101,7 @@ def _restore(mesh, arch_id, twin, ckpt_dir):
     opt = optimizer(arch_id)
     whole = interop.params_from(twin["params"], "cpu")
     like = {"params": whole, "opt": init_opt_state(cfg, opt, whole)}
-    pspecs = M.ep_specs(T.param_specs(cfg))
+    pspecs = T.param_specs(cfg)
     specs = {"params": pspecs,
              "opt": opt.init_specs(pspecs, T.param_shapes(cfg))}
     step, got = ckpt.load_latest(ckpt_dir, like, device="cpu",

@@ -42,20 +42,20 @@ def _moe_case(mesh, moe, case):
 
 
 def _twin(mesh, arch_id, twin):
-    """The smoke twin over the mesh: prefill, then teacher-forced decode
-    steps; this rank's logits at each step and its final caches."""
+    """The smoke twin over the mesh, every leaf placed by ``param_specs``:
+    prefill, then teacher-forced decode steps; this rank's logits at each
+    step and its final caches."""
     cfg = C.get_arch(arch_id).smoke
     B, S = twin["tokens"].shape
     steps = twin["next"].shape[1]
     params = interop.params_from(twin["params"], "cpu")
-    params = M.shard_tree(params, M.ep_specs(T.param_specs(cfg)), mesh)
+    params = M.shard_tree(params, T.param_specs(cfg), mesh)
     rp = M.make_rules(mesh, kind="prefill", global_batch=B, cfg=cfg)
     rd = M.make_rules(mesh, kind="decode", global_batch=B, cfg=cfg)
     data = {"tokens": torch.from_numpy(twin["tokens"]),
             "next": torch.from_numpy(twin["next"])}
     data = M.shard_tree(data, M.batch_specs(mesh, rp, data), mesh)
-    prefill = make_prefill_step(cfg, rules=rp, mesh=mesh,
-                                max_seq=S + steps)
+    prefill = make_prefill_step(cfg, rules=rp, mesh=mesh, max_seq=S + steps)
     decode = make_decode_step(cfg, rules=rd, mesh=mesh)
     logits, cache = prefill(params, data["tokens"])
     out = {"prefill": logits.numpy().copy(), "decode": []}

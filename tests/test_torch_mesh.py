@@ -540,9 +540,10 @@ def test_capacity_is_per_batch_shard_in_the_gather_regime(ref_mesh):
 @pytest.mark.parametrize("arch_id", TWINS)
 def test_smoke_twin_over_a_mesh_matches_reference(arch_id, what, ranks,
                                                   ref_mesh):
-    """Prefill then 4 teacher-forced decode steps over the 2 x 2 mesh:
-    each rank's rows of the logits at every step and of the final caches
-    (held whole along the sequence) against the reference's steps jitted
+    """Prefill then 4 teacher-forced decode steps over the 2 x 2 mesh,
+    every leaf placed by ``param_specs``: each rank's rows of the logits
+    at every step and of the final caches (its block of the positions
+    over the decode rules' ``seq``) against the reference's steps jitted
     with the dry-run's in_shardings."""
     want = ref_mesh["2x2"]["twins"][arch_id]
     for res in ranks["2x2"]:
@@ -558,8 +559,10 @@ def test_smoke_twin_over_a_mesh_matches_reference(arch_id, what, ranks,
             g_leaves = jax.tree.leaves(got["cache"])
             w_leaves = jax.tree.leaves(want["cache"])
             assert len(g_leaves) == len(w_leaves) > 0
+            n = TWIN_S + TWIN_STEPS
+            m = res["coords"]["model"]
             for g, w in zip(g_leaves, w_leaves):
-                _close(g, w[:, :, rows])
+                _close(g, w[:, :, rows, m * n // 2:(m + 1) * n // 2])
 
 
 @pytest.mark.parametrize("mesh_name", MESHES)
@@ -644,8 +647,8 @@ def test_virtual_mesh_runs_no_collective():
     assert mesh.shape == {"pod": 2, "data": 16, "model": 16}
     assert mesh.size == 512 and mesh.coords is None
     x = torch.zeros(4)
-    for call in (lambda: mesh.all_reduce(x, "model"),
-                 lambda: mesh.all_gather(x, ("pod", "data")),
+    for call in (lambda: mesh.all_reduce(x, "model", part="tp"),
+                 lambda: mesh.all_gather(x, ("pod", "data"), part="fsdp"),
                  lambda: mesh.axis_index("data"),
                  lambda: PM.shard_tree({"x": x}, {"x": PL.P("data")},
                                        mesh)):
@@ -670,6 +673,6 @@ def test_moe_over_a_mesh_under_autograd_raises(one_rank):
 
 def test_mesh_axes_out_of_order_raise(one_rank):
     with pytest.raises(ValueError, match="order"):
-        one_rank.all_gather(torch.zeros(2), ("model", "data"))
+        one_rank.all_gather(torch.zeros(2), ("model", "data"), part="tp")
     with pytest.raises(ValueError, match="not all in the mesh"):
-        one_rank.all_reduce(torch.zeros(2), "pod")
+        one_rank.all_reduce(torch.zeros(2), "pod", part="tp")

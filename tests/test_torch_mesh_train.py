@@ -43,7 +43,6 @@ from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import checkpoint as pckpt
 from repro_torch import configs as PC
 from repro_torch import interop
-from repro_torch.launch import mesh as PM
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 from repro_torch.models.layers import is_spec
@@ -278,9 +277,9 @@ def _cut(x: np.ndarray, spec, coords: dict, sizes: dict) -> np.ndarray:
 
 def _specs(arch_id):
     """The placement's spec leaves of the parameters and of the optimizer
-    state (the experts in blocks, every other leaf whole)."""
+    state (every leaf by ``param_specs``)."""
     cfg = _cfg(arch_id)
-    pspecs = PM.ep_specs(PT.param_specs(cfg))
+    pspecs = PT.param_specs(cfg)
     ospecs = W.optimizer(arch_id).init_specs(pspecs, PT.param_shapes(cfg))
     return (tree_leaves(pspecs, is_leaf=is_spec),
             tree_leaves(ospecs, is_leaf=is_spec))
