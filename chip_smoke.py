@@ -74,17 +74,20 @@ set to 0 just before it and read just after:
   read apart, as ``rag``).
 
 The search and update paths must launch ``pool_merge``, ``adc_distance``
-and ``casr_rerank`` (once per search or insert wave) and neither rerank
-entry; the presets path all of those and ``rerank_l2_rows`` (the full
-rerank and the buffer scan); the maintenance path as the search path,
-and a pass itself launches no rerank kernel; the sharded path as the
+and ``casr_rerank`` (once per search or insert wave) and no other rerank
+entry; the presets path all of those, ``rerank_l2_rows`` (the full
+rerank) and ``rerank_l2_shared`` (FreshDiskANN's buffer scan, exactly
+once per FreshDiskANN search wave); the maintenance path as the search
+path, and a pass itself launches no rerank kernel; the sharded path as the
 search path, ``casr_rerank`` once per shard and wave; the serving,
 training and mesh paths none of the port's kernels (their products are
 ``torch.matmul``), and the RAG wave as the search path.  ``rerank_l2``
 runs on no path (the kernel phase holds it).  After each engine path
 one search wave and one insert wave (after the maintenance path, one
-pass; after the sharded path, a sharded search and insert) are repeated
-with the plain versions on the card (A/B).  Each phase prints one JSON
+pass; after the sharded path, a sharded search and insert; after the
+presets path also FreshDiskANN's search with its buffer full, and
+``rerank_l2_shared`` on that buffer) are repeated with the plain versions
+on the card (A/B).  Each phase prints one JSON
 line; any failure exits non-zero without the final
 result line.  With no CUDA device, or without the repository beside it,
 it exits non-zero at once.
@@ -233,10 +236,13 @@ KERNELS = {
                      "src/repro/kernels/pq_adc.py:26"),
     "rerank_l2": ("src/repro_torch/kernels/csrc/rerank_l2.cu",
                   "src/repro/kernels/rerank_l2.py:29"),
-    # the same kernel reading its rows in place by id (the full rerank and
-    # FreshDiskANN's buffer scan)
+    # the same kernel reading its rows in place by id (the full rerank)
     "rerank_l2_rows": ("src/repro_torch/kernels/csrc/rerank_l2.cu",
                        "src/repro/kernels/rerank_l2.py:29"),
+    # every lane against the same rows, tiled, the row body's sums
+    # (FreshDiskANN's buffer scan)
+    "rerank_l2_shared": ("src/repro_torch/kernels/csrc/rerank_l2_shared.cu",
+                         "src/repro/kernels/rerank_l2.py:29"),
     # on the main path, the rerank kernel together with CASR's group loop
     # and its per-round merge (src/repro/core/casr.py:68)
     "casr_rerank": ("src/repro_torch/kernels/csrc/casr_rerank.cu",
@@ -244,24 +250,23 @@ KERNELS = {
 }
 # Each path's launch gate: the kernels it must launch, and those it must
 # not.  The navis preset's search and update paths rerank with CASR only,
-# so neither rerank entry runs there; the presets path runs the full
-# rerank and the buffer scan through rerank_l2_rows.  The [B, S, D] entry
-# rerank_l2 is on no path (the kernel phase holds it).
+# so no other rerank entry runs there; the presets path runs the full
+# rerank through rerank_l2_rows and FreshDiskANN's buffer scan through
+# rerank_l2_shared (once a FreshDiskANN search wave: BUFFER_SCANS).  The
+# [B, S, D] entry rerank_l2 is on no path (the kernel phase holds it).
+NAVIS_OFF = ("rerank_l2", "rerank_l2_rows", "rerank_l2_shared")
 PATH_KERNELS = {
-    "search": (("pool_merge", "adc_distance", "casr_rerank"),
-               ("rerank_l2", "rerank_l2_rows")),
-    "update": (("pool_merge", "adc_distance", "casr_rerank"),
-               ("rerank_l2", "rerank_l2_rows")),
+    "search": (("pool_merge", "adc_distance", "casr_rerank"), NAVIS_OFF),
+    "update": (("pool_merge", "adc_distance", "casr_rerank"), NAVIS_OFF),
     "presets": (("pool_merge", "adc_distance", "rerank_l2_rows",
-                 "casr_rerank"), ("rerank_l2",)),
+                 "rerank_l2_shared", "casr_rerank"), ("rerank_l2",)),
     # refine's re-seek and the repair splice launch pool_merge and
     # adc_distance; casr_rerank runs in the insert and search waves
     # around the passes (a pass itself launches no rerank kernel)
     "maintenance": (("pool_merge", "adc_distance", "casr_rerank"),
-                    ("rerank_l2", "rerank_l2_rows")),
-    # every shard runs the navis search and insert waves
-    "sharded": (("pool_merge", "adc_distance", "casr_rerank"),
-                ("rerank_l2", "rerank_l2_rows")),
+                    NAVIS_OFF),
+    # every shard runs the navis search and insert waves (no buffer)
+    "sharded": (("pool_merge", "adc_distance", "casr_rerank"), NAVIS_OFF),
     # the LM serves with torch.matmul and plain torch ops: no kernel of the
     # port (the reference reaches no Pallas kernel there) ...
     "serving": ((), tuple(KERNELS)),
@@ -274,9 +279,11 @@ PATH_KERNELS = {
     "mesh_train": ((), tuple(KERNELS)),
     "mesh_dense": ((), tuple(KERNELS)),
     # ... and the RAG wave runs the navis search
-    "rag": (("pool_merge", "adc_distance", "casr_rerank"),
-            ("rerank_l2", "rerank_l2_rows")),
+    "rag": (("pool_merge", "adc_distance", "casr_rerank"), NAVIS_OFF),
 }
+# FreshDiskANN search waves the presets path ran (_scan_gate), each of
+# which must launch rerank_l2_shared exactly once
+BUFFER_SCANS = {"waves": 0}
 # the five baselines; the presets path also runs navis with bitmaps
 BASELINES = ("freshdiskann", "odinann", "odinann_cache", "layout_only",
              "sel_vec")
@@ -293,6 +300,11 @@ def emit(phase: str, **fields) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def _launched_since(ops, before: dict) -> dict:
+    """Each kernel's launches since the counts ``before``."""
+    return {k: v - before[k] for k, v in ops.launches.items()}
 
 
 def nvidia_smi_line() -> str:
@@ -368,6 +380,13 @@ def device_ms_cold(torch, fn, kernel: str, iters: int = 20) -> float:
     return total_us / 1e3 / iters
 
 
+def _is_kernel(key: str, name: str) -> bool:
+    """Whether a profiler row is the port kernel ``name``'s (a template
+    kernel's row reads ``void name_kernel<...>(...)``)."""
+    key = key.removeprefix("void ")
+    return key.startswith((name + "_kernel(", name + "_kernel<"))
+
+
 def profile_window(torch, fn) -> dict:
     """Device busy share of one call of ``fn`` (host clock around it), its
     kernel launches, its five largest kernels by device time, and the
@@ -387,7 +406,7 @@ def profile_window(torch, fn) -> dict:
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     port = {name: [ms, n] for name in KERNELS for k, ms, n in rows
-            if k.startswith(name + "_kernel(")}
+            if _is_kernel(k, name)}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms if wall_ms else None,
             "kernel_launches": sum(r[2] for r in rows),
@@ -424,7 +443,7 @@ def phase_env(torch) -> dict:
 
 
 def _kernel_record(torch, name, max_err, kernel, plain, library, n_bytes,
-                   n_ops):
+                   n_ops=0):
     """Times of the kernel, its plain version and the library yardstick
     (None where no single PyTorch call computes the function): ``*ms`` by
     CUDA events over back-to-back calls (what a caller pays per call,
@@ -534,6 +553,41 @@ def _check_casr(torch, got, want, b: int) -> dict:
             "mean_rounds": float(rounds_p.float().mean()),
             "max_rounds": int(rounds_p.max()),
             "mean_loaded": float(n_p.float().mean())}
+
+
+def _slot_ids(torch, b: int, n_rows: int, count: int):
+    """[b, n_rows] slot ids, -1 from ``count`` on: the buffer scan as
+    ``rerank_l2_rows`` scored it before it had its own kernel."""
+    slots = torch.arange(n_rows, device="cuda", dtype=torch.int32)
+    return torch.where(slots < count, slots, -1)[None].expand(
+        b, -1).contiguous()
+
+
+def _shared_grade(torch, q, rows, count: int, label: str) -> dict:
+    """``rerank_l2_shared`` on (q, rows, count): within the rerank grade
+    of its plain version, bit-equal to ``rerank_l2_rows`` (the row body)
+    on the same rows, INF past ``count`` (all gated); and the smallest d
+    against ``‖x‖² + ‖q‖²``, where the expanded form would cancel."""
+    from repro_torch.kernels import ops, ref
+    got = ops.rerank_l2_shared(q, rows, count)
+    want = ref.rerank_l2_shared_ref(q, rows, count)
+    body = ops.rerank_l2_rows(q, rows, _slot_ids(torch, q.shape[0],
+                                                 rows.shape[0], count))
+    torch.cuda.synchronize()
+    ok = bool(torch.allclose(got[:, :count], want[:, :count],
+                             rtol=RERANK_RTOL, atol=RERANK_ATOL)) and \
+        bool((got[:, count:] == 3.4e38).all())
+    same = bool(torch.equal(got, body))
+    norms = (q * q).sum(1)[:, None] + (rows[:count] * rows[:count]).sum(1)
+    out = dict(max_abs_err=float((got[:, :count] - want[:, :count]).abs()
+                                 .max()) if count else 0.0,
+               within_grade=ok, equal_to_row_body=same,
+               min_d_over_norms=float((want[:, :count] / norms).min())
+               if count else None)
+    require(ok and same, f"rerank_l2_shared {label} outside rtol "
+            f"{RERANK_RTOL} / atol {RERANK_ATOL}, not INF past the count, "
+            f"or not bit-equal to rerank_l2_rows on the rows: {out}")
+    return out
 
 
 def phase_kernels(torch) -> dict:
@@ -694,25 +748,84 @@ def phase_kernels(torch) -> dict:
         n_valid = int(ok.sum())
         distinct = int(torch.unique(ids_[ok]).numel())
         flat = ids_.clamp(min=0).long()
+        gather_cdist = (lambda q_=q_, flat=flat:
+                        torch.cdist(q_[:, None], vectors[flat]))
         rows[case] = _kernel_record(
             torch, "rerank_l2_rows",
             float((got[ok] - want[ok]).abs().max()),
             lambda q_=q_, ids_=ids_: ops.rerank_l2_rows(q_, vectors, ids_),
             lambda q_=q_, ids_=ids_: ref.rerank_l2_rows_ref(q_, vectors,
                                                             ids_),
-            lambda q_=q_, flat=flat: torch.cdist(q_[:, None], vectors[flat]),
+            # the buffer's lanes share their rows: one cdist of q against
+            # them (it computes the root); a pool's rows are its own
+            (lambda q_=q_: torch.cdist(q_, vectors[:200]))
+            if case == "buffer_256" else gather_cdist,
             n_bytes=distinct * d * 4 + b * d * 4 + ids_.numel() * 8,
             n_ops=3 * n_valid * d)
         rows[case][1].update(rows_valid=n_valid, rows_distinct=distinct,
                              equal_to_rerank_l2_gathered=same)
+        if case == "buffer_256":     # the old yardstick: a copy per lane
+            rows[case][1].update(
+                gather_cdist_ms=time_ms(torch, gather_cdist),
+                gather_cdist_device_ms=device_ms(torch, gather_cdist))
     rec, extra = rows["pools_p64"]
     extra["buffer_256"] = {
         k: v for k, v in {**rows["buffer_256"][0],
                           **rows["buffer_256"][1]}.items()
         if k in ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
-                 "library_device_ms", "bound_ms", "bound_by", "rows_valid",
-                 "rows_distinct", "equal_to_rerank_l2_gathered")}
+                 "library_device_ms", "gather_cdist_ms",
+                 "gather_cdist_device_ms", "bound_ms", "bound_by",
+                 "rows_valid", "rows_distinct",
+                 "equal_to_rerank_l2_gathered")}
     records["rerank_l2_rows"] = (rec, extra)
+
+    # -- rerank_l2_shared: every lane against the same rows (the buffer
+    #    scan): buffer_256's lanes and rows, 200 of 256 in use, then a
+    #    buffer of 4,096 with 10 and all in use, and
+    #    4,096 near-duplicates queried by themselves plus noise (every pair
+    #    where the expanded form would cancel); within the rerank grade,
+    #    bit-equal to rerank_l2_rows on the slots' ids, INF past the count,
+    #    and rerank_l2_rows' time beside it --------------------------------
+    rows4k = vectors[:4096]
+    q4k = (rows4k[torch.randint(0, 4096, (b,), generator=gen, device=dev)]
+           + 0.5 * torch.randn((b, d), generator=gen, device=dev))
+    dup4k = vectors[:1] + 0.05 * torch.randn((4096, d), generator=gen,
+                                             device=dev)
+    q_dup = (dup4k[torch.randint(0, 4096, (b,), generator=gen, device=dev)]
+             + 0.05 * torch.randn((b, d), generator=gen, device=dev))
+    shared = {}
+    for case, q_, rows_, count in (("c200_s256", q_buf, vectors[:256], 200),
+                                   ("c10_s4096", q4k, rows4k, 10),
+                                   ("c4096_s4096", q4k, rows4k, 4096),
+                                   ("dup_c4096_s4096", q_dup, dup4k, 4096)):
+        grade = _shared_grade(torch, q_, rows_, count, case)
+        n_s = rows_.shape[0]
+        ids_ = _slot_ids(torch, b, n_s, count)
+        by_id = lambda q_=q_, rows_=rows_, ids_=ids_: ops.rerank_l2_rows(
+            q_, rows_, ids_)
+        shared[case] = _kernel_record(
+            torch, "rerank_l2_shared", grade["max_abs_err"],
+            lambda q_=q_, rows_=rows_, c=count: ops.rerank_l2_shared(
+                q_, rows_, c),
+            lambda q_=q_, rows_=rows_, c=count: ref.rerank_l2_shared_ref(
+                q_, rows_, c),
+            # one call; it computes the root
+            lambda q_=q_, rows_=rows_, c=count: torch.cdist(q_, rows_[:c]),
+            n_bytes=count * d * 4 + b * d * 4 + b * n_s * 4,
+            n_ops=3 * b * count * d)
+        shared[case][1].update(
+            rows=n_s, count=count,
+            library_computes="torch.cdist(q, rows[:count]): the root",
+            rerank_l2_rows_ms=time_ms(torch, by_id),
+            rerank_l2_rows_device_ms=device_ms(torch, by_id),
+            **{k: v for k, v in grade.items() if k != "max_abs_err"})
+    rec, extra = shared["c200_s256"]
+    for case in ("c10_s4096", "c4096_s4096", "dup_c4096_s4096"):
+        extra[case] = {k: v for k, v in {**shared[case][0],
+                                         **shared[case][1]}.items()
+                       if k not in ("name", "route", "source", "replaces",
+                                    "launches")}
+    records["rerank_l2_shared"] = (rec, extra)
 
     grades = {"pool_merge": "exact (distance bits and ids)",
               "adc_distance": "bit-exact",
@@ -720,6 +833,8 @@ def phase_kernels(torch) -> dict:
               "rerank_l2_rows": f"rtol {RERANK_RTOL} / atol {RERANK_ATOL}; "
                                 "bit-equal to rerank_l2 on the rows "
                                 "gathered",
+              "rerank_l2_shared": f"rtol {RERANK_RTOL} / atol "
+                                  f"{RERANK_ATOL}; INF past the count",
               "casr_rerank": "ids, loads and rounds exact outside near "
                              f"ties; distances rtol {RERANK_RTOL} / atol "
                              f"{RERANK_ATOL}"}
@@ -947,7 +1062,7 @@ def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
         require(bool(torch.isfinite(dists[ids >= 0]).all()),
                 "fineweb: non-finite distance")
         timing = eng.last_wave_timing
-        wave_launches = {k: v - launched[k] for k, v in ops.launches.items()}
+        wave_launches = _launched_since(ops, launched)
         emit(f"fineweb_like:wave{w}", queries=WAVE, wall_s=wall,
              qps=WAVE / wall, mean_hops=per_q("hops"),
              reads_per_query=per_q("read_requests"),
@@ -991,7 +1106,7 @@ def phase_fineweb_update(torch, eng, state, cents, n_rounds: int = 4):
         stats, state = eng.insert_many(state, vs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        wave_launches = {k: v - launched[k] for k, v in ops.launches.items()}
+        wave_launches = _launched_since(ops, launched)
         ctr = state.ctr_insert
         per = lambda f: (int(getattr(ctr, f)) -
                          int(getattr(before, f))) / WAVE
@@ -1245,6 +1360,7 @@ def phase_presets_small(torch, eng, state, qs, cents) -> None:
     from repro_torch.core import (Engine, brute_force_topk,
                                   check_invariants, recall_at_k)
     from repro_torch.data import insert_stream
+    from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(9)
     vecs = state.store.vectors[:1200]
     truth = brute_force_topk(qs, vecs, 1200, 10)
@@ -1254,12 +1370,23 @@ def phase_presets_small(torch, eng, state, qs, cents) -> None:
                                              {"visited_impl": "bitmap"})]
     for name, over in cases:
         label = name + ("_bitmap" if over else "")
+        fresh = name == "freshdiskann"
         e = Engine(_spec_small(name, **over))
         st = e.build(jr.PRNGKey(2), vecs, shared=bundle)
+        before = dict(ops.launches)
         ids_m, d_m, _, _ = e.search_many(st, qs)
-        ids_b, _, _, _ = e.search_batch(st, qs)
+        _scan_gate(_launched_since(ops, before), int(fresh),
+                   f"presets:small:{label}")
+        before = dict(ops.launches)
+        ids_b, _, _, _ = e.search_batch(st, qs)     # a wave per query
+        _scan_gate(_launched_since(ops, before),
+                   qs.shape[0] if fresh else 0,
+                   f"presets:small:{label}:search_batch")
         recall = recall_at_k(ids_m, truth)
+        before = dict(ops.launches)
         stats, st2 = e.insert_many(st, vs)
+        _scan_gate(_launched_since(ops, before), 0,
+                   f"presets:small:{label}:insert")
         inv = check_invariants(st2.store)
         budget = _page_budget_ok(torch, st2.store,
                                  packed=e.spec.layout == "packed")
@@ -1270,10 +1397,13 @@ def phase_presets_small(torch, eng, state, qs, cents) -> None:
                       invariants=all(inv.values()), page_budget_ok=budget,
                       dropped=int(stats.dropped.sum()),
                       count=st2.store.count, buf_count=st2.buf_count)
-        if name == "freshdiskann":
+        if fresh:
+            before = dict(ops.launches)
             fields.update(_buffer_checks(
                 torch, e, st, insert_stream(gen, cents, 8, drift=0.2),
                 insert_stream(gen, cents, 160, drift=0.2)))
+            _scan_gate(_launched_since(ops, before), 1,
+                       "presets:small:freshdiskann:buffer")
         emit(f"presets:small:{label}", **fields)
         require(recall >= 0.9, f"presets:small:{label}: recall@10 {recall}")
         require(fields["search_many_equals_search_batch"] and
@@ -1331,8 +1461,10 @@ def phase_presets_fineweb(torch, eng, state, vecs, cents):
     identical ids and distances; sel_vec the ids of navis; CASR reads
     fewer vector bytes than the full rerank; the decoupled layout writes
     fewer bytes per insert than the packed one; every state keeps its
-    invariants and page budget, with no drop.  Returns the odinann
-    engine, its post-build state and the queries (for the A/B)."""
+    invariants and page budget, with no drop; rerank_l2_shared once a
+    FreshDiskANN search wave.  Returns the odinann engine, its post-build
+    state and the queries, and FreshDiskANN's engine, its state with the
+    buffered wave, that wave and the queries (for the A/Bs)."""
     from repro_torch import random as jr
     from repro_torch.core import Engine, check_invariants
     from repro_torch.data import insert_stream, query_stream
@@ -1355,7 +1487,7 @@ def phase_presets_fineweb(torch, eng, state, vecs, cents):
         ids, dists, stats, st_s = e.search_many(st, qs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        s_launch = {k: v - launched[k] for k, v in ops.launches.items()}
+        s_launch = _launched_since(ops, launched)
         search = dict(wall_s=wall, qps=WAVE / wall,
                       mean_rounds=float(stats.serial_rounds.double().mean()),
                       **_io_per_op(st.ctr_search, st_s.ctr_search, WAVE),
@@ -1365,7 +1497,7 @@ def phase_presets_fineweb(torch, eng, state, vecs, cents):
         istats, st_i = e.insert_many(st, vs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        i_launch = {k: v - launched[k] for k, v in ops.launches.items()}
+        i_launch = _launched_since(ops, launched)
         insert = dict(wall_s=wall, inserts_per_s=WAVE / wall,
                       mean_rounds=float(
                           istats.serial_rounds.double().mean()),
@@ -1374,13 +1506,17 @@ def phase_presets_fineweb(torch, eng, state, vecs, cents):
                           istats.write_bytes.double().mean()),
                       dropped=int(istats.dropped.sum()),
                       timing=e.last_wave_timing, launches=i_launch)
+        fresh = name == "freshdiskann"
+        _scan_gate(s_launch, int(fresh), f"presets:fineweb_like:{name}")
+        _scan_gate(i_launch, 0, f"presets:fineweb_like:{name}:insert")
         packed = e.spec.layout == "packed"
         inv = check_invariants(st_i.store)
         budget = _page_budget_ok(torch, st_i.store, packed=packed)
         fields = dict(adopt_s=adopt_s, search=search, insert=insert,
                       invariants=all(inv.values()), page_budget_ok=budget)
-        if name == "freshdiskann":
+        if fresh:
             fields["buffer"] = _fineweb_merge(torch, e, st_i, vs)
+            buffered = (e, st_i, vs, qs)
         emit(f"presets:fineweb_like:{name}", **fields)
         require(all(inv.values()) and budget and insert["dropped"] == 0,
                 f"presets:fineweb_like:{name}: invariants {inv}, page "
@@ -1415,7 +1551,36 @@ def phase_presets_fineweb(torch, eng, state, vecs, cents):
     require(out["sel_vec"]["write_bytes"] < out["odinann"]["write_bytes"],
             "presets: the decoupled layout wrote no fewer bytes per insert "
             "than the packed one")
-    return ab
+    return ab, buffered
+
+
+def _scan_gate(launched: dict, waves: int, label: str) -> None:
+    """``rerank_l2_shared`` launched exactly ``waves`` times in
+    ``launched`` (counts of one call): once a FreshDiskANN search wave,
+    never elsewhere.  Adds the waves to BUFFER_SCANS."""
+    n = launched["rerank_l2_shared"]
+    require(n == waves, f"{label}: rerank_l2_shared launched {n} times for "
+            f"{waves} FreshDiskANN search waves")
+    BUFFER_SCANS["waves"] += waves
+
+
+def phase_ab_buffer(torch, eng, state, vs, qs) -> None:
+    """FreshDiskANN on the FineWeb-like index with its buffer full of the
+    buffered wave ``vs``: ``rerank_l2_shared`` on the real buffer against
+    its plain version, for the buffered vectors themselves (each its own
+    nearest row, where the expanded form would cancel) and for the query
+    wave (``_shared_grade``'s gates); then one search wave of half of each
+    with the kernels and under plain_on_device() (``phase_ab``'s gates;
+    ids ``n_max + slot`` read from the buffer)."""
+    grades = {w: _shared_grade(torch, x, state.buf_vecs, state.buf_count,
+                               f"ab:presets:buffer:{w}")
+              for w, x in (("buffered", vs), ("queries", qs))}
+    emit("ab:presets:buffer:grade", buf_count=state.buf_count, **grades)
+    half = vs.shape[0] // 2
+    wave = torch.cat([vs[:half], qs[:half]]).contiguous()
+    phase_ab(torch, eng, state, wave,
+             torch.cat([state.store.vectors, state.buf_vecs]),
+             label="ab:presets:buffer")
 
 
 def _fineweb_merge(torch, eng, state, vs) -> dict:
@@ -1423,19 +1588,25 @@ def _fineweb_merge(torch, eng, state, vs) -> dict:
     for the buffered vectors (each its own top hit, at ``n_max + slot``),
     then one timed ``merge`` with its I/O."""
     from repro_torch.core import check_invariants
+    from repro_torch.kernels import ops
     n_max = state.store.n_max
     due = eng.needs_merge(state)
+    before = dict(ops.launches)
     t0 = time.perf_counter()
     ids, _, _, _ = eng.search_many(state, vs)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
+    _scan_gate(_launched_since(ops, before), 1,
+               "presets:fineweb_like:buffer_hits")
     slots = torch.arange(vs.shape[0], device="cuda", dtype=torch.int32)
     hits = int((ids[:, 0] == n_max + slots).sum())
     count0, buffered = state.store.count, state.buf_count
+    before = dict(ops.launches)
     t0 = time.perf_counter()
     mstats, merged = eng.merge(state)
     torch.cuda.synchronize()
     merge_s = time.perf_counter() - t0
+    _scan_gate(_launched_since(ops, before), 0, "presets:fineweb_like:merge")
     inv = check_invariants(merged.store)
     out = dict(needs_merge=due, buffered=buffered,
                buffer_hit_search_s=search_s, buffered_on_top=hits,
@@ -1479,14 +1650,13 @@ def _consolidate(torch, eng, state) -> tuple:
     stats, st = eng.consolidate(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = {k: v - before[k] for k, v in ops.launches.items()}
+    launched = _launched_since(ops, before)
     io = {f: int(getattr(st.ctr_maint, f)) - int(getattr(state.ctr_maint, f))
           for f in MAINT_IO}
     out = dict(consolidate_s=wall, steps=int(stats.serial_rounds),
                **{k: v for k, v in eng.last_maint_timing.items()},
                maint_io=io, consolidate_launches=launched)
-    require(launched["casr_rerank"] == 0 and launched["rerank_l2"] == 0 and
-            launched["rerank_l2_rows"] == 0,
+    require(all(launched[k] == 0 for k in ("casr_rerank",) + NAVIS_OFF),
             f"consolidate launched a rerank kernel: {launched}")
     return stats, st, out
 
@@ -1792,8 +1962,7 @@ def _sharded_wave(torch, search, states, qs) -> tuple:
     fields = dict(queries=int(qs.shape[0]), wall_s=wall,
                   qps=qs.shape[0] / wall, **search.last_timing,
                   io_per_query=io,
-                  launches={k: v - launched[k]
-                            for k, v in ops.launches.items()})
+                  launches=_launched_since(ops, launched))
     return ids, dists, after, fields
 
 
@@ -3611,15 +3780,21 @@ def main() -> int:
         phase_ab_update(torch, fw_eng, fw_state, fw_cents)
         # the presets path
         start("presets")
+        BUFFER_SCANS["waves"] = 0
         phase_presets_small(torch, *small)
         phase_presets_reuse(torch, small[0], small[1], small[3])
-        ab_eng, ab_state, ab_qs = phase_presets_fineweb(
+        (ab_eng, ab_state, ab_qs), buffered = phase_presets_fineweb(
             torch, fw_eng, fw_state, fw_vecs, fw_cents)
         presets = path_counts("presets")
+        require(presets["rerank_l2_shared"] == BUFFER_SCANS["waves"],
+                f"presets: rerank_l2_shared launched "
+                f"{presets['rerank_l2_shared']} times for "
+                f"{BUFFER_SCANS['waves']} FreshDiskANN search waves")
         phase_ab(torch, ab_eng, ab_state, ab_qs, fw_vecs,
                  label="ab:presets:search")
         phase_ab_update(torch, ab_eng, ab_state, fw_cents,
                         label="ab:presets:insert", time_casr=False)
+        phase_ab_buffer(torch, *buffered)
         # the maintenance path
         start("maintenance")
         phase_maintenance_small(torch, *small)

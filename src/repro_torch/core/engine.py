@@ -433,8 +433,9 @@ class Engine:
                            ids: torch.Tensor, dists: torch.Tensor):
         """FreshDiskANN: merge each lane's exact distances to the buffered
         vectors (no I/O) into its top-k.  Buffer ids are virtual, ``n_max
-        + slot``: the vectors are not in the graph yet.  The buffer is
-        scored in place by slot (one ``rerank_l2_rows`` launch) and merged
+        + slot``: the vectors are not in the graph yet.  Every lane scores
+        the same rows, so the buffer is scored in place in one
+        ``rerank_l2_shared`` launch (INF from ``buf_count`` on) and merged
         in chunks that fit the merge kernel."""
         spec = self.spec
         b = qs.shape[0]
@@ -442,8 +443,8 @@ class Engine:
                              device=qs.device)
         slots = torch.where(slots < state.buf_count, slots, -1)
         bids = slots[None].expand(b, -1).contiguous()
-        bd = kernel_ops.rerank_l2_rows(qs.contiguous(), state.buf_vecs,
-                                       bids)
+        bd = kernel_ops.rerank_l2_shared(qs.contiguous(), state.buf_vecs,
+                                         state.buf_count)
         d, i = kernel_ops.pool_merge_chunked(
             torch.where(ids >= 0, dists, INF), ids.contiguous(), bd,
             torch.where(bids >= 0, bids + state.store.n_max, -1))

@@ -35,6 +35,7 @@ SIGNATURES = {
     "adc_distance_launch": [_P, _P, _P, _I, _I, _I, _P],
     "rerank_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
     "rerank_l2_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rerank_l2_shared_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "casr_rerank_launch": [_P] * 9 + [_I] * 6 + [_P],
 }
 

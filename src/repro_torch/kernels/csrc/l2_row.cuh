@@ -1,5 +1,7 @@
 // l2_row.cuh: the exact squared-L2 body shared by rerank_l2.cu and
 // casr_rerank.cu, so both kernels give the same value for the same row.
+// rerank_l2_shared.cu builds the same partial sums in the same order over
+// a tile of pairs, so it gives that value too.
 //
 // One warp sums sum_k (x[k] - q[k])^2 for one row: the difference form
 // (the expanded form ||q||^2 - 2 q.x + ||x||^2 cancels at large norms),

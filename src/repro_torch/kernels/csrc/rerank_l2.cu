@@ -6,12 +6,13 @@
 // Replaces the TPU kernel `_rerank_kernel` / `rerank_l2_pallas`
 // (src/repro/kernels/rerank_l2.py), which streams CASR groups of s rows
 // through VMEM and computes ||q||^2 - 2 q.x + ||x||^2 with q.x on the MXU.
-// The CASR stage runs casr_rerank.cu instead.  rerank_l2_rows carries the
-// full rerank (search.full_rerank) and FreshDiskANN's buffer scan, which
-// score a pool of ids or the whole buffer: gathering those rows into a
-// [B, S, D] temporary first would move every byte twice (50 MB for a wave
-// of 256 pools of 64 at D = 768; 3.2 GB for 256 lanes against a buffer of
-// 4,096).  rerank_l2 stays for callers that hold the rows already.
+// The CASR stage runs casr_rerank.cu instead, and FreshDiskANN's buffer
+// scan, where every lane scores the same rows, rerank_l2_shared.cu (the
+// same body over tiles of pairs).  rerank_l2_rows carries the full rerank
+// (search.full_rerank), which scores each lane's pool of ids: gathering
+// those rows into a [B, S, D] temporary first would move every byte twice
+// (50 MB for a wave of 256 pools of 64 at D = 768).  rerank_l2 stays for
+// callers that hold the rows already.
 //
 // What bounds it on an H100: device-memory bytes.  Every candidate row is
 // read once (D * 4 bytes: 3 KiB at D = 768) for 3 flops per element, far
@@ -22,7 +23,8 @@
 // difference-form body in l2_row.cuh.  The sum order differs from the
 // plain version's, hence the rtol 1e-5 / atol 1e-3 grade.  Both kernels
 // and casr_rerank.cu run the same body on the same row, so a row's value
-// does not depend on which of them computed it.
+// does not depend on which of them computed it (rerank_l2_shared.cu
+// builds the body's sums in its order, so the same holds there).
 #include "l2_row.cuh"
 
 __global__ void rerank_l2_kernel(const float* __restrict__ q,

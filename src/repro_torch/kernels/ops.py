@@ -5,7 +5,9 @@
 Entry points: ``adc_distance``, ``pool_merge`` (and
 ``pool_merge_chunked``, successive merges within the kernel's width),
 ``rerank_l2`` (rows the caller holds, ``[B, S, D]``), ``rerank_l2_rows``
-(rows read in place by id, ``[B, S]`` ids into ``[N, D]``) and
+(rows read in place by id, ``[B, S]`` ids into ``[N, D]``: the full
+rerank), ``rerank_l2_shared`` (every lane against the same ``[S, D]``
+rows: FreshDiskANN's buffer scan, tiled, the same row body) and
 ``casr_rerank``.
 
 ==============  ===================================================
@@ -38,7 +40,7 @@ import torch
 from repro_torch.kernels import ref
 
 launches = {"pool_merge": 0, "adc_distance": 0, "rerank_l2": 0,
-            "rerank_l2_rows": 0, "casr_rerank": 0}
+            "rerank_l2_rows": 0, "rerank_l2_shared": 0, "casr_rerank": 0}
 POOL_MERGE_MAX = 1024    # the merge kernel's width limit, P + Q
 _plain_on_device = False
 _entry: dict = {}       # C entry point name -> ctypes function
@@ -158,6 +160,35 @@ def rerank_l2_rows(q: torch.Tensor, vectors: torch.Tensor,
         _call("rerank_l2_rows_launch", q, q.data_ptr(), vectors.data_ptr(),
               ids.data_ptr(), out.data_ptr(), b, s, d, n)
         launches["rerank_l2_rows"] += 1
+    return out
+
+
+def rerank_l2_shared(q: torch.Tensor, rows: torch.Tensor,
+                     count: int) -> torch.Tensor:
+    """q [B, D] f32; rows [S, D] f32, the same for every lane; count, a
+    host int in [0, S] -> [B, S] exact squared L2 to rows ``< count``
+    (on the card bit-equal to ``rerank_l2_rows`` on those rows), INF from
+    row ``count`` on."""
+    if not 0 <= count <= rows.shape[0]:
+        raise ValueError(f"rerank_l2_shared: count {count} outside "
+                         f"[0, {rows.shape[0]}]")
+    if _use_plain(q, rows):
+        return ref.rerank_l2_shared_ref(q, rows, count)
+    _check(q, "q", torch.float32, 2)
+    _check(rows, "rows", torch.float32, 2)
+    b, d = q.shape
+    s = rows.shape[0]
+    if rows.shape[1] != d:
+        raise ValueError(f"rerank_l2_shared shapes: q {tuple(q.shape)}, "
+                         f"rows {tuple(rows.shape)}")
+    if d % 4 or q.data_ptr() % 16 or rows.data_ptr() % 16:
+        raise ValueError("rerank_l2_shared: want D % 4 == 0 and 16-byte "
+                         "aligned q and rows")
+    out = q.new_empty((b, s))
+    if b and s:
+        _call("rerank_l2_shared_launch", q, q.data_ptr(), rows.data_ptr(),
+              out.data_ptr(), b, s, d, int(count))
+        launches["rerank_l2_shared"] += 1
     return out
 
 

@@ -10,7 +10,10 @@ kernels against on the card.  They keep the input dtype.
 1, ...``, as the TPU kernel's ``fori_loop`` does and as the CUDA kernel
 does, so kernel and plain version agree bit for bit.  ``pool_merge_ref``
 is a stable argsort, the TPU kernel's rank definition.
-``rerank_l2_rows_ref`` reranks rows gathered by id.  ``casr_rerank_ref``
+``rerank_l2_rows_ref`` reranks rows gathered by id,
+``rerank_l2_shared_ref`` every lane against the same rows (on these
+tensors, bit for bit what ``rerank_l2_rows_ref`` gives on those rows'
+ids).  ``casr_rerank_ref``
 is the CASR loop written batch-first over the rerank and merge plain
 versions.
 """
@@ -42,6 +45,16 @@ def rerank_l2_rows_ref(q: torch.Tensor, vectors: torch.Tensor,
     squared L2, INF where the id is -1."""
     d = rerank_l2_ref(q, vectors[ids.clamp(min=0).long()])
     return torch.where(ids >= 0, d, torch.full_like(d, INF))
+
+
+def rerank_l2_shared_ref(q: torch.Tensor, rows: torch.Tensor,
+                         count: int) -> torch.Tensor:
+    """q [B, D]; rows [S, D], every lane's -> [B, S] squared L2
+    (difference form) to rows ``< count``, INF from row ``count`` on."""
+    d = ((q[:, None] - rows[None, :count]) ** 2).sum(-1)
+    out = d.new_full((q.shape[0], rows.shape[0]), INF)
+    out[:, :count] = d
+    return out
 
 
 def pool_merge_ref(pool_d, pool_ids, new_d, new_ids):

@@ -7,6 +7,7 @@ import ast
 import types
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -238,6 +239,102 @@ def test_rerank_rows_plain_matches_gathered(d):
                                    rtol=1e-5, atol=1e-3)
 
 
+def _shared_inputs(d: int, s: int = 37):
+    """Lanes near rows of one shared block, one lane on a row itself."""
+    rng = np.random.default_rng(d + 2)
+    cent = rng.standard_normal((4, d)).astype(np.float32) * 3
+    rows = (cent[rng.integers(0, 4, s)] +
+            rng.standard_normal((s, d)).astype(np.float32))
+    q = rows[rng.integers(0, s, LANES)] + rng.standard_normal(
+        (LANES, d)).astype(np.float32)
+    q[0] = rows[1]
+    return q, rows
+
+
+@pytest.mark.parametrize("d", [48, 768])
+def test_rerank_shared_plain_matches_reference(d):
+    """Every lane against the same rows: within the rerank grade of the
+    reference's rerank vmapped over the lanes with the rows shared, and of
+    the Pallas kernel (interpret mode, expanded form) lane by lane."""
+    q, rows = _shared_inputs(d)
+    got = ops.rerank_l2_shared(torch.from_numpy(q), torch.from_numpy(rows),
+                               rows.shape[0]).numpy()
+    vmapped = jax.vmap(jref.rerank_l2_ref, in_axes=(0, None))(
+        jnp.asarray(q), jnp.asarray(rows))
+    np.testing.assert_allclose(got, vmapped, rtol=1e-5, atol=1e-3)
+    for b in range(LANES):
+        want = rerank_l2_pallas(jnp.asarray(q[b]), jnp.asarray(rows),
+                                group=8, interpret=True)
+        np.testing.assert_allclose(got[b], want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("d", [48, 768])
+@pytest.mark.parametrize("count", [0, 1, 20, 37])
+def test_rerank_shared_plain_equals_rows_on_slot_ids(d, count):
+    """Bit for bit what the by-id entry gives on the slots' ids (-1 from
+    ``count`` on), which the buffer scan ran before: INF past ``count``."""
+    q, rows = _shared_inputs(d)
+    slots = np.arange(rows.shape[0], dtype=np.int32)
+    ids = np.broadcast_to(np.where(slots < count, slots, -1),
+                          (LANES, rows.shape[0])).copy()
+    tq, tr = torch.from_numpy(q), torch.from_numpy(rows)
+    got = ops.rerank_l2_shared(tq, tr, count).numpy()
+    want = ops.rerank_l2_rows(tq, tr, torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (got[:, count:] == INF).all()
+    assert (got[:, :count] < INF).all()
+
+
+@pytest.mark.parametrize("count", [-1, 38])
+def test_rerank_shared_count_outside_rows_raises(count):
+    q, rows = _shared_inputs(48)
+    with pytest.raises(ValueError):
+        ops.rerank_l2_shared(torch.from_numpy(q), torch.from_numpy(rows),
+                             count)
+
+
+def test_merge_buffer_hits_scores_through_the_shared_entry(monkeypatch):
+    """FreshDiskANN's buffer scan calls ``rerank_l2_shared`` once a wave
+    with the buffer and its count, and the by-id entry not at all; the
+    merge keeps each lane's k smallest of its hits and the buffered rows
+    (virtual ids ``n_max + slot``)."""
+    from repro_torch.core import Engine, preset
+    q, rows = _shared_inputs(48, s=6)
+    eng = Engine(preset("freshdiskann", dim=48, buffer_max=6, k=4),
+                 device="cpu")
+    state = types.SimpleNamespace(
+        buf_vecs=torch.from_numpy(rows), buf_count=4,
+        store=types.SimpleNamespace(n_max=100))
+    ids = torch.tensor([[3, 7, -1, -1], [1, 2, 9, 11], [5, -1, -1, -1]],
+                       dtype=torch.int32)
+    dists = torch.tensor([[10.0, 900.0, INF, INF],
+                          [50.0, 60.0, 70.0, 80.0],
+                          [2000.0, INF, INF, INF]])
+    calls = []
+    shared = ops.rerank_l2_shared
+
+    def counting(q_, rows_, count):
+        calls.append((tuple(q_.shape), rows_.data_ptr(), count))
+        return shared(q_, rows_, count)
+
+    def by_id(*args):
+        raise AssertionError("the buffer scan reached rerank_l2_rows")
+    monkeypatch.setattr(ops, "rerank_l2_shared", counting)
+    monkeypatch.setattr(ops, "rerank_l2_rows", by_id)
+    tq = torch.from_numpy(q)
+    got_i, got_d = eng._merge_buffer_hits(state, tq, ids, dists)
+    assert calls == [((LANES, 48), state.buf_vecs.data_ptr(), 4)]
+    bd = ref.rerank_l2_shared_ref(tq, state.buf_vecs, 4)[:, :4]
+    for b in range(LANES):
+        cand = [(float(d_), int(i_)) for d_, i_ in zip(dists[b], ids[b])
+                if i_ >= 0]
+        cand += [(float(bd[b, s]), 100 + s) for s in range(4)]
+        cand.sort(key=lambda c: c[0])
+        assert got_i[b].tolist() == [i_ for _, i_ in cand[:4]]
+        assert got_d[b].tolist() == [d_ for d_, _ in cand[:4]]
+    assert got_i[0, 0] == 101 and got_d[0, 0] == 0.0     # lane 0 is row 1
+
+
 def test_plain_versions_keep_dtype():
     gen = torch.Generator().manual_seed(0)
     lut = torch.rand((2, 8, 256), dtype=torch.float64, generator=gen)
@@ -263,9 +360,10 @@ def test_cpu_tensors_never_launch():
     ops.casr_rerank(torch.ones((1, 8)), torch.zeros((4, 8)),
                     torch.tensor([[0, 2, 1, -1]], dtype=torch.int32), k=2,
                     s=2)
+    ops.rerank_l2_shared(torch.ones((1, 8)), torch.zeros((3, 8)), 2)
     assert ops.launches == {"pool_merge": 0, "adc_distance": 0,
                             "rerank_l2": 0, "rerank_l2_rows": 0,
-                            "casr_rerank": 0}
+                            "rerank_l2_shared": 0, "casr_rerank": 0}
 
 
 def test_unsupported_devices_raise():
