@@ -29,6 +29,8 @@ set to 0 just before it and read just after:
   merge's gather through a one-rank NCCL group): the reference test's
   8 shards of 128, and half the FineWeb-like corpus in 8 shards of 2,500
   with a global codec: sharded search waves and a routed insert wave;
+  and the sharded engine's dry-run (``distributed.dryrun``) of the
+  FineWeb-like spec on both production meshes, on the host;
 - serving (the LM substrate, ``repro_torch.launch.serve``): qwen2-0.5b at
   its published width (24 x 896, vocab 151,936, bf16, seeded random
   weights) serving batch 4 x 64 prompt tokens + 32 decode steps and
@@ -45,7 +47,9 @@ set to 0 just before it and read just after:
   and 4 x 4,096 tokens, hymba-1.5b whole at 4 x 512 and whisper-medium
   whole at 4 x 448 (frames from the seed), each with its step time,
   tokens/s against the model FLOPs' bound, peak memory, launches and
-  idle share; the launcher as a subprocess (crash at step 3, resume
+  idle share, and one step's dot FLOPs counted on the card equal to the
+  step analysis's count on meta tensors; the launcher as a subprocess
+  (crash at step 3, resume
   from its checkpoint, against a run without the crash); float32 loss
   and gradients against the host at 2 layers, and the scan's backward
   against float64;
@@ -54,8 +58,11 @@ set to 0 just before it and read just after:
   a one-rank NCCL group (prefill all-gathering the experts, decode keeping
   them 2-D sharded), equal bit for bit to the serve with no mesh under
   deterministic algorithms and in float32 at 2 layers within 1e-5, with
-  the collectives of a prefill and a decode step; then the dry-run's
-  memory model over the 33 cells on both production meshes, on the host;
+  the collectives of a prefill and a decode step equal to the step
+  analysis's count of the same steps on meta tensors through a counting
+  1 x 1 mesh (``launch/step_analysis.py``); then the dry-run (each
+  cell's step analysis and memory model) over the 33 cells on both
+  production meshes, on the host;
   then moonshot-v1-16b-a3b at its published widths cut to 8 layers,
   trained (AdamW, bf16) at 4 x 512 through the same mesh (the experts'
   backward through its collectives), bit for bit the run with no mesh
@@ -66,8 +73,8 @@ set to 0 just before it and read just after:
   hymba-1.5b whole served at 4 x 64 + 32 and qwen2-0.5b trained at 8 x
   256 through the same mesh, bit for bit the runs with no mesh under
   deterministic algorithms, float32 at 2 layers against the host, and
-  the collectives of a prefill, a decode and a train step, by part, as
-  predicted (``_predict_collectives``); then RAG
+  the collectives of a prefill, a decode and a train step, by part and
+  with the backward's apart, equal to the counting mesh's; then RAG
   (``examples/rag_serving_torch.py``): the LM embeds 512
   documents, the navis index is built over them on the card
   and a wave of 256 embedded queries retrieves from it (its counts are
@@ -199,8 +206,8 @@ PEAK_BF16_S = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 # MESH_LOAD through a 1 x 1 mesh on a one-rank NCCL group, against the same
 # serve with no mesh (bit for bit under deterministic algorithms; in
 # float32 at MESH_FP32_LAYERS layers within MESH_FP32_TOL); then the
-# dry-run's memory model over every cell on both production meshes
-# (DRYRUN_CELLS files), on the host.
+# dry-run (each cell's step analysis and memory model) over every cell on
+# both production meshes (DRYRUN_CELLS files), on the host.
 MESH_ARCH = "moonshot-v1-16b-a3b"
 MESH_LOAD = (4, 64, 32)
 MESH_FP32_LAYERS = 2
@@ -222,8 +229,8 @@ MESH_TRAIN_LOAD = (4, 512)
 # mesh; DENSE_TRAIN trained MESH_TRAIN_STEPS AdamW steps at
 # DENSE_TRAIN_LOAD through the mesh and with none; float32 at
 # MESH_FP32_LAYERS layers through the mesh on the card against no mesh on
-# the host.  Every collective is counted by part against
-# _predict_collectives.
+# the host.  Every collective is counted by part against the step
+# analysis of the same step through a counting 1 x 1 mesh.
 DENSE_SERVE = ("qwen2-0.5b", "hymba-1.5b")
 DENSE_TRAIN = "qwen2-0.5b"
 DENSE_TRAIN_LOAD = (8, 256)
@@ -2077,6 +2084,29 @@ def phase_dist_fineweb(torch, group, vecs, cents):
     return eng, states, qs, routed, valid
 
 
+def phase_dist_dryrun(torch) -> None:
+    """``distributed.dryrun`` of the FineWeb-like spec on both production
+    meshes (one shard a device; the reference's defaults: n_per 65,536, a
+    wave of 64, buckets of 8), on the host: a shard's state bytes, each
+    op's input bytes and collectives per device, and what no meta run
+    counts.  Gated: the search gathers the ids and distances of every
+    shard's pools (2 calls, 8 bytes a slot), the insert nothing."""
+    from repro_torch.core import Engine
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.launch import mesh as M
+    eng = Engine(_spec_fineweb("navis", SHARD_N + SHARD_HEADROOM))
+    out = {name: dist_mod.dryrun(eng, M.make_production_mesh(multi_pod=multi))
+           for name, multi in (("pod16x16", False), ("pod2x16x16", True))}
+    emit("dist:dryrun", spec="fineweb_like", **out)
+    for name, r in out.items():
+        search = r["search"]["collectives"]
+        pools = r["search"]["devices"] * 64 * eng.spec.k * 8
+        require(search["op_counts"]["all-gather"] == 2 and
+                search["bytes_by_kind"]["total"] == pools and
+                r["insert"]["collectives"]["bytes_by_kind"]["total"] == 0,
+                f"dist:dryrun {name}: {r}")
+
+
 def phase_ab_sharded(torch, group, eng, states, qs, routed, valid) -> None:
     """The FineWeb-like sharded search and insert with the kernels, then
     under plain_on_device(), from the same post-build states: ids and
@@ -2729,10 +2759,11 @@ def mesh_path(torch, paths: Paths) -> dict:
     trained through it (read as ``mesh_dense``).  The group is torn down
     after."""
     _init_group(torch, "mesh")
+    sweep = _start_dryrun()
     try:
         paths.start("mesh")
         phase_mesh_serve(torch)
-        phase_mesh_dryrun(torch)
+        phase_mesh_dryrun(torch, sweep)
         out = {"mesh": paths.end("mesh")}
         paths.start("mesh_train")
         phase_mesh_train(torch)
@@ -2742,6 +2773,9 @@ def mesh_path(torch, paths: Paths) -> dict:
         out["mesh_dense"] = paths.end("mesh_dense")
         return out
     finally:
+        if sweep.poll() is None:
+            sweep.kill()
+            sweep.communicate()
         torch.distributed.destroy_process_group()
 
 
@@ -2750,12 +2784,45 @@ def _parts(mesh) -> dict:
     return {k: dict(v) for k, v in sorted(mesh.parts.items())}
 
 
+def _meta(torch, tree):
+    """``tree`` with each tensor a meta tensor of its shape and dtype."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: torch.empty_like(t, device="meta")
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _counted(torch, make_step, *args) -> dict:
+    """``launch.step_analysis.analyze`` of ``make_step(mesh)`` on ``args``
+    made meta, through a counting 1 x 1 mesh: the collectives it counted
+    (the mesh's ``stats`` and ``parts``, as the card's one-rank mesh
+    reads its own), and the analysis's FLOPs, bytes and seconds."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import step_analysis as SA
+    counting = M.Mesh({"data": 1, "model": 1}, virtual=True, counting=True)
+    t0 = time.perf_counter()
+    res = SA.analyze(make_step(counting), *_meta(torch, args), mesh=counting)
+    return dict(counting.stats, parts=_parts(counting),
+                dot_flops=res["dot_flops"],
+                hbm_traffic_bytes=res["hbm_traffic_bytes"],
+                n_ops=res["n_ops"], analysis_s=time.perf_counter() - t0)
+
+
+def _agree(card: dict, counted: dict) -> bool:
+    """A step's collectives on the card equal the counting mesh's: call
+    for call and byte for byte, in all, by part, and the backward's
+    apart."""
+    from repro_torch.launch.mesh import STATS
+    return card["parts"] == counted["parts"] and all(
+        card[k] == counted[k] for k in STATS)
+
+
 def _mesh_steps(torch, cfg, params, mesh, load) -> dict:
     """One prefill and one decode step at ``load`` through ``mesh``, every
     leaf held as its ``param_specs`` block: the collectives each issues
     (calls and the bytes handed to them, in all and by part, from the
-    mesh's own counts), and a profiled decode step with and without the
-    mesh (device busy share, launches)."""
+    mesh's own counts), the same steps counted on meta tensors through a
+    counting mesh (``counted``), and a profiled decode step with and
+    without the mesh (device busy share, launches)."""
     from repro_torch.launch import mesh as M
     from repro_torch.launch.serve import prompt_tokens
     from repro_torch.models import transformer as T
@@ -2777,6 +2844,11 @@ def _mesh_steps(torch, cfg, params, mesh, load) -> dict:
     mesh.reset_stats()
     decode(held, cache, cur, prompt)
     out["decode_step"] = dict(mesh.stats, parts=_parts(mesh))
+    out["counted"] = {
+        "prefill": _counted(torch, lambda m: make_prefill_step(
+            cfg, rules=rules_p, mesh=m, max_seq=prompt + gen), held, tokens),
+        "decode_step": _counted(torch, lambda m: make_decode_step(
+            cfg, rules=rules_d, mesh=m), held, cache, cur, prompt)}
     out["profile_decode_step_mesh"] = profile_window(
         torch, lambda: decode(held, cache, cur, prompt + 1))
     plain = make_decode_step(cfg)         # a 1 x 1 mesh's cache is whole
@@ -2831,8 +2903,9 @@ def phase_mesh_serve(torch) -> None:
     mesh's difference from them is printed); under
     ``torch.use_deterministic_algorithms`` (no ``warn_only``: an op with
     no deterministic CUDA version raises) the mesh's serve equals the
-    serve with no mesh in the same way; and in float32 at
-    MESH_FP32_LAYERS layers the logits within MESH_FP32_TOL.  Printed:
+    serve with no mesh in the same way; in float32 at MESH_FP32_LAYERS
+    layers the logits within MESH_FP32_TOL; and the collectives of a
+    prefill and a decode step equal the counting mesh's.  Printed:
     both serves' times, the memory each adds, and the collectives and a
     profile of a prefill and a decode step."""
     from repro_torch.launch import mesh as M
@@ -2854,10 +2927,7 @@ def phase_mesh_serve(torch) -> None:
         ordered = _same(serve(cfg, gen=gen, mesh=mesh, **kw),
                         serve(cfg, gen=gen, **kw))
     steps = _mesh_steps(torch, cfg, params, mesh, MESH_LOAD)
-    predicted = {"prefill": _predict_collectives(cfg, "prefill", batch,
-                                                 prompt),
-                 "decode_step": _predict_collectives(cfg, "decode", batch,
-                                                     1)}
+    agree = {k: _agree(steps[k], v) for k, v in steps["counted"].items()}
     sample = runs["mesh"]["res"]["tokens"][0, :8].tolist()
     for r in runs.values():
         del r["res"]
@@ -2868,9 +2938,7 @@ def phase_mesh_serve(torch) -> None:
          layers=cfg.num_layers, reduced=reduced, dtype=str(cfg.dtype),
          batch=batch, prompt_len=prompt, decode_steps=gen, runs=runs,
          bf16_atomic=atomic, bf16_deterministic=ordered, fp32=fp32,
-         collectives=steps, predicted=predicted,
-         prediction_holds={k: steps[k]["parts"] == v
-                           for k, v in predicted.items()},
+         collectives=steps, counts_agree=agree,
          mesh_adds_bytes=(runs["mesh"]["serve_peak_bytes"] -
                           runs["no_mesh"]["serve_peak_bytes"]),
          sample=sample)
@@ -2878,6 +2946,9 @@ def phase_mesh_serve(torch) -> None:
             runs["mesh"]["collective_calls"] > 0 and
             steps["decode_step"]["calls"] > 0,
             f"mesh: collectives {runs} {steps}")
+    require(all(agree.values()),
+            f"mesh: the card's collectives {steps} against the counting "
+            f"mesh's {steps['counted']}")
     same = atomic["no_mesh_vs_no_mesh"]
     require(same["tokens_equal"] and same["logits_bit_equal"],
             f"mesh: two bf16 serves with no mesh differ {same}")
@@ -2917,35 +2988,68 @@ def _mesh_fp32(torch, mesh) -> dict:
                 **_same(meshed, plain))
 
 
-def phase_mesh_dryrun(torch) -> None:
-    """``python -m repro_torch.launch.dryrun --all --both-meshes`` on the
-    host (meta tensors over virtual meshes): DRYRUN_CELLS JSON files,
-    each memory model's total finite and positive; the per-device GB of
-    the MoE and vision cells."""
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+
+
+def _start_dryrun():
+    """``python -m repro_torch.launch.dryrun --all --both-meshes`` started
+    on the host (meta tensors over virtual counting meshes), to run beside
+    the mesh path's work on the card."""
     import os
     import shutil
-    out_dir = ROOT / "build" / "dryrun"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--both-meshes", "--out", str(out_dir)], cwd=ROOT,
+         "--both-meshes", "--out", str(DRYRUN_OUT)], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    require(proc.returncode == 0,
-            f"mesh:dryrun exited {proc.returncode}: {proc.stderr[-2000:]}")
-    files = sorted(out_dir.glob("*.json"))
-    totals = {f.stem: json.loads(f.read_text())["memory_model"]["total"]
-              for f in files}
-    bad = [k for k, v in totals.items() if not (math.isfinite(v) and v > 0)]
-    emit("mesh:dryrun", cells=len(files), seconds=seconds, bad=bad,
-         per_device_gb={k: v / 1e9 for k, v in totals.items()
-                        if k.split("__")[0] in (
-                            "moonshot-v1-16b-a3b", "arctic-480b",
-                            "llama-3.2-vision-90b")})
-    require(len(files) == DRYRUN_CELLS and not bad,
-            f"mesh:dryrun: {len(files)} cells, bad totals {bad}")
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_mesh_dryrun(torch, sweep) -> None:
+    """The dry-run ``_start_dryrun`` started, waited for: DRYRUN_CELLS
+    JSON files, each with a finite, positive memory model total, ``flops``
+    and ``bytes_accessed`` above 0 and its collectives (bytes by kind
+    summing to their total, calls by kind to those by part, some of
+    each); the sweep's own seconds and the cells' analysis seconds, and
+    for the MoE and vision cells the per-device GB and FLOPs."""
+    t0 = time.perf_counter()
+    try:
+        stdout, stderr = sweep.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        sweep.kill()
+        sweep.communicate()
+        raise SmokeFailure("mesh:dryrun: the sweep ran past 600 s")
+    waited = time.perf_counter() - t0
+    require(sweep.returncode == 0,
+            f"mesh:dryrun exited {sweep.returncode}: {stderr[-2000:]}")
+    recs = {f.stem: json.loads(f.read_text())
+            for f in sorted(DRYRUN_OUT.glob("*.json"))}
+
+    def whole(r) -> bool:
+        c = r.get("collectives") or {}
+        kinds, calls = c.get("bytes_by_kind", {}), c.get("op_counts", {})
+        total = r["memory_model"]["total"]
+        return (math.isfinite(total) and total > 0 and
+                r.get("flops", 0) > 0 and r.get("bytes_accessed", 0) > 0 and
+                kinds.get("total", 0) > 0 and kinds["total"] == sum(
+                    v for k, v in kinds.items() if k != "total") and
+                sum(calls.values()) == sum(
+                    v["calls"] for v in c.get("by_part", {}).values()) > 0)
+    bad = [k for k, r in recs.items() if not whole(r)]
+    line = [ln for ln in stdout.splitlines() if ln.startswith("sweep:")]
+    shown = {k: dict(gb=r["memory_model"]["total"] / 1e9, flops=r["flops"],
+                     bytes_accessed=r["bytes_accessed"],
+                     collective_bytes=r["collectives"]["bytes_by_kind"][
+                         "total"])
+             for k, r in recs.items()
+             if k.split("__")[0] in ("moonshot-v1-16b-a3b", "arctic-480b",
+                                     "llama-3.2-vision-90b")}
+    emit("mesh:dryrun", cells=len(recs), waited_s=waited,
+         sweep=line[-1] if line else None,
+         analysis_s=sum(r.get("analysis_s", 0) for r in recs.values()),
+         bad=bad, per_device=shown)
+    require(len(recs) == DRYRUN_CELLS and not bad,
+            f"mesh:dryrun: {len(recs)} cells, incomplete records {bad}")
 
 
 def _step_collectives(torch, mesh, loss_fn, params, data) -> dict:
@@ -3029,7 +3133,8 @@ def _mesh_train_run(torch, cfg, data, mesh, *, deterministic: bool,
             if i == 0 and "collectives" in out:
                 step = {k: mesh.stats[k] for k in ("calls", "bytes")}
                 out["collectives"]["step"] = step
-                out["collectives"]["step_parts"] = _parts(mesh)
+                out["collectives"]["step_stats"] = dict(
+                    mesh.stats, parts=_parts(mesh))
                 out["collectives"]["reduction_and_optimizer"] = {
                     k: step[k] - sum(out["collectives"][p][k] for p in (
                         "forward", "recompute", "backward"))
@@ -3047,6 +3152,26 @@ def _mesh_train_run(torch, cfg, data, mesh, *, deterministic: bool,
                tokens_s=data["tokens"].numel() / step_s,
                seconds=time.perf_counter() - start)
     return out
+
+
+def _counted_train(torch, cfg, arch: str, data) -> dict:
+    """``_counted`` of the train step ``_mesh_train_run`` takes through
+    a mesh (``arch``'s optimizer, the train rules of ``data``'s batch),
+    from the seeded init's shapes: the counting mesh's collectives."""
+    from repro_torch import configs as C
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    opt = O.make_optimizer(C.get_arch(arch).optimizer, lr=O.cosine_schedule(
+        3e-4, warmup=1, total=MESH_TRAIN_STEPS))
+    params = T.param_shapes(cfg)
+    rules = lambda m: M.make_rules(m, kind="train",
+                                   global_batch=data["tokens"].shape[0],
+                                   cfg=cfg)
+    return _counted(torch, lambda m: make_train_step(
+        cfg, opt, rules=rules(m), mesh=m), params,
+        init_opt_state(cfg, opt, params), data, 0)
 
 
 def _runs_differ(torch, a: dict, b: dict) -> dict:
@@ -3074,7 +3199,9 @@ def phase_mesh_train(torch) -> None:
     bit-equal to the run with no mesh (a 1 x 1 mesh changes no
     arithmetic); float32 at MESH_FP32_LAYERS layers through the mesh on
     the card within 1e-5 (loss) and 1e-4 (every gradient leaf, relative
-    L2) of no mesh on the host.  Printed: step ms and tokens/s with and
+    L2) of no mesh on the host; a step's collectives (in all, by part, the
+    backward's apart) equal to the counting mesh's for the same step on
+    meta tensors.  Printed: step ms and tokens/s with and
     without the mesh (and with no mesh in the default mode), the
     collectives of a step by part, peak memory against the static bytes,
     a profiled step of each, and whether two runs with no mesh in the
@@ -3092,20 +3219,24 @@ def phase_mesh_train(torch) -> None:
     plain = _mesh_train_run(torch, cfg, data, None, deterministic=True,
                             profile=True)
     ordered = _runs_differ(torch, meshed, plain)
-    predicted = _predict_collectives(cfg, "train", batch, seq)
+    counted = _counted_train(torch, cfg, MESH_ARCH, data)
+    agree = _agree(meshed["collectives"]["step_stats"], counted)
     fp32 = _mesh_train_fp32(torch, mesh)
     emit("mesh:train", arch=MESH_ARCH, mesh=mesh.shape, backend="nccl",
          layers=cfg.num_layers, reduced=reduced, dtype=str(cfg.dtype),
          batch=batch, seq=seq, steps=MESH_TRAIN_STEPS,
          mesh_run=meshed, no_mesh_run=plain,
-         deterministic_mesh_vs_no_mesh=ordered, predicted=predicted,
-         prediction_holds=meshed["collectives"]["step_parts"] == predicted,
-         fp32=fp32, seconds=time.perf_counter() - start)
+         deterministic_mesh_vs_no_mesh=ordered, counted=counted,
+         counts_agree=agree, fp32=fp32,
+         seconds=time.perf_counter() - start)
     losses = meshed["losses"]
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
             f"mesh:train: losses {losses}")
     require(ordered["losses_equal"] and ordered["params_bit_equal"],
             f"mesh:train: the mesh's run differs from no mesh {ordered}")
+    require(agree, f"mesh:train: a step's collectives "
+            f"{meshed['collectives']['step_stats']} against the counting "
+            f"mesh's {counted}")
     require(fp32["loss_rel"] <= 1e-5 and fp32["max_grad_rel_l2"] <= 1e-4,
             f"mesh:train: float32 against the host {fp32}")
 
@@ -3154,8 +3285,8 @@ def _dense_serve(torch, arch: str, mesh) -> dict:
     ``param_specs`` block: both serves' times, the memory each adds and
     their collectives (``_serve_pair``); under deterministic algorithms
     the mesh's serve against the serve with no mesh; a prefill and a
-    decode step's collectives by part against ``_predict_collectives``,
-    and a profiled decode step with the mesh and without."""
+    decode step's collectives against the counting mesh's, and a profiled
+    decode step with the mesh and without."""
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
     cfg, reduced = _published(arch)
@@ -3169,10 +3300,6 @@ def _dense_serve(torch, arch: str, mesh) -> dict:
         ordered = _same(serve(cfg, gen=gen, mesh=mesh, **kw),
                         serve(cfg, gen=gen, **kw))
     steps = _mesh_steps(torch, cfg, params, mesh, MESH_LOAD)
-    predicted = {"prefill": _predict_collectives(cfg, "prefill", batch,
-                                                 prompt),
-                 "decode_step": _predict_collectives(cfg, "decode", batch,
-                                                     1)}
     for r in runs.values():
         del r["res"]
     del params
@@ -3182,9 +3309,8 @@ def _dense_serve(torch, arch: str, mesh) -> dict:
                 mesh_adds_bytes=(runs["mesh"]["serve_peak_bytes"] -
                                  runs["no_mesh"]["serve_peak_bytes"]),
                 bf16_deterministic=ordered, collectives=steps,
-                predicted=predicted,
-                prediction_holds={k: steps[k]["parts"] == v
-                                  for k, v in predicted.items()})
+                counts_agree={k: _agree(steps[k], v)
+                              for k, v in steps["counted"].items()})
 
 
 def _dense_serve_fp32(torch, arch: str, mesh) -> dict:
@@ -3234,8 +3360,8 @@ def _dense_train(torch, mesh) -> dict:
     """DENSE_TRAIN at its published widths and depth (bf16, its AdamW with
     bf16 moments), MESH_TRAIN_STEPS steps at DENSE_TRAIN_LOAD through
     ``mesh`` and with no mesh under deterministic algorithms
-    (``_mesh_train_run``), and a train step's collectives by part against
-    ``_predict_collectives``."""
+    (``_mesh_train_run``), and a train step's collectives against the
+    counting mesh's."""
     cfg, reduced = _published(DENSE_TRAIN)
     batch, seq = DENSE_TRAIN_LOAD
     data = _train_batch(torch, cfg, batch, seq, 0, "cuda")
@@ -3244,15 +3370,15 @@ def _dense_train(torch, mesh) -> dict:
     plain = _mesh_train_run(torch, cfg, data, None, deterministic=True,
                             profile=True, arch=DENSE_TRAIN)
     ordered = _runs_differ(torch, meshed, plain)
-    predicted = _predict_collectives(cfg, "train", batch, seq)
+    counted = _counted_train(torch, cfg, DENSE_TRAIN, data)
     return dict(arch=DENSE_TRAIN, layers=cfg.num_layers, reduced=reduced,
                 batch=batch, seq=seq, steps=MESH_TRAIN_STEPS,
                 mesh_run=meshed, no_mesh_run=plain,
                 mesh_adds_bytes=(meshed["peak_mem_bytes"] -
                                  plain["peak_mem_bytes"]),
-                deterministic_mesh_vs_no_mesh=ordered, predicted=predicted,
-                prediction_holds=(meshed["collectives"]["step_parts"] ==
-                                  predicted))
+                deterministic_mesh_vs_no_mesh=ordered, counted=counted,
+                counts_agree=_agree(meshed["collectives"]["step_stats"],
+                                    counted))
 
 
 def phase_mesh_dense(torch) -> None:
@@ -3269,8 +3395,9 @@ def phase_mesh_dense(torch) -> None:
     arithmetic of no mesh); in float32, serving's logits within
     DENSE_FP32_TOL relative L2 of the host's at every step, the loss
     within 1e-5 and every gradient leaf within 1e-4 relative L2; the
-    collectives of a prefill, a decode and a train step, by part, in
-    calls and bytes, equal to ``_predict_collectives``.  Printed: step and
+    collectives of a prefill, a decode and a train step, in calls and
+    bytes, in all, by part and the backward's apart, equal to the counting
+    mesh's for the same steps on meta tensors.  Printed: step and
     decode times with and without the mesh, the memory the mesh adds,
     launches and idle share of a profiled decode step, the phase's
     seconds."""
@@ -3289,217 +3416,25 @@ def phase_mesh_dense(torch) -> None:
         require(ordered["tokens_equal"] and ordered["logits_bit_equal"],
                 f"mesh:dense: {arch}'s deterministic serves differ "
                 f"{ordered}")
-        require(all(r["prediction_holds"].values()),
+        require(all(r["counts_agree"].values()),
                 f"mesh:dense: {arch}'s collectives {r['collectives']} "
-                f"against the prediction {r['predicted']}")
+                f"against the counting mesh's")
         f = fp32["serve"][arch]
         require(f["max_rel_l2"] <= DENSE_FP32_TOL,
                 f"mesh:dense: {arch} float32 serving against the host {f}")
     ordered = train["deterministic_mesh_vs_no_mesh"]
     require(ordered["losses_equal"] and ordered["params_bit_equal"],
             f"mesh:dense: the train runs differ {ordered}")
-    require(train["prediction_holds"],
+    require(train["counts_agree"],
             f"mesh:dense: a train step's collectives "
-            f"{train['mesh_run']['collectives']} against the prediction "
-            f"{train['predicted']}")
+            f"{train['mesh_run']['collectives']} against the counting "
+            f"mesh's {train['counted']}")
     losses = train["mesh_run"]["losses"]
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
             f"mesh:dense: losses {losses}")
     f = fp32["train"]
     require(f["loss_rel"] <= 1e-5 and f["max_grad_rel_l2"] <= 1e-4,
             f"mesh:dense: float32 training against the host {f}")
-
-
-def _predict_collectives(cfg, kind: str, batch: int, seq: int) -> dict:
-    """The collectives one step issues through a 1 x 1 mesh (every group
-    of one rank), by part: ``{part: {"calls", "bytes"}}``, the bytes those
-    handed to the collectives.  ``kind``: "prefill" (a ``batch`` x ``seq``
-    prompt), "decode" (one token) or "train" (``lm_loss``'s forward, its
-    recompute and backward, the gradients' sums and AdamW's global norm).
-
-    Derived from the specs and the placement's rules, not from a run:
-    every leaf dim a spec splits is gathered where a layer uses it (over
-    ``data``: fsdp; over ``model``: tp), but a dim the layer keeps split
-    (the MLP's F; with whole heads, ``wq``'s and ``bq``'s columns and
-    ``wo``'s rows in train and prefill, ``wo``'s rows in decode; the
-    Mamba mixer's channels; the vocabulary); the residual's sequence
-    gathers and sum-scatters (sp) of the norms' outputs and the
-    row-parallel outputs, or K and V under ``seq_parallel_attn``; decode's
-    row-parallel sums (tp); the vocabulary's sums and gathers; the MoE's
-    expert gathers (3 leaves) and output (moe).  One rank's group combines
-    nothing (the loss and the decode attention take the plain
-    arithmetic).  In train, every collective of a decoder layer runs
-    twice (the layer is recomputed in the backward) but the sum-scatter
-    that ends it (the recompute stops after the last operation that saves
-    a tensor); each differentiable gather or sum-scatter has one backward
-    collective of its output's bytes, and Mamba's ``x_proj`` sum one;
-    then one gradient sum per leaf its spec does not split over both
-    axes, and AdamW's norm one per set of axes."""
-    from repro_torch.launch import mesh as M
-    from repro_torch.models import transformer as T
-    from repro_torch.models.layers import is_spec
-    from repro_torch.tree import tree_leaves
-    out: dict = {}
-
-    def add(part, nbytes, times=1):
-        c = out.setdefault(part, {"calls": 0, "bytes": 0})
-        c["calls"] += times
-        c["bytes"] += int(nbytes) * times
-
-    one = M.Mesh({"data": 1, "model": 1}, virtual=True)
-    rules = M.make_rules(one, kind="decode" if kind == "decode" else
-                         "prefill", global_batch=batch, cfg=cfg)
-    specs = T.param_specs(cfg)
-    a = cfg.dtype.itemsize
-    D = cfg.d_model
-    train = kind == "train"
-    T_ = batch * (1 if kind == "decode" else seq)
-    fwd = 2 if train else 1            # the layer's recompute
-    bwd = 1 if train else 0
-
-    def axes(spec, dim):
-        spec = tuple(spec or ())
-        e = spec[dim] if dim < len(spec) else None
-        return e if isinstance(e, tuple) else ((e,) if e else ())
-
-    def gather(spec, shape, dims, times, part=None):
-        """Leaf gathers of ``dims`` (each hands the leaf whole)."""
-        n = math.prod(shape) * a
-        for d in dims:
-            for ax in axes(spec, d):
-                add(part or ("fsdp" if ax == "data" else "tp"), n, times)
-
-    def act(part, nbytes, last=False):
-        """A layer's activation collective and its backward; ``last``:
-        the sum-scatter that ends the layer, after which nothing saves a
-        tensor, so that the recompute stops before it."""
-        add(part, nbytes, (1 if last else fwd) + bwd)
-
-    blocks = specs["blocks"]
-    for pi, pat in enumerate(cfg.patterns):
-        for j, st in enumerate(pat.stages):
-            n_layers = pat.repeats * st.count
-            ls = blocks[pi][j]
-            for _ in range(n_layers):
-                _predict_layer(cfg, st, ls, kind, rules, T_, batch, seq,
-                               gather, act, add, axes, fwd, bwd, a)
-    # the embedding and the vocabulary
-    vsplit = axes(specs["embed"], 0) if cfg.tie_embeddings else \
-        axes(specs["lm_head"], 1)
-    if axes(specs["embed"], 0):
-        add("vocab", T_ * D * a, 1 + bwd)
-    if not cfg.tie_embeddings:
-        gather(specs["lm_head"], (D, cfg.vocab_size), (0,),
-               1 + bwd if train else 1)
-    if kind != "train" and vsplit:
-        add("vocab", batch * cfg.vocab_size * 4)     # the logits
-    if train:
-        if vsplit:
-            add("sp", T_ * D * a, 2)                 # the final hidden
-        add("loss", 4)
-        pspecs = tree_leaves(specs, is_leaf=is_spec)
-        shapes = tree_leaves(T.param_shapes(cfg))
-        groups = {}
-        for sp, sh in zip(pspecs, shapes):
-            named = {x for d in range(sh.dim()) for x in axes(sp, d)}
-            if named != {"data", "model"}:
-                add("grad", sh.numel() * sh.element_size())
-            if named:
-                groups[tuple(sorted(named))] = groups.get(
-                    tuple(sorted(named)), 0) + 1
-        for count in groups.values():
-            add("opt", 4 * count)
-    return out
-
-
-def _predict_layer(cfg, st, ls, kind, rules, T_, batch, seq, gather, act,
-                   add, axes, fwd, bwd, a) -> None:
-    """One decoder layer's share of ``_predict_collectives``."""
-    D, KV, hd, H = cfg.d_model, cfg.num_kv_heads, cfg.hd, cfg.num_heads
-    train, decode = kind == "train", kind == "decode"
-    times = fwd + bwd
-    x = T_ * D * a                                  # a [B, S, D] activation
-    sp = not decode
-    kinds = ("attn", "enc", "attn_cross")
-    seq_local = sp and rules.seq_parallel_attn and st.kind in kinds
-
-    def lspec(tree, name):
-        return tree[name][2:]           # drop the stack dims
-
-    if st.kind != "mamba":
-        at = ls["attn"]
-        whole_q = not axes(lspec(at, "wq"), 1)
-        shapes = {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
-                  "wo": (H * hd, D), "bq": (H * hd,), "bk": (KV * hd,),
-                  "bv": (KV * hd,)}
-        if decode:
-            dims = {"wq": (0, 1), "wk": (0, 1), "wv": (0, 1), "wo": (1,),
-                    "bq": (0,), "bk": (0,), "bv": (0,)}
-        elif seq_local or whole_q:
-            dims = {"wq": (0, 1), "wk": (0, 1), "wv": (0, 1), "wo": (0, 1),
-                    "bq": (0,), "bk": (0,), "bv": (0,)}
-        else:
-            dims = {"wq": (0,), "wk": (0, 1), "wv": (0, 1), "wo": (1,),
-                    "bq": (), "bk": (0,), "bv": (0,)}
-        for name, d in dims.items():
-            if name in at:
-                gather(lspec(at, name), shapes[name], d, times)
-        if decode:
-            if axes(lspec(at, "wo"), 0):
-                add("tp", batch * D * a)
-        elif seq_local:
-            act("sp", T_ * KV * hd * a)
-            act("sp", T_ * KV * hd * a)
-        else:
-            act("sp", x)                              # the norm's gather
-            if not whole_q:
-                act("sp", x)                          # wo's sum-scatter
-    if st.kind in ("mamba", "hybrid"):
-        mx = ls["mixer"]
-        di, R, N = cfg.d_inner, cfg.dt_rank, cfg.ssm_state
-        gather(lspec(mx, "in_proj"), (D, 2 * di), (0, 1), times)
-        gather(lspec(mx, "out_proj"), (di, D), (1,), times)
-        if st.kind == "mamba" and sp:
-            act("sp", x)                              # the norm's gather
-        if decode:
-            add("tp", batch * (R + 2 * N) * a)        # x_proj
-            add("tp", batch * D * a)                  # out_proj
-        else:
-            act("tp", T_ * (R + 2 * N) * a)           # x_proj (+ its enter)
-            act("sp", x, last=st.kind == "mamba")     # out_proj
-    if st.kind == "mamba":
-        return
-    # the FFN
-    if sp:
-        act("sp", x)                                  # ln2's gather
-    if cfg.moe_experts:
-        mo = ls["moe"]
-        E, F, k = cfg.moe_experts, cfg.moe_d_ff, cfg.moe_top_k
-        names = ("up", "down") + (("gate",) if cfg.glu else ())
-        if decode:
-            cap = max(int(T_ * k * cfg.capacity_factor / E), k)
-            add("moe", T_ * D * a)                    # the tokens
-            add("moe", T_ * k * 4)                    # the gates
-            add("moe", T_ * k * 8)                    # the experts' ids
-            add("moe", E * cap * F * a * (2 if cfg.glu else 1))
-            add("moe", T_ * D * a)                    # the output
-        else:
-            for name in names:
-                shp = (E, F, D) if name == "down" else (E, D, F)
-                gather(lspec(mo, name), shp, (1,), times, part="moe")
-            act("moe", x, last=not cfg.moe_dense_residual)
-    if not cfg.moe_experts or cfg.moe_dense_residual:
-        ml = ls["mlp"]
-        Fd = cfg.d_ff
-        for name, shp, d in (("up", (D, Fd), (0,)), ("gate", (D, Fd), (0,)),
-                             ("down", (Fd, D), (1,))):
-            if name in ml:
-                gather(lspec(ml, name), shp, d, times)
-        if axes(lspec(ml, "up"), 1):
-            if decode:
-                add("tp", batch * D * a)
-            else:
-                act("sp", x, last=True)
 
 
 def _train_flops(cfg, params, batch: int, seq: int) -> float:
@@ -3527,6 +3462,26 @@ def _train_flops(cfg, params, batch: int, seq: int) -> float:
     return flops
 
 
+def _step_dot_flops(torch, cfg, opt, params, opt_state, data) -> dict:
+    """One more train step on the card under
+    ``torch.utils.flop_counter.FlopCounterMode`` (its dot FLOPs), and
+    ``step_analysis.analyze`` of the same step on meta tensors of the same
+    shapes (its dot FLOPs and the seconds it took on the host)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import step_analysis as SA
+    from repro_torch.train.train_step import make_train_step
+    with FlopCounterMode(display=False) as fc:
+        make_train_step(cfg, opt)(params, opt_state, data, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = SA.analyze(make_train_step(cfg, opt),
+                      *_meta(torch, (params, opt_state, data)), TRAIN_STEPS)
+    return dict(dot_flops_card=fc.get_total_flops(),
+                dot_flops_meta=meta["dot_flops"],
+                hbm_traffic_bytes_meta=meta["hbm_traffic_bytes"],
+                analysis_s=time.perf_counter() - t0)
+
+
 def _train_batch(torch, cfg, batch: int, seq: int, seed: int, device):
     """``TokenStream``'s batch 0 (and the cross layers' source from the
     seed for a model that has them)."""
@@ -3548,7 +3503,10 @@ def phase_train(torch, arch: str, load) -> None:
     Gates: every loss finite, the last below the first.  Prints the step
     ms (mean of the last 6), tokens/s, the peak memory against the static
     bytes (params, grads, moments), launches a step, the idle share, and
-    the bound: the model FLOPs at the bf16 dense peak."""
+    the bound: the model FLOPs at the bf16 dense peak; and one more step's
+    dot FLOPs counted on the card (``FlopCounterMode``), gated equal to
+    the step analysis's count on meta tensors, with its share of the bf16
+    dense peak at the step time."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
     from repro_torch.train import optimizer as O
@@ -3584,6 +3542,7 @@ def phase_train(torch, arch: str, load) -> None:
         secs.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated() - live
+    counted = _step_dot_flops(torch, cfg, opt, params, opt_state, data)
     t0 = time.perf_counter()
     win = profile_window(torch, lambda: step_fn(params, opt_state, data,
                                                 TRAIN_STEPS))
@@ -3599,12 +3558,19 @@ def phase_train(torch, arch: str, load) -> None:
                bound_ms=flops / PEAK_BF16_S * 1e3,
                bound_by="operations (989 TFLOP/s bf16 dense)",
                share_of_bound=flops / PEAK_BF16_S / step_s,
+               **counted,
+               dot_flops_share_of_peak=(counted["dot_flops_card"] /
+                                        PEAK_BF16_S / step_s),
                launches_per_step=win["kernel_launches"],
                idle_share=win["idle_share"], profile=win,
                profile_s=profile_s, seconds=time.perf_counter() - start)
     emit(f"train:{arch}:{batch}x{seq}", **out)
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
             f"train {arch} {batch}x{seq}: losses {losses}")
+    require(counted["dot_flops_card"] == counted["dot_flops_meta"],
+            f"train {arch} {batch}x{seq}: dot FLOPs on the card "
+            f"{counted['dot_flops_card']}, on meta tensors "
+            f"{counted['dot_flops_meta']}")
     del params, opt_state, step_fn
     torch.cuda.empty_cache()
 
@@ -3810,6 +3776,7 @@ def main() -> int:
             ab_shard = phase_dist_fineweb(torch, group, fw_vecs, fw_cents)
             sharded = path_counts("sharded")
             phase_ab_sharded(torch, group, *ab_shard)
+            phase_dist_dryrun(torch)
         finally:
             torch.distributed.destroy_process_group()
         lm = serving_path(torch, paths)

@@ -27,13 +27,14 @@ means one process owns every shard (all of them on one card).
 - :func:`make_sharded_insert`: every shard inserts its own bucket
   (``insert_many``, or one insertion after another).
 - :func:`state_shapes`: one shard's state on the meta device.
-
-The reference's ``dryrun`` lowers and compiles both operations for a
-production mesh; eager PyTorch has nothing to lower, so it has no
-counterpart here.
+- :func:`dryrun`: both operations on a production mesh (one shard a
+  device), counted per device on meta tensors through a
+  :class:`CountingGroup`: the counterpart of the reference's ``dryrun``,
+  which lowers and compiles them.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -48,14 +49,28 @@ from repro_torch.core import pq as pq_mod
 from repro_torch.core.iomodel import IOCounters
 from repro_torch.core.layout import empty_store
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import kind_record, new_kinds
 
 INF = engine_mod.INF
+
+
+class CountingGroup:
+    """A stand-in for a process group of ``size`` ranks in a dry run: this
+    process is rank 0, and every collective (the search's pool gathers)
+    is counted in ``kinds`` (by ``launch.mesh.KINDS``: calls and result
+    bytes) and returns an empty tensor of the shape the real one gives."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.kinds = new_kinds()
 
 
 def world(group=None) -> tuple[int, int]:
     """(number of ranks, this rank) of ``group``; (1, 0) without one."""
     if group is None:
         return 1, 0
+    if isinstance(group, CountingGroup):
+        return group.size, 0
     return dist.get_world_size(group), dist.get_rank(group)
 
 
@@ -134,8 +149,12 @@ def _gather(local: torch.Tensor, group) -> torch.Tensor:
     is global shard order."""
     if group is None:
         return local
-    size = dist.get_world_size(group)
+    size = world(group)[0]
     out = local.new_empty((size * local.shape[0],) + tuple(local.shape[1:]))
+    if isinstance(group, CountingGroup):
+        group.kinds["all-gather"]["calls"] += 1
+        group.kinds["all-gather"]["bytes"] += out.numel() * out.element_size()
+        return out
     dist.all_gather_into_tensor(out, local.contiguous(), group=group)
     return out
 
@@ -184,25 +203,37 @@ class ShardedSearch:
                 f"shard's")
         qs = queries.to(self.engine.device, torch.float32)
         t0 = time.perf_counter()
-        ids_l, d_l, out = [], [], []
-        for j, st in enumerate(states):
+        pools, out = [], []
+        for st in states:
             ids, dists, _, st = self.search(st, qs)
+            pools.append((ids, dists))
+            out.append(st)
+        engine_mod._sync(qs)
+        self.last_timing = {"search_s": time.perf_counter() - t0}
+        ids, dists = self.merge(pools, first)
+        return ids, dists, out
+
+    def merge(self, pools: list, first: int):
+        """The owned shards' pools ``[(ids [Q, k], dists [Q, k])]``, the
+        first being shard ``first``'s: ids made global, gathered across
+        the group and merged (:func:`merge_topk`)."""
+        ids_l, d_l = [], []
+        for j, (ids, dists) in enumerate(pools):
             ids_l.append(torch.where(ids >= 0, ids + (first + j) * self.n_per,
                                      -1))
             d_l.append(torch.where(ids >= 0, dists, INF))
-            out.append(st)
         local_i, local_d = torch.stack(ids_l), torch.stack(d_l)
-        engine_mod._sync(qs)
+        engine_mod._sync(local_d)
         t1 = time.perf_counter()
         all_i, all_d = _gather(local_i, self.group), _gather(local_d,
                                                              self.group)
-        engine_mod._sync(qs)
+        engine_mod._sync(local_d)
         t2 = time.perf_counter()
         ids, dists = merge_topk(all_i, all_d, self.engine.spec.k)
-        engine_mod._sync(qs)
-        self.last_timing = {"search_s": t1 - t0, "gather_s": t2 - t1,
-                            "merge_s": time.perf_counter() - t2}
-        return ids, dists, out
+        engine_mod._sync(local_d)
+        self.last_timing.update(gather_s=t2 - t1,
+                                merge_s=time.perf_counter() - t2)
+        return ids, dists
 
 
 def make_sharded_search(engine: engine_mod.Engine, n_per: int, group=None,
@@ -310,3 +341,55 @@ def state_shapes(engine: engine_mod.Engine, n_shards_: int, n_per: int
         young_mask=zeros((n_per,), torch.bool),
         ctr_maint=IOCounters.zeros((), meta))
     return [state] * n_shards_
+
+
+def _tree_bytes(obj) -> int:
+    """The bytes of every tensor of a state (dataclasses of tensors and
+    host ints)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(_tree_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+def dryrun(engine: engine_mod.Engine, mesh, *, n_per: int = 65_536,
+           n_queries: int = 64, bucket: int = 8) -> dict:
+    """The sharded search and insert on ``mesh`` (a ``launch.mesh.Mesh``,
+    the virtual production mesh among them: one shard a device), per
+    device, on meta tensors: the counterpart of the reference's
+    ``dryrun``, which lowers and compiles both on the mesh.
+
+    For each op (``"search"``, ``"insert"``): ``devices``; ``state_bytes``,
+    a shard's state (:func:`state_shapes`); ``input_bytes``, what the op
+    takes on a device (the query wave; the routed bucket and its mask);
+    and ``collectives`` (``{"bytes_by_kind", "op_counts"}`` by the
+    reference's kinds) from a :class:`CountingGroup` of the mesh's size:
+    the search gathers every shard's ``[Q, k]`` pools, ids and distances
+    (:meth:`ShardedSearch.merge` on the pools' shapes), the insert none.
+    ``left_out`` names what no meta run counts: a shard's own search or
+    insert, whose traversal runs hop by hop while any lane is still
+    active (``core/search.py``), so its FLOPs and bytes depend on the
+    data and are not written."""
+    S = mesh.size
+    spec = engine.spec
+    state_bytes = _tree_bytes(state_shapes(engine, 1, n_per)[0])
+    meta = torch.device("meta")
+    group = CountingGroup(S)
+    search = ShardedSearch(engine, n_per, group)
+    pool = (torch.empty((n_queries, spec.k), dtype=torch.int32, device=meta),
+            torch.empty((n_queries, spec.k), dtype=torch.float32,
+                        device=meta))
+    search.merge([pool], 0)
+    left_out = ("the shard's own traversal: its hops run while any lane "
+                "is active (core/search.py), a loop on the data that no "
+                "meta run counts, so its FLOPs and bytes are not written")
+    f32 = torch.finfo(torch.float32).bits // 8
+
+    def record(kinds, input_bytes):
+        return {"devices": S, "state_bytes": state_bytes,
+                "input_bytes": input_bytes,
+                "collectives": kind_record(kinds), "left_out": left_out}
+    return {"search": record(group.kinds, n_queries * spec.dim * f32),
+            "insert": record(new_kinds(), bucket * spec.dim * f32 + bucket)}

@@ -15,7 +15,12 @@ axis of size 1 still goes through its (one-rank) group.
 
 ``make_production_mesh`` is a *virtual* mesh: the 16 x 16 or 2 x 16 x 16
 shape the dry-run reads, with no process group; a collective on it
-raises.
+raises.  A *counting* virtual mesh (``counting=True``) runs the program
+of rank 0 instead: every ``axis_index`` is 0, so every ceiling block is
+rank 0's, and each collective is counted as a real one would be and
+returns a tensor of the shape the real one gives (on meta tensors, where
+``launch.step_analysis`` runs a step).  Its counts are one device's, as
+the reference's partitioned HLO is the one program every device runs.
 
 Placement (``shard_tree`` with ``transformer.param_specs``, defined in
 ``models/layers.py`` and reached here): a rank holds its batch rows
@@ -40,7 +45,9 @@ the mixer's channel blocks) sums the ranks' partial cotangents.
 ``all_reduce`` itself writes in place and is not differentiable.
 
 Every collective names its ``part`` (a required keyword), and ``Mesh.parts`` counts calls and
-bytes by part (a backward's under its forward's part): ``fsdp`` (leaves
+bytes by part (a backward's under its forward's part), ``Mesh.kinds`` by
+the reference HLO's kind (``KINDS``: a gather is an ``all-gather``, a
+sum-scatter a ``reduce-scatter``, a sum an ``all-reduce``): ``fsdp`` (leaves
 gathered over ``rules.fsdp``), ``tp`` (leaves gathered over
 ``rules.tensor``, and the decode's row-parallel sums), ``sp`` (the
 residual's sequence gathers and sum-scatters over ``rules.act_seq``),
@@ -60,6 +67,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from repro_torch import trips
 from repro_torch.models.layers import P, ShardingRules
 # the placement helpers live beside P (checkpoint/ and train/ use them
 # too); the mesh's users reach them here
@@ -68,6 +76,23 @@ from repro_torch.models.layers import shard_tree  # noqa: F401
 STATS = ("calls", "bytes", "backward_calls", "backward_bytes")
 PARTS = ("fsdp", "tp", "sp", "vocab", "decode_seq", "moe", "loss", "grad",
          "opt")
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+def new_kinds() -> dict:
+    """Zero counts by kind, ``{kind: {"calls", "bytes"}}``."""
+    return {k: {"calls": 0, "bytes": 0} for k in KINDS}
+
+
+def kind_record(kinds: dict) -> dict:
+    """Counts by kind as the reference's ``parse_collectives`` returns
+    them: ``{"bytes_by_kind": {kind: bytes, "total"}, "op_counts":
+    {kind: calls}}``."""
+    by_kind = {k: kinds[k]["bytes"] for k in KINDS}
+    by_kind["total"] = sum(by_kind.values())
+    return {"bytes_by_kind": by_kind,
+            "op_counts": {k: kinds[k]["calls"] for k in KINDS}}
 
 
 class Mesh:
@@ -75,22 +100,31 @@ class Mesh:
     over none).
 
     ``shape``: the axis sizes in order, as ``jax``'s ``mesh.shape`` reads;
-    ``coords``: this rank's coordinate on each axis (None when virtual).
-    ``stats`` counts the collectives this rank issued (``calls``) and the
-    bytes it handed them (``bytes``: each call's input); those issued by
-    a backward are counted there too, and apart in ``backward_calls`` and
-    ``backward_bytes``; ``parts`` counts both by the collective's part
-    (``PARTS``), ``{part: {"calls", "bytes"}}``.  ``reset_stats`` zeroes
-    both."""
+    ``coords``: this rank's coordinate on each axis (None when virtual;
+    all 0 when ``counting``).  ``stats`` counts the collectives this rank
+    issued (``calls``) and the bytes it handed them (``bytes``: each
+    call's input); those issued by a backward are counted there too, and
+    apart in ``backward_calls`` and ``backward_bytes``; ``parts`` counts
+    both by the collective's part (``PARTS``), ``{part: {"calls",
+    "bytes"}}``; ``kinds`` counts calls and the bytes of their results
+    (twice that for an all-reduce, which moves about twice its payload
+    on a ring) by kind (``KINDS``), as the reference's HLO analysis
+    reads them.  A counting mesh scales every count by
+    ``trips.multiplier()``.  ``reset_stats`` zeroes them all.  ``trace``,
+    where set, is called with (kind, part, result bytes) of every
+    collective counted."""
 
     def __init__(self, shape: dict[str, int], *, group=None,
-                 virtual: bool = False):
+                 virtual: bool = False, counting: bool = False):
+        if counting and not virtual:
+            raise ValueError("a counting mesh is virtual")
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
-        self.stats = dict.fromkeys(STATS, 0)
-        self.parts = {}
-        self.coords = None
+        self.counting = counting
+        self.trace = None
+        self.reset_stats()
+        self.coords = dict.fromkeys(self.axis_names, 0) if counting else None
         self._groups = None
         if virtual:
             return
@@ -121,7 +155,8 @@ class Mesh:
                                            for i in sub)] = g
 
     def __repr__(self) -> str:
-        kind = "virtual " if self.coords is None else ""
+        kind = ("counting " if self.counting else
+                "virtual " if self.coords is None else "")
         return f"{kind}Mesh({self.shape})"
 
     def _axes(self, axes, any_order: bool = False) -> tuple[str, ...]:
@@ -147,7 +182,8 @@ class Mesh:
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate on ``axis`` (``lax.axis_index``)."""
         (axis,) = self._axes(axis)
-        self._group((axis,))
+        if not self.counting:
+            self._group((axis,))
         return self.coords[axis]
 
     def flat_index(self, axes) -> int:
@@ -158,8 +194,9 @@ class Mesh:
         return flat
 
     def reset_stats(self) -> None:
-        self.stats.update(dict.fromkeys(STATS, 0))
+        self.stats = dict.fromkeys(STATS, 0)
         self.parts = {}
+        self.kinds = new_kinds()
 
     def group_size(self, axes) -> int:
         """The number of ranks over ``axes`` (a name, a tuple; None entries
@@ -167,28 +204,38 @@ class Mesh:
         return math.prod(self.shape[a]
                          for a in self._axes(axes, any_order=True))
 
-    def _count(self, x: torch.Tensor, part: str,
+    def _count(self, x: torch.Tensor, part: str, kind: str, out_numel: int,
                backward: bool = False) -> None:
+        """One collective handed ``x`` whose result has ``out_numel``
+        elements."""
         if part not in PARTS:
             raise ValueError(f"unknown collective part {part!r}")
+        times = trips.multiplier() if self.counting else 1
         n = x.numel() * x.element_size()
-        self.stats["calls"] += 1
-        self.stats["bytes"] += n
+        wire = out_numel * x.element_size() * (2 if kind == "all-reduce"
+                                               else 1)
+        self.stats["calls"] += times
+        self.stats["bytes"] += n * times
         if backward:
-            self.stats["backward_calls"] += 1
-            self.stats["backward_bytes"] += n
+            self.stats["backward_calls"] += times
+            self.stats["backward_bytes"] += n * times
         by = self.parts.setdefault(part, {"calls": 0, "bytes": 0})
-        by["calls"] += 1
-        by["bytes"] += n
+        by["calls"] += times
+        by["bytes"] += n * times
+        self.kinds[kind]["calls"] += times
+        self.kinds[kind]["bytes"] += wire * times
+        if self.trace is not None:
+            self.trace(kind, part, wire * times)
 
     def _gather(self, x, axes, dim: int, part: str,
                 backward: bool = False) -> torch.Tensor:
-        group = self._group(axes)
+        group = None if self.counting else self._group(axes)
         n = math.prod(self.shape[a] for a in axes)
         x = x.contiguous()
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        self._count(x, part, backward)
-        dist.all_gather_into_tensor(out, x, group=group)
+        self._count(x, part, "all-gather", out.numel(), backward)
+        if group is not None:
+            dist.all_gather_into_tensor(out, x, group=group)
         if dim == 0:
             return out
         out = out.view((n,) + tuple(x.shape)).movedim(0, dim)
@@ -200,7 +247,7 @@ class Mesh:
         """The transpose of ``_gather``: ``g`` cut along ``dim`` into the
         group's blocks in group order, each block summed over the group;
         this rank's block."""
-        group = self._group(axes)
+        group = None if self.counting else self._group(axes)
         n = math.prod(self.shape[a] for a in axes)
         if g.shape[dim] % n:
             raise ValueError(f"a sum-scatter of dim {dim} of {g.shape[dim]} "
@@ -208,15 +255,18 @@ class Mesh:
         g = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
         g = g.contiguous()
         out = g.new_empty(g.shape[1:])
-        self._count(g, part, backward)
-        dist.reduce_scatter_tensor(
-            out, g.reshape((-1,) + tuple(g.shape[2:])), group=group)
+        self._count(g, part, "reduce-scatter", out.numel(), backward)
+        if group is not None:
+            dist.reduce_scatter_tensor(
+                out, g.reshape((-1,) + tuple(g.shape[2:])), group=group)
         return out
 
     def _sum(self, x, axes, part: str,
              backward: bool = False) -> torch.Tensor:
-        self._count(x, part, backward)
-        dist.all_reduce(x, group=self._group(axes))
+        group = None if self.counting else self._group(axes)
+        self._count(x, part, "all-reduce", x.numel(), backward)
+        if group is not None:
+            dist.all_reduce(x, group=group)
         return x
 
     def all_gather(self, x: torch.Tensor, axes, dim: int = 0, *,

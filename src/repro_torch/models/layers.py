@@ -39,9 +39,11 @@ prefill) the residual holds this rank's block of the sequence: a norm's
 output is gathered along it before a tensor-parallel product and the
 row-parallel sums become sum-scatters along it; with
 ``seq_parallel_attn`` the queries stay sequence-split and only K and V
-are gathered.  In decode the KV caches hold this rank's block of
-positions over ``rules.seq`` and the attention combines the blocks'
-partial maxima, sums and PV products.  Where a split's group has one
+are gathered.  A sequence that does not split evenly (whisper's 1,500
+frames over 16 ranks) is held in ceiling blocks, padded for the gathers
+and sum-scatters (``OnMesh.seq``).  In decode the KV caches hold this
+rank's block of positions over ``rules.seq`` and the attention combines
+the blocks' partial maxima, sums and PV products.  Where a split's group has one
 rank the arithmetic is that of no mesh (its collectives pass through a
 one-rank group), so a 1 x 1 mesh is bit-equal to no mesh.
 """
@@ -56,6 +58,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
 
+from repro_torch import trips
 from repro_torch.tree import tree_map
 
 NEG = -1e30
@@ -166,9 +169,14 @@ class OnMesh:
     """A layer's mesh (a ``launch.mesh.Mesh``) and rules.  Sequence
     parallelism (``rules.act_seq``) splits the sequence over the tensor
     axis itself (``make_rules``'s), so that a tensor-parallel product's
-    partials are summed and cut along the sequence in one collective."""
+    partials are summed and cut along the sequence in one collective.
+    ``seq``: the residual's whole sequence length, where it may not
+    split evenly (whisper's 1,500 frames over 16 ranks): the residual is
+    then held in ``shard_tree``'s ceiling blocks (the last shorter), as
+    XLA pads an uneven split; None, it splits evenly."""
     mesh: Any
     rules: ShardingRules
+    seq: int | None = None
 
     def __post_init__(self):
         act, t = self.rules.act_seq, self.rules.tensor
@@ -254,11 +262,13 @@ def local_block(on: OnMesh, w: torch.Tensor, spec, dim: int, size: int,
 
 def seq_gather(on: OnMesh, x: torch.Tensor) -> torch.Tensor:
     """The residual layout's value made whole along the sequence (dim 1):
-    gathered over ``act_seq`` under sequence parallelism (``sp``), else as
-    it is."""
+    gathered over ``act_seq`` under sequence parallelism (``sp``; ceiling
+    blocks padded, see ``OnMesh.seq``), else as it is."""
     if not on.sp:
         return x
-    return on.mesh.all_gather(x, on.rules.act_seq, 1, part="sp")
+    axes = on.rules.act_seq
+    return gather_padded(on.mesh, x, axes, 1,
+                         on.seq or x.shape[1] * on.n(axes), part="sp")
 
 
 def seq_own(on: OnMesh, y: torch.Tensor) -> torch.Tensor:
@@ -266,19 +276,26 @@ def seq_own(on: OnMesh, y: torch.Tensor) -> torch.Tensor:
     to the residual layout (this rank's block under ``sp``)."""
     if not on.sp:
         return y
-    start, length = on.seq_span(y.shape[1])
-    return y.narrow(1, start, length)
+    return y.narrow(1, *on.span(y.shape[1], on.rules.act_seq))
 
 
 def reduce_out(on: OnMesh, y: torch.Tensor, part: str = "sp"
                ) -> torch.Tensor:
     """A row-parallel product's partials over the tensor axis, summed into
     the residual layout: sum-scattered along the sequence under ``sp``
-    (``part``), else summed (``tp``)."""
-    if on.sp:
-        return on.mesh.sum_scatter(y, on.rules.act_seq, 1, part=part)
-    return on.mesh.sum_partials(y, on.rules.tensor,
-                                part="tp" if part == "sp" else part)
+    (``part``; a sequence that does not split evenly padded to the
+    ceiling blocks first and this rank's block cut after), else summed
+    (``tp``)."""
+    if not on.sp:
+        return on.mesh.sum_partials(y, on.rules.tensor,
+                                    part="tp" if part == "sp" else part)
+    axes = on.rules.act_seq
+    S, n = y.shape[1], on.n(axes)
+    if S % n == 0:
+        return on.mesh.sum_scatter(y, axes, 1, part=part)
+    y = F.pad(y, (0, 0, 0, -(-S // n) * n - S))
+    return on.mesh.sum_scatter(y, axes, 1, part=part).narrow(
+        1, 0, on.span(S, axes)[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -967,15 +984,15 @@ def _scan_forward(xc, dt, Bc, Cc, A_log, chunk: int, starts=None):
     A = -torch.exp(A_log.to(ct))                             # [di, N]
     h = torch.zeros((B, di, A.shape[1]), dtype=ct, device=xc.device)
     ys = []
-    for c0 in range(0, S, chunk):
+    for c0, n in trips.each(range(0, S, chunk), lambda c0: min(chunk, S - c0)):
         sl = slice(c0, c0 + chunk)
         if starts is not None:
-            starts.append(h.clone())
+            starts += [h.clone()] * n
         dA, hs = _chunk_terms(xc, dt, Bc, A, sl, ct)         # dt x B, then h
-        for t in range(hs.shape[1]):
+        for t, _ in trips.each(range(hs.shape[1])):
             h = hs[:, t].addcmul_(dA[:, t], h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs,
-                               Cc[:, sl].to(ct)).to(xc.dtype))
+        ys += [torch.einsum("bcdn,bcn->bcd", hs,
+                            Cc[:, sl].to(ct)).to(xc.dtype)] * n
     return torch.cat(ys, dim=1), h.contiguous()
 
 
@@ -1006,17 +1023,19 @@ class _SelectiveScan(torch.autograd.Function):
         gxc, gdt, gB, gC = (torch.empty_like(t) for t in (xc, dt, Bc, Cc))
         gA = torch.zeros_like(A)
         carry = gh.to(ct)                       # dL/dh of the chunk's end
-        for k in reversed(range(len(starts))):
+        S = xc.shape[1]
+        for k, _ in trips.each(reversed(range(len(starts))),
+                               lambda k: min(chunk, S - k * chunk)):
             sl = slice(k * chunk, (k + 1) * chunk)
             dA, hs = _chunk_terms(xc, dt, Bc, A, sl, ct)
             h = starts[k]
-            for t in range(hs.shape[1]):
+            for t, _ in trips.each(range(hs.shape[1])):
                 h = hs[:, t].addcmul_(dA[:, t], h)
             Cb, gyb = Cc[:, sl].to(ct), gy[:, sl].to(ct)
             gC[:, sl] = torch.einsum("bcd,bcdn->bcn", gyb, hs)
             g = gyb[..., None] * Cb[:, :, None, :]               # dy/dh
             g[:, -1] += carry
-            for t in range(g.shape[1] - 2, -1, -1):
+            for t, _ in trips.each(range(g.shape[1] - 2, -1, -1)):
                 g[:, t].addcmul_(dA[:, t + 1], g[:, t + 1])
             carry = dA[:, 0] * g[:, 0]
             h_prev = torch.cat([starts[k][:, None], hs[:, :-1]], dim=1)
@@ -1197,7 +1216,7 @@ def attention_mesh(params: dict, specs: dict, h: torch.Tensor, on: OnMesh,
                      q_whole=heads is None, o_whole=heads is None)
     s0 = 0
     if seq_local:
-        s0 = on.seq_span(S * on.n(on.rules.act_seq))[0]
+        s0 = on.span(positions.shape[0], on.rules.act_seq)[0]
         positions = positions[s0:s0 + S]
     q, k, v = _qkv(w, h, n_heads=heads[1] if heads else n_heads, n_kv=n_kv,
                    head_dim=head_dim, qkv_bias=qkv_bias)
@@ -1205,8 +1224,7 @@ def attention_mesh(params: dict, specs: dict, h: torch.Tensor, on: OnMesh,
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
     if seq_local:
-        k = on.mesh.all_gather(k, on.rules.act_seq, 1, part="sp")
-        v = on.mesh.all_gather(v, on.rules.act_seq, 1, part="sp")
+        k, v = seq_gather(on, k), seq_gather(on, v)
     kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
     if heads:
         kf, vf = kf.narrow(2, *heads), vf.narrow(2, *heads)

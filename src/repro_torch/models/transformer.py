@@ -51,6 +51,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
 from torch import nn
 
+from repro_torch import trips
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import NO_SHARD, P, ShardingRules
@@ -506,14 +507,23 @@ def _layers(patterns):
 
 def _unstack(stage: dict, repeats: int, count: int) -> list:
     """Every layer ``[r][c]`` of a stacked stage tree, from one
-    ``torch.unbind`` over each stack axis of each leaf (views).  Under
-    autograd the unbind's backward stacks the layers' gradients in one op,
-    where indexing each layer would add a zero tensor the size of the
-    whole stack per layer."""
-    flat = {k: _unstack(v, repeats, count) if isinstance(v, dict) else
-            [t.unbind(0) for t in v.unbind(0)] for k, v in stage.items()}
-    return [[{k: v[r][c] for k, v in flat.items()} for c in range(count)]
-            for r in range(repeats)]
+    ``torch.unbind`` of each leaf over its two stack dims flattened
+    (views).  Under autograd the unbind's backward stacks the layers'
+    gradients in one op, where indexing each layer would add a zero tensor
+    the size of the whole stack per layer."""
+    flat = _flat_layers(stage, repeats * count)
+    return [flat[r * count:(r + 1) * count] for r in range(repeats)]
+
+
+def _flat_layers(stage: dict, n: int) -> list:
+    cols = {k: _flat_layers(v, n) if isinstance(v, dict) else
+            v.flatten(0, 1).unbind(0) for k, v in stage.items()}
+    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
+
+
+def _stage_key(layer) -> tuple:
+    """The layers of one stage do alike (``trips.each``)."""
+    return layer[1:3]
 
 
 def _run_patterns(cfg: ModelConfig, patterns, blocks, x: torch.Tensor, *,
@@ -531,12 +541,18 @@ def _run_patterns(cfg: ModelConfig, patterns, blocks, x: torch.Tensor, *,
               for pi, pat in enumerate(patterns)]
     fn, kw = _layer_fwd, {}
     if mesh is not None:
-        fn, kw = _layer_mesh, dict(on=L.OnMesh(mesh, rules),
+        fn, kw = _layer_mesh, dict(on=L.OnMesh(mesh, rules,
+                                               seq=positions.shape[0]),
                                    threshold=L.CHUNK_THRESHOLD)
-    for spec, pi, j, r, c in _layers(patterns):
+    # a source with a gradient gathers one from every layer: those layers
+    # are not alike for a step analysis (the sums of their parts)
+    alike = cross_src is None or not cross_src.requires_grad
+    for (spec, pi, j, r, c), n in trips.each(
+            _layers(patterns), _stage_key if alike else lambda layer: layer):
         args = (cfg, spec, layers[pi][j][r][c])
         if mesh is not None:
             args += (_layer_specs(specs[pi][j]),)
+        x = trips.enter(x, n)
         if remat:
             x = ckpt.checkpoint(fn, *args, x, positions=positions,
                                 cross_src=cross_src, **kw,
@@ -544,6 +560,7 @@ def _run_patterns(cfg: ModelConfig, patterns, blocks, x: torch.Tensor, *,
                                 preserve_rng_state=False)
         else:
             x = fn(*args, x, positions=positions, cross_src=cross_src, **kw)
+        x = trips.leave(x, n)
     return x
 
 
@@ -565,7 +582,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
                       rules=rules, mesh=mesh, specs=specs)
     x = _norm(enc["final_norm"], x, cfg)
     if mesh is not None:         # the decoder's cross layers read it whole
-        x = L.seq_gather(L.OnMesh(mesh, rules), x)
+        x = L.seq_gather(L.OnMesh(mesh, rules, seq=S), x)
     return x
 
 
@@ -877,7 +894,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list,
         x = x + params["pos_embed"][min(pos, cfg.max_position - 1)]
     blocks = params["blocks"]
     specs = None if on is None else param_specs(cfg)["blocks"]
-    for spec, pi, j, r, c in _layers(cfg.patterns):
+    for (spec, pi, j, r, c), _ in trips.each(_layers(cfg.patterns),
+                                             _stage_key):
         lp = _layer(blocks[pi][j], r, c)
         lc = {k: v[r, c] for k, v in cache[pi][j].items()}
         x = _layer_decode(cfg, spec, lp, lc, x, pos=pos, on=on,
@@ -998,7 +1016,8 @@ def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     cache: list = [[{} for _ in pat.stages] for pat in cfg.patterns]
     blocks = params["blocks"]
     specs = None if on is None else param_specs(cfg)["blocks"]
-    for spec, pi, j, r, c in _layers(cfg.patterns):
+    for (spec, pi, j, r, c), _ in trips.each(_layers(cfg.patterns),
+                                             _stage_key):
         lp = _layer(blocks[pi][j], r, c)
         if on is None:
             x, leaves = _layer_prefill(cfg, spec, lp, x, positions=positions,

@@ -32,6 +32,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import trips
 from repro_torch.models.layers import P, is_spec
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -105,10 +106,11 @@ def _mean(placement, x, i: int, dim: int) -> torch.Tensor:
     return x if placement is None else placement.mean(x, i, dim)
 
 
-def _slices(shape) -> list[tuple]:
+def _slices(shape):
     """The stack slices of a leaf: every index over all but its last two
-    dims (one slice, the whole leaf, for a leaf of two dims or fewer)."""
-    return list(itertools.product(*map(range, shape[:-2])))
+    dims (one slice, the whole leaf, for a leaf of two dims or fewer),
+    each with its count (``trips.each``: the slices do alike)."""
+    return trips.each(itertools.product(*map(range, shape[:-2])))
 
 
 def _as_f32(step) -> torch.Tensor:
@@ -211,7 +213,7 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
         leaves = zip(g_leaves, tree_leaves(state["m"]),
                      tree_leaves(state["v"]), tree_leaves(params))
         for i, (g, m, v, p) in enumerate(leaves):
-            for idx in _slices(g.shape):
+            for idx, _ in _slices(g.shape):
                 gs = g[idx].detach()
                 if scale is not None:
                     gs = gs * scale.to(gs.dtype)
@@ -274,12 +276,12 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
                 vc[..., None, :]
         return st["v"][idx]
 
-    def _factors(g, st, i, slices, beta, placement):
+    def _factors(g, st, i, beta, placement):
         """The new row and column factors of leaf ``i`` (their means over
         the whole leaf's dims), and the mean of the new row factor."""
         row = torch.empty_like(st["vr"])
         col = torch.empty_like(st["vc"])
-        for idx in slices:
+        for idx, _ in _slices(g.shape):
             g32 = g[idx].detach().to(f32)
             # two square+reduce expressions, as the reference's
             row[idx] = torch.mean(torch.square(g32), dim=-1)
@@ -300,12 +302,11 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
         sq_sums = []
         vr_means = []
         for i, (g, st) in enumerate(zip(g_leaves, state["f"])):
-            slices = _slices(g.shape)
             vr_mean = None
             if "vr" in st:
-                vr_mean = _factors(g, st, i, slices, beta, placement)
+                vr_mean = _factors(g, st, i, beta, placement)
             sq_sum = torch.zeros((), dtype=f32, device=g.device)
-            for idx in slices:
+            for idx, _ in _slices(g.shape):
                 g32 = g[idx].detach().to(f32)
                 if "v" in st:
                     st["v"][idx] = beta * st["v"][idx] + \
@@ -321,7 +322,7 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
             n = g.numel() * (1 if placement is None else placement.ranks(i))
             rms = torch.sqrt(sq_sums[i] / n + 1e-30)
             div = torch.clamp(rms / clip_threshold, min=1.0)
-            for idx in _slices(g.shape):
+            for idx, _ in _slices(g.shape):
                 u = g[idx].detach().to(f32) * torch.rsqrt(
                     _denom(st, idx, vr_means[i]) + eps)
                 sink(i, idx, neg_lr * (u / div))

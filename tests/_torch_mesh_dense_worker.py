@@ -10,8 +10,12 @@ parallel attention and with it flipped, and over one row (decode's
 sequence over every axis), and where the twin has them (gemma3) over
 prompts that outrun its window, both ways of rows; takes the loss and
 its gradient blocks, both
-ways again; runs two train steps; and counts its parameter and optimizer
-state bytes.  It writes its results next to the job.
+ways again; runs two train steps; counts its parameter and optimizer
+state bytes; counts the collectives of a prefill, a decode step and a
+train step (calls and bytes in all, by part and by kind); and, for the
+twin given ``uneven_frames``, takes the loss and gradients with a cross
+source of that many frames, which need not split over the tensor axis.
+It writes its results next to the job.
 """
 import dataclasses
 import pickle
@@ -124,6 +128,58 @@ def _steps(mesh, arch_id, cfg, t) -> dict:
     return {"losses": losses, "params": _np(params), "state": _np(state)}
 
 
+def _counts(mesh) -> dict:
+    return dict(mesh.stats, parts={k: dict(v) for k, v in mesh.parts.items()},
+                kinds={k: dict(v) for k, v in mesh.kinds.items()})
+
+
+def _step_counts(mesh, arch_id, cfg, params, t) -> dict:
+    """The collectives this rank counts for one prefill (of the twin's
+    four prompts), one decode step after it and one train step."""
+    tokens, nxt = t["tokens"], t["next"]
+    B, S = tokens.shape
+    rp = M.make_rules(mesh, kind="prefill", global_batch=B, cfg=cfg)
+    rd = M.make_rules(mesh, kind="decode", global_batch=B, cfg=cfg)
+    data = {"tokens": tokens, "next": nxt}
+    if "cross" in t:
+        data["cross"] = t["cross"]
+    data = _rows(mesh, rp, data)
+    out = {}
+    mesh.reset_stats()
+    _, cache = make_prefill_step(cfg, rules=rp, mesh=mesh,
+                                 max_seq=S + nxt.shape[1])(
+        params, data["tokens"], data.get("cross"))
+    out["prefill"] = _counts(mesh)
+    mesh.reset_stats()
+    make_decode_step(cfg, rules=rd, mesh=mesh)(params, cache,
+                                               data["next"][:, :1], S)
+    out["decode"] = _counts(mesh)
+    rules = _train_rules(mesh, cfg, t["train_tokens"].shape[0])
+    held = M.shard_tree(interop.params_from(t["params"], "cpu"),
+                        T.param_specs(cfg), mesh)
+    opt = optimizer(arch_id)
+    step = make_train_step(cfg, opt, rules=rules, mesh=mesh)
+    state = init_opt_state(cfg, opt, held)
+    batch = _batch(mesh, rules, t)
+    mesh.reset_stats()
+    step(held, state, batch, 0)
+    out["train"] = _counts(mesh)
+    return out
+
+
+def _uneven(mesh, cfg, t, frames: int) -> dict:
+    """The loss and this rank's gradient blocks with the cross source cut
+    to ``frames`` frames, which need not split over the tensor axis: the
+    encoder's residual in ceiling blocks."""
+    rules = _train_rules(mesh, cfg, t["train_tokens"].shape[0])
+    params = M.shard_tree(interop.params_from(t["params"], "cpu"),
+                          T.param_specs(cfg), mesh)
+    batch = _rows(mesh, rules, {"tokens": t["train_tokens"],
+                                "cross_src": t["train_cross"][:, :frames]})
+    loss, grads = make_grad_fn(cfg, rules=rules, mesh=mesh)(params, batch)
+    return {"loss": float(loss), "grads": _np(grads)}
+
+
 def _bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
@@ -159,7 +215,10 @@ def _twin(mesh, arch_id, t) -> dict:
            "steps": _steps(mesh, arch_id, cfg, t),
            "memory": _memory(mesh, arch_id, cfg, params),
            "sp_attn": M.make_rules(mesh, kind="prefill", global_batch=4,
-                                   cfg=cfg).seq_parallel_attn}
+                                   cfg=cfg).seq_parallel_attn,
+           "counts": _step_counts(mesh, arch_id, cfg, params, t)}
+    if "uneven_frames" in t:
+        out["uneven"] = _uneven(mesh, cfg, t, t["uneven_frames"])
     if "wrap_tokens" in t:
         out["serve_wrap"] = _serve(mesh, cfg, params, t, 4, False, "wrap_")
         out["serve_wrap_one"] = _serve(mesh, cfg, params, t, 1, False,

@@ -11,9 +11,17 @@ reference's per-shard ``search_many`` / ``search_batch`` /
 (``distributed.py:120-137``).  Ids, counters and every state field are
 exact, distances within 1e-3.  Then the merge's tie order against
 ``lax.top_k``, the global-id collision past ``n_per``, two gloo ranks
-against one process, and ``state_shapes`` on the meta device.
+against one process, ``state_shapes`` on the meta device, and
+``dryrun``'s collectives against those of the reference's compiled
+sharded search and insert on 4 fake devices.
 """
+import json
 import multiprocessing as mp
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,10 +40,12 @@ from repro_torch.core import Engine as TEngine
 from repro_torch.core import brute_force_topk, check_invariants, recall_at_k
 from repro_torch.core import distributed as tdist
 from repro_torch.core.layout import page_budget
+from repro_torch.launch import mesh as PM
 from test_torch_engine import _same, _same_dicts, _same_tree
 import _torch_dist_worker
 from _torch_threads import one_torch_thread  # noqa: F401
 
+ROOT = Path(__file__).resolve().parents[1]
 N, D, S, PER = 512, 32, 4, 128
 N_MAX = PER + 16            # the reference test's headroom for inserts
 INF = np.float32(3.4e38)
@@ -471,3 +481,67 @@ def test_state_shapes_match_reference(dim, r, pq_m, n_shards, n_per):
             assert w.dtype in (jnp.int32, jnp.int64, jnp.uint32), path
         else:
             assert str(v.dtype).split(".")[1] == str(w.dtype), path
+
+
+# ---------------------------------------------------------------------------
+# the dry-run on a production-like mesh
+# ---------------------------------------------------------------------------
+
+_DRYRUN_SCRIPT = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import json
+    import jax
+    from repro.core import Engine, pq, preset
+    from repro.core import distributed as dist
+    from repro.launch.dryrun import parse_collectives
+    from repro.launch.mesh import make_mesh
+
+    kw, n_per, n_queries, bucket = json.loads(sys.argv[1])
+    eng = Engine(preset("navis", **kw))
+    key = jax.random.PRNGKey(0)
+    eng.codec = pq.train_pq(key, jax.random.normal(key, (256, kw["dim"])),
+                            kw["pq_m"])
+    eng._sym = pq.sym_tables(eng.codec)
+    out = dist.dryrun(eng, make_mesh((2, 2), ("data", "model")),
+                      n_per=n_per, n_queries=n_queries, bucket=bucket)
+    print(json.dumps({op: parse_collectives(c.as_text())
+                      for op, (_, c) in out.items()}))
+""")
+
+
+def test_dryrun_collectives_match_reference():
+    """``dryrun`` on 4 devices (2 x 2): the search's pool gathers (ids and
+    distances of every shard's [Q, k] pools) equal, by kind in calls and
+    bytes, the collectives the reference's compiled search holds
+    (``parse_collectives``, in a subprocess with 4 fake devices); the
+    insert has none in either.  Its state bytes are ``state_shapes``'s,
+    its input bytes the wave's and the routed bucket's."""
+    kw = dict(dim=D, r=12, n_max=N_MAX, e_search=32, e_pos=40, pq_m=16,
+              cache_capacity_pages=64, max_hops=48, buffer_max=32,
+              ent_frac=0.10)
+    n_queries, bucket = 16, 4
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_SCRIPT,
+         json.dumps([kw, PER, n_queries, bucket])], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    want = json.loads(proc.stdout.strip().splitlines()[-1])
+    eng = TEngine(interop.spec_from(jpreset("navis", **kw)), "cpu")
+    got = tdist.dryrun(eng, PM.Mesh({"data": 2, "model": 2}, virtual=True),
+                       n_per=PER, n_queries=n_queries, bucket=bucket)
+    k = eng.spec.k
+    assert got["search"]["collectives"] == want["search"]
+    assert want["search"]["bytes_by_kind"]["all-gather"] == \
+        4 * n_queries * k * (4 + 4)
+    assert got["insert"]["collectives"] == want["insert"]
+    assert want["insert"]["bytes_by_kind"]["total"] == 0
+    state = tdist.state_shapes(eng, 1, PER)[0]
+    assert got["search"]["state_bytes"] == got["insert"]["state_bytes"] == \
+        sum(v.numel() * v.element_size() for _, v in _leaves(state)
+            if isinstance(v, torch.Tensor))
+    assert got["search"]["input_bytes"] == n_queries * D * 4
+    assert got["insert"]["input_bytes"] == bucket * D * 4 + bucket
+    assert got["search"]["devices"] == 4 and got["search"]["left_out"]

@@ -304,8 +304,15 @@ def test_dryrun_cli_writes_every_cell(tmp_path):
         "moonshot-v1-16b-a3b", "decode_32k",
         PM.make_production_mesh(multi_pod=True))
     for f in files:
-        total = json.loads(f.read_text())["memory_model"]["total"]
-        assert 0 < total < 2 ** 63
+        rec = json.loads(f.read_text())
+        assert 0 < rec["memory_model"]["total"] < 2 ** 63
+        assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
+        assert rec["n_ops"] > 0 and rec["max_trip"] >= 1
+        coll = rec["collectives"]
+        assert coll["bytes_by_kind"]["total"] == sum(
+            v for k, v in coll["bytes_by_kind"].items() if k != "total") > 0
+        assert sum(coll["op_counts"].values()) == sum(
+            v["calls"] for v in coll["by_part"].values()) > 0
 
 
 def test_dryrun_cli_one_cell_and_skip(tmp_path, capsys):
@@ -314,11 +321,34 @@ def test_dryrun_cli_one_cell_and_skip(tmp_path, capsys):
     assert PD.main(args) == 0
     rec = json.loads((tmp_path / "arctic-480b__train_4k__pod16x16.json")
                      .read_text())
-    assert set(rec) == {"arch", "shape", "mesh", "devices", "memory_model"}
+    assert set(rec) == {"arch", "shape", "mesh", "devices", "memory_model",
+                        "flops", "bytes_accessed", "collectives", "n_ops",
+                        "max_trip", "analysis_s"}
+    assert set(rec["collectives"]) == {"bytes_by_kind", "op_counts",
+                                       "by_part"}
     assert set(rec["memory_model"]) == {"params", "opt_state", "grads",
                                         "residual_stack", "total"}
     assert PD.main(args + ["--skip-existing"]) == 0
     assert "SKIP arctic-480b__train_4k__pod16x16" in capsys.readouterr().out
+
+
+def test_dryrun_cli_dump_top(tmp_path):
+    """``--dump-top``: beside the cell's JSON, its 20 largest contributors
+    to the traffic and to the collectives (as many as there are sites),
+    largest first, each labelled
+    with the op (or kind and part) and the site that issued it."""
+    args = ["--arch", "moonshot-v1-16b-a3b", "--shape", "prefill_32k",
+            "--multi-pod", "--dump-top", "--out", str(tmp_path)]
+    assert PD.main(args) == 0
+    tag = "moonshot-v1-16b-a3b__prefill_32k__pod2x16x16"
+    top = json.loads((tmp_path / f"{tag}.top.json").read_text())
+    assert set(top) == {"traffic", "collective"}
+    assert len(top["traffic"]) == 20 and 0 < len(top["collective"]) <= 20
+    for rows in top.values():
+        sizes = [b for b, _ in rows]
+        assert sizes == sorted(sizes, reverse=True) and sizes[-1] > 0
+        assert all(".py:" in label for _, label in rows)
+    assert top["collective"][0][1].split()[0] in PM.KINDS
 
 
 # ---------------------------------------------------------------------------

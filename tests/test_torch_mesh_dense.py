@@ -31,7 +31,15 @@ sequence) against the reference on the CPU.
     Adafactor state bytes the dry-run's model of them (and its own
     optimizer's ``opt_state``);
   - a gather of ``shard_tree``'s ceiling blocks, short and empty ones
-    among them, equals the whole leaf.
+    among them, equals the whole leaf;
+  - the collectives of a prefill, a decode step and a train step on rank
+    0 equal those ``launch.step_analysis`` counts for the same steps on
+    meta tensors through a counting mesh of the same shape, call for
+    call and byte for byte, in all, by part, by kind and the backward's
+    apart;
+  - whisper with a source of 11 frames, which do not split over the
+    tensor axis (its 1,500 do not over 16): the loss and every rank's
+    gradient blocks against no mesh.
 - On a one-rank gloo mesh in this process every twin's serve, loss and
   gradients are bit-equal to no mesh.
 """
@@ -54,10 +62,13 @@ from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs as PC
 from repro_torch import interop
 from repro_torch.launch import mesh as PM
+from repro_torch.launch import step_analysis as SA
 from repro_torch.launch.serve import serve
 from repro_torch.models import transformer as PT
 from repro_torch.models.layers import is_spec
-from repro_torch.train.train_step import make_grad_fn
+from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+from repro_torch.train.train_step import (init_opt_state, make_grad_fn,
+                                          make_train_step)
 from repro_torch.tree import tree_flatten_with_path, tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,6 +83,9 @@ B, S, STEPS, TRAIN_S, SEED = 4, 8, 4, 16, 5
 # positions (every slot valid), on the rank whose block holds the slot
 WRAP_TWIN, WRAP_S = "gemma3-1b", 20
 GATES = (0.7, -0.4)      # the cross layers' tanh gates (zero at init)
+# whisper's frames cut so that they do not split over the tensor axis of 2
+# (as its 1,500 do not over 16): the encoder's residual in ceiling blocks
+UNEVEN_TWIN, UNEVEN_FRAMES = "whisper-medium", 11
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_RTOL, LEAF_REL_L2 = 1e-5, 1e-4
 ADAMW_B1, ADAMW_B2, ADAMW_EPS = 0.9, 0.95, 1e-8
@@ -110,6 +124,8 @@ def _inputs(arch_ids=TWINS) -> dict:
             for k in ("cross", "train_cross"):
                 t[k] = rng.standard_normal(
                     (B, cfg.cross_seq, cfg.d_model)).astype(np.float32)
+        if arch_id == UNEVEN_TWIN:
+            t["uneven_frames"] = UNEVEN_FRAMES
         if arch_id == WRAP_TWIN:
             t["wrap_tokens"] = rng.integers(
                 0, cfg.vocab_size, (B, WRAP_S)).astype(np.int32)
@@ -510,6 +526,83 @@ def test_padded_gather_equals_the_whole_leaf(mesh_name, runs):
     for res in ranks[mesh_name]:
         for k in ("a", "b"):
             np.testing.assert_array_equal(res["padded"][k], x)
+
+
+@pytest.mark.parametrize("mesh_name", MESHES)
+def test_uneven_encoder_sequence_over_a_mesh(mesh_name, runs):
+    """whisper's loss and every rank's gradient blocks with a source of
+    UNEVEN_FRAMES frames (ceiling blocks of the encoder's residual,
+    padded for the gathers and sum-scatters) against no mesh."""
+    ranks, _, twins = runs
+    t = twins[UNEVEN_TWIN]
+    cfg = PC.get_arch(UNEVEN_TWIN).smoke
+    assert UNEVEN_FRAMES % _sizes(mesh_name)["model"]
+    batch = {"tokens": torch.from_numpy(t["train_tokens"]),
+             "cross_src": torch.from_numpy(
+                 t["train_cross"][:, :UNEVEN_FRAMES])}
+    loss, grads = make_grad_fn(cfg)(interop.params_from(t["params"], "cpu"),
+                                    batch)
+    want = [g.numpy() for g in tree_leaves(grads)]
+    specs = _spec_leaves(PT.param_specs(cfg))
+    for res in ranks[mesh_name]:
+        got = res["twins"][UNEVEN_TWIN]["uneven"]
+        assert abs(got["loss"] - float(loss)) <= LOSS_RTOL * abs(float(loss))
+        _held_to(got["grads"], want, specs, res["coords"], mesh_name)
+
+
+def _counted(mesh_name: str, arch_id: str, kind: str) -> dict:
+    """``step_analysis.analyze`` of the step the worker counted, on meta
+    tensors of its shapes, through a counting mesh of the same shape: the
+    collectives that mesh counted (rank 0's program)."""
+    shape, axes = MESHES[mesh_name]
+    mesh = PM.Mesh(dict(zip(axes, shape)), virtual=True, counting=True)
+    cfg = PC.get_arch(arch_id).smoke
+    meta = lambda shp, dtype: torch.empty(shp, dtype=dtype, device="meta")
+    params = PM.shard_tree(PT.param_shapes(cfg), PT.param_specs(cfg), mesh)
+    rows = lambda rules, d: PM.shard_tree(d, PM.batch_specs(mesh, rules, d),
+                                          mesh)
+    cross = lambda b: ({"cross_src": meta((b, cfg.cross_seq, cfg.d_model),
+                                          cfg.dtype)}
+                       if cfg.cross_seq else {})
+    if kind == "train":
+        rules = PM.make_rules(mesh, kind="train", global_batch=B, cfg=cfg)
+        opt = W.optimizer(arch_id)
+        step = make_train_step(cfg, opt, rules=rules, mesh=mesh)
+        batch = rows(rules, {"tokens": meta((B, TRAIN_S), torch.int32),
+                             **cross(B)})
+        args = (params, init_opt_state(cfg, opt, params), batch, 0)
+    elif kind == "prefill":
+        rules = PM.make_rules(mesh, kind="prefill", global_batch=B, cfg=cfg)
+        step = make_prefill_step(cfg, rules=rules, mesh=mesh,
+                                 max_seq=S + STEPS)
+        data = rows(rules, {"tokens": meta((B, S), torch.int32), **cross(B)})
+        args = (params, data["tokens"], data.get("cross_src"))
+    else:
+        rules = PM.make_rules(mesh, kind="decode", global_batch=B, cfg=cfg)
+        step = make_decode_step(cfg, rules=rules, mesh=mesh)
+        cache = PM.shard_tree(PT.cache_shapes(cfg, B, S + STEPS, rules),
+                              PT.cache_specs(cfg, B, S + STEPS, rules), mesh)
+        tokens = rows(rules, {"tokens": meta((B, 1), torch.int32)})["tokens"]
+        args = (params, cache, tokens, S)
+    res = SA.analyze(step, *args, mesh=mesh)
+    assert res["collectives"]["by_part"] == mesh.parts
+    return dict(mesh.stats, parts=mesh.parts, kinds=mesh.kinds)
+
+
+@pytest.mark.parametrize("kind", ("prefill", "decode", "train"))
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_counting_mesh_equals_gloo_mesh(case, kind, runs):
+    """A prefill, a decode step and a train step counted on meta tensors
+    through a counting mesh issue rank 0's collectives on the gloo mesh
+    of the same shape, call for call and byte for byte: in all, by part,
+    by kind and the backward's apart.  Every rank issues as many calls
+    (ceiling blocks may give the others fewer bytes)."""
+    mesh_name, arch_id = case
+    ranks, _, _ = runs
+    got = [r["twins"][arch_id]["counts"][kind] for r in ranks[mesh_name]]
+    assert _counted(mesh_name, arch_id, kind) == got[0]
+    assert got[0]["calls"] > 0
+    assert len({(g["calls"], g["backward_calls"]) for g in got}) == 1
 
 
 def test_the_rules_flip_sequence_parallel_attention(runs):

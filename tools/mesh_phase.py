@@ -1,12 +1,12 @@
 """Run the env phase and the mesh path of ``chip_smoke.py`` alone, on one
 NVIDIA GPU: moonshot-v1-16b-a3b whole served through a 1 x 1 mesh on a
-one-rank NCCL group against the same serve with no mesh, the dry-run's
-memory model over every cell on both production meshes,
-moonshot-v1-16b-a3b cut to 8 layers trained through the mesh against no
-mesh, and the dense placement (``mesh:dense``: qwen2-0.5b and hymba-1.5b
-served whole, qwen2-0.5b trained, every leaf held as its block and
-gathered on use, the collectives by part against a prediction), with the
-paths' launch gates.
+one-rank NCCL group against the same serve with no mesh, the dry-run
+(each cell's step analysis and memory model) over every cell on both
+production meshes, moonshot-v1-16b-a3b cut to 8 layers trained through
+the mesh against no mesh, and the dense placement (``mesh:dense``:
+qwen2-0.5b and hymba-1.5b served whole, qwen2-0.5b trained, every leaf
+held as its block and gathered on use), each step's collectives against
+the step analysis's counting mesh, with the paths' launch gates.
 
     python3 tools/mesh_phase.py
 
