@@ -8,7 +8,9 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives eight paths, each with the launch counts
+main path's shapes (the cache kernels, ``cache_replay`` and
+``cache_ops``, bit for bit on every state field for each policy at 256
+and 1,024 pages), then drives eight paths, each with the launch counts
 set to 0 just before it and read just after:
 
 - search: builds and searches a small index (the test suite's
@@ -27,7 +29,7 @@ set to 0 just before it and read just after:
   from the free list and a profiled repair step;
 - sharded (``core/distributed.py``, all shards on the one card, the
   merge's gather through a one-rank NCCL group): the reference test's
-  8 shards of 128, and half the FineWeb-like corpus in 8 shards of 2,500
+  8 shards of 128, and half the FineWeb-like corpus in 8 shards of 1,250
   with a global codec: sharded search waves and a routed insert wave;
   and the sharded engine's dry-run (``distributed.dryrun``) of the
   FineWeb-like spec on both production meshes, on the host;
@@ -40,11 +42,12 @@ set to 0 just before it and read just after:
   (``SERVE_MODELS``: the MoE moonshot-v1-16b-a3b whole, 56.1 GB;
   falcon-mamba-7b, hymba-1.5b and whisper-medium whole;
   llama-3.2-vision-90b at one period of its pattern and arctic-480b at one
-  layer) at the launcher's load, and a float32 run
+  layer) at the launcher's 4 x 64 prompt tokens + 8 decode steps, and a
+  float32 run
   against the host of each new layer kind at 2 layers;
 - train (``repro_torch.train``, ``launch/train.py``, ``checkpoint/``):
   8 AdamW steps (bf16) of qwen2-0.5b at its published width at 8 x 256
-  and 4 x 4,096 tokens, hymba-1.5b whole at 4 x 512 and whisper-medium
+  and 1 x 4,096 tokens, hymba-1.5b at 8 layers at 4 x 512 and whisper-medium
   whole at 4 x 448 (frames from the seed), each with its step time,
   tokens/s against the model FLOPs' bound, peak memory, launches and
   idle share, and one step's dot FLOPs counted on the card equal to the
@@ -54,7 +57,7 @@ set to 0 just before it and read just after:
   and gradients against the host at 2 layers, and the scan's backward
   against float64;
 - mesh (``launch/mesh.py``, the expert-parallel MoE, ``launch/dryrun.py``):
-  moonshot-v1-16b-a3b whole served at 4 x 64 + 32 through a 1 x 1 mesh on
+  moonshot-v1-16b-a3b whole served at 4 x 64 + 8 through a 1 x 1 mesh on
   a one-rank NCCL group (prefill all-gathering the experts, decode keeping
   them 2-D sharded), equal bit for bit to the serve with no mesh under
   deterministic algorithms and in float32 at 2 layers within 1e-5, with
@@ -63,14 +66,14 @@ set to 0 just before it and read just after:
   1 x 1 mesh (``launch/step_analysis.py``); then the dry-run (each
   cell's step analysis and memory model) over the 33 cells on both
   production meshes, on the host;
-  then moonshot-v1-16b-a3b at its published widths cut to 8 layers,
+  then moonshot-v1-16b-a3b at its published widths cut to 4 layers,
   trained (AdamW, bf16) at 4 x 512 through the same mesh (the experts'
   backward through its collectives), bit for bit the run with no mesh
   under deterministic algorithms, and in float32 at 2 layers within
   1e-5 / 1e-4 of the host (its counts read apart, as ``mesh_train``);
   then the dense placement (every leaf held as its ``param_specs`` block
   and gathered on use; counts read as ``mesh_dense``): qwen2-0.5b and
-  hymba-1.5b whole served at 4 x 64 + 32 and qwen2-0.5b trained at 8 x
+  hymba-1.5b whole served at 4 x 64 + 8 and qwen2-0.5b trained at 8 x
   256 through the same mesh, bit for bit the runs with no mesh under
   deterministic algorithms, float32 at 2 layers against the host, and
   the collectives of a prefill, a decode and a train step, by part and
@@ -88,10 +91,15 @@ once per FreshDiskANN search wave); the maintenance path as the search
 path, and a pass itself launches no rerank kernel; the sharded path as the
 search path, ``casr_rerank`` once per shard and wave; the serving,
 training and mesh paths none of the port's kernels (their products are
-``torch.matmul``), and the RAG wave as the search path.  ``rerank_l2``
-runs on no path (the kernel phase holds it).  After each engine path
-one search wave and one insert wave (after the maintenance path, one
-pass; after the sharded path, a sharded search and insert; after the
+``torch.matmul``), and the RAG wave as the search path.  Every engine
+path replays its waves' traces with ``cache_replay`` (once a FineWeb-like
+search wave; once an insert wave, with at most one ``cache_ops`` for its
+commits' hints and admits), and the update and presets paths' threaded
+traversals launch ``cache_ops`` once a hop; each FineWeb-like wave's
+cache is held bit for bit against the host replay of the same calls.
+``rerank_l2`` runs on no path (the kernel phase holds it).  After each
+engine path one search wave and one insert wave (after the maintenance
+path, one pass; after the sharded path, a sharded search and insert; after the
 presets path also FreshDiskANN's search with its buffer full, and
 ``rerank_l2_shared`` on that buffer) are repeated with the plain versions
 on the card (A/B).  Each phase prints one JSON
@@ -115,19 +123,28 @@ PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_S = 67e12         # H100 SXM fp32 outside the tensor cores
 WAVE = 256                  # lanes per kernel check and per query wave
 RERANK_RTOL, RERANK_ATOL = 1e-5, 1e-3
+# The cache kernels' check: every policy at the smoke's capacity (256
+# pages) and the engine's default (1,024), on WAVE trace rows as wide as
+# the FineWeb-like wave's (max_hops 96 x beam_width 4 + 1) with prefixes
+# of 1-160 charged pages (the FineWeb-like waves charge 74-122 a lane),
+# over tables of CACHE_P_MAX pages
+CACHE_POLICIES = ("navis", "lru", "clock", "lfu", "none")
+CACHE_CAPS = (256, 1024)
+CACHE_ROW = 96 * 4 + 1
+CACHE_P_MAX = 65_536
 # The FineWeb-like cell (benchmarks/common.py:38-40, :72-77) keeps its
 # widths and is cut in scale only: N vectors (the paper's corpora hold
-# 60-120M; 40,000, not 100,000, so that the whole smoke, the mesh path's
+# 60-120M; 20,000, not 100,000, so that the whole smoke, the mesh path's
 # dense phase included, stays well inside its time limit on a slow host),
 # built in seek waves of FINEWEB_BLOCK
 # vertices instead of the benchmark's 64, which takes 8x as many
 # host-bound waves per pass (tools/build_block_cut.py times both).
-FINEWEB_N = 40_000
+FINEWEB_N = 20_000
 FINEWEB_BLOCK = 512
 # The sharded path: the first SHARDS x SHARD_N vectors of the FineWeb-like
 # corpus range-sharded into SHARDS shards of SHARD_N, each with
 # SHARD_HEADROOM slots for inserts, all on the one card.  Cut to half the
-# single engine's N (8 x 2,500) so that the whole smoke, with the
+# single engine's N (8 x 1,250) so that the whole smoke, with the
 # training path, stays inside its time limit.
 SHARDS = 8
 SHARD_N = FINEWEB_N // SHARDS // 2
@@ -151,18 +168,20 @@ RAG_QUERIES = 256
 # loads): depth is cut only where the weights exceed the card,
 # llama-3.2-vision-90b to one period of its pattern (4 attn + 1 cross
 # layers; 175 GB in bf16 whole) and arctic-480b to 1 of its 35 layers
-# (954 GB whole).  The load is the launcher's 4 x 64 + 32; the larger
-# ones (32 x 512 + 64 for each, 4 x 512 + 64 for llama-vision and 2 x
-# 1,536 + 32 for hymba, past its 1,024-slot rings) were cut to keep the
-# whole smoke under 900 s (qwen2-0.5b keeps 32 x 512 + 64, SERVE_LOADS;
-# the CPU tests hold hymba's rings).
+# (954 GB whole).  The load is the launcher's 4 x 64 prompt tokens with
+# its 32 decode steps cut to SERVE_MODEL_DECODE; the larger ones (32 x
+# 512 + 64 for each, 4 x 512 + 64 for llama-vision and 2 x 1,536 + 32
+# for hymba, past its 1,024-slot rings) were cut to keep the whole smoke
+# well inside its limit (qwen2-0.5b keeps 4 x 64 + 32 and 32 x 512 + 64,
+# SERVE_LOADS; the CPU tests hold hymba's rings).
+SERVE_MODEL_DECODE = 8
 SERVE_MODELS = (
-    ("moonshot-v1-16b-a3b", None, ((4, 64, 32),)),
-    ("falcon-mamba-7b", None, ((4, 64, 32),)),
-    ("hymba-1.5b", None, ((4, 64, 32),)),
-    ("whisper-medium", None, ((4, 64, 32),)),
-    ("llama-3.2-vision-90b", 5, ((4, 64, 32),)),
-    ("arctic-480b", 1, ((4, 64, 32),)),
+    ("moonshot-v1-16b-a3b", None, ((4, 64, SERVE_MODEL_DECODE),)),
+    ("falcon-mamba-7b", None, ((4, 64, SERVE_MODEL_DECODE),)),
+    ("hymba-1.5b", None, ((4, 64, SERVE_MODEL_DECODE),)),
+    ("whisper-medium", None, ((4, 64, SERVE_MODEL_DECODE),)),
+    ("llama-3.2-vision-90b", 5, ((4, 64, SERVE_MODEL_DECODE),)),
+    ("arctic-480b", 1, ((4, 64, SERVE_MODEL_DECODE),)),
 )
 PUBLISHED_PARAMS = {
     "qwen2-0.5b": 494_032_768,
@@ -183,18 +202,21 @@ CROSS_GATES = (0.7, -0.4)
 # repeated TokenStream batch, bf16, seeded random weights, at published
 # widths.  TRAIN_ARCH (the launcher's --arch) at TRAIN_LOADS (batch, seq):
 # the launcher's default 8 x 256, then the train_4k cell's sequence of
-# 4,096 with its global batch of 256 cut to 4; then TRAIN_MODELS whole:
-# hymba-1.5b (the scan's backward, the hybrid fuse, the windowed layers
-# under autograd) and whisper-medium (the encoder and cross-attention
-# backward; frames [B, 1500, 1024] from the seed).  The launcher runs
+# 4,096 with its global batch of 256 cut to 1; then TRAIN_MODELS (arch,
+# layers kept, load): hymba-1.5b cut to 8 of its 32 layers (the scan's
+# backward, the hybrid fuse, the windowed layers under autograd; its
+# scan runs one step a token, so its depth sets the path's time) and
+# whisper-medium whole (the encoder and cross-attention backward; frames
+# [B, 1500, 1024] from the seed).  The launcher runs
 # LAUNCHER_ARGS as a subprocess (4 steps: crash at step 3, resume, and a
 # run without the crash; cut from 6 steps to keep the whole smoke under
 # 900 s); TRAIN_FP32 holds float32 on the card against the
 # host, each arch cut to TRAIN_FP32_LAYERS layers, at TRAIN_FP32_LOAD.
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_STEPS = 8
-TRAIN_LOADS = ((8, 256), (4, 4096))
-TRAIN_MODELS = (("hymba-1.5b", (4, 512)), ("whisper-medium", (4, 448)))
+TRAIN_LOADS = ((8, 256), (1, 4096))
+TRAIN_MODELS = (("hymba-1.5b", 8, (4, 512)),
+                ("whisper-medium", None, (4, 448)))
 LAUNCHER_ARGS = ("--arch", TRAIN_ARCH, "--full", "--steps", "4", "--batch",
                  "4", "--seq", "512", "--log-every", "1")
 TRAIN_FP32 = ("qwen2-0.5b", "hymba-1.5b")
@@ -203,24 +225,27 @@ TRAIN_FP32_LOAD = (2, 128)
 PEAK_BF16_S = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 # The mesh path (launch/mesh.py, the expert-parallel MoE, launch/dryrun.py):
 # MESH_ARCH whole at its published widths (bf16, serving's seed) served at
-# MESH_LOAD through a 1 x 1 mesh on a one-rank NCCL group, against the same
-# serve with no mesh (bit for bit under deterministic algorithms; in
-# float32 at MESH_FP32_LAYERS layers within MESH_FP32_TOL); then the
+# MESH_LOAD (the launcher's 4 x 64 prompt tokens, its 32 decode steps cut
+# to 8 to keep the whole smoke well inside its limit) through a 1 x 1
+# mesh on a one-rank NCCL group, against the same serve with no mesh
+# (bit for bit under deterministic algorithms; in float32 at
+# MESH_FP32_LAYERS layers within MESH_FP32_TOL); then the
 # dry-run (each cell's step analysis and memory model) over every cell on
 # both production meshes (DRYRUN_CELLS files), on the host.
 MESH_ARCH = "moonshot-v1-16b-a3b"
-MESH_LOAD = (4, 64, 32)
+MESH_LOAD = (4, 64, 8)
 MESH_FP32_LAYERS = 2
 MESH_FP32_TOL = 1e-5
 DRYRUN_CELLS = 66
 # Training over the mesh (make_train_step(rules=, mesh=)): MESH_ARCH at its
 # published widths, bf16, its ArchSpec optimizer (AdamW, bf16 moments),
 # cut to MESH_TRAIN_LAYERS of its 48 layers so that weights, gradients and
-# moments (8 bytes a parameter) fit one card; MESH_TRAIN_STEPS steps on one
+# moments (8 bytes a parameter) fit one card (4, not 8 as before, to keep
+# the whole smoke well inside its limit); MESH_TRAIN_STEPS steps on one
 # batch of MESH_TRAIN_LOAD (batch, seq), through the 1 x 1 mesh and with no
 # mesh; float32 at MESH_FP32_LAYERS layers and TRAIN_FP32_LOAD through the
 # mesh on the card against no mesh on the host.
-MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_LAYERS = 4
 MESH_TRAIN_STEPS = 4
 MESH_TRAIN_LOAD = (4, 512)
 # The dense placement (every leaf held as its param_specs block, gathered
@@ -254,6 +279,13 @@ KERNELS = {
     # and its per-round merge (src/repro/core/casr.py:68)
     "casr_rerank": ("src/repro_torch/kernels/csrc/casr_rerank.cu",
                     "src/repro/kernels/rerank_l2.py:29"),
+    # the cache's serial state machine: no Pallas kernel; its counterparts
+    # are the reference's jitted replay of a wave's traces and its access
+    # (with invalidate_page and priority_admit, the op stream's kinds)
+    "cache_replay": ("src/repro_torch/kernels/csrc/cache_replay.cu",
+                     "src/repro/core/cache.py:255"),
+    "cache_ops": ("src/repro_torch/kernels/csrc/cache_replay.cu",
+                  "src/repro/core/cache.py:275"),
 }
 # Each path's launch gate: the kernels it must launch, and those it must
 # not.  The navis preset's search and update paths rerank with CASR only,
@@ -261,19 +293,26 @@ KERNELS = {
 # rerank through rerank_l2_rows and FreshDiskANN's buffer scan through
 # rerank_l2_shared (once a FreshDiskANN search wave: BUFFER_SCANS).  The
 # [B, S, D] entry rerank_l2 is on no path (the kernel phase holds it).
+# Every engine path replays its waves' traces on the card (cache_replay);
+# the sequential paths (update, presets) thread their traversals through
+# cache_ops, one launch a hop.
 NAVIS_OFF = ("rerank_l2", "rerank_l2_rows", "rerank_l2_shared")
 PATH_KERNELS = {
-    "search": (("pool_merge", "adc_distance", "casr_rerank"), NAVIS_OFF),
-    "update": (("pool_merge", "adc_distance", "casr_rerank"), NAVIS_OFF),
+    "search": (("pool_merge", "adc_distance", "casr_rerank",
+                "cache_replay"), NAVIS_OFF),
+    "update": (("pool_merge", "adc_distance", "casr_rerank", "cache_replay",
+                "cache_ops"), NAVIS_OFF),
     "presets": (("pool_merge", "adc_distance", "rerank_l2_rows",
-                 "rerank_l2_shared", "casr_rerank"), ("rerank_l2",)),
+                 "rerank_l2_shared", "casr_rerank", "cache_replay",
+                 "cache_ops"), ("rerank_l2",)),
     # refine's re-seek and the repair splice launch pool_merge and
     # adc_distance; casr_rerank runs in the insert and search waves
     # around the passes (a pass itself launches no rerank kernel)
-    "maintenance": (("pool_merge", "adc_distance", "casr_rerank"),
-                    NAVIS_OFF),
+    "maintenance": (("pool_merge", "adc_distance", "casr_rerank",
+                     "cache_replay"), NAVIS_OFF),
     # every shard runs the navis search and insert waves (no buffer)
-    "sharded": (("pool_merge", "adc_distance", "casr_rerank"), NAVIS_OFF),
+    "sharded": (("pool_merge", "adc_distance", "casr_rerank",
+                 "cache_replay"), NAVIS_OFF),
     # the LM serves with torch.matmul and plain torch ops: no kernel of the
     # port (the reference reaches no Pallas kernel there) ...
     "serving": ((), tuple(KERNELS)),
@@ -286,7 +325,8 @@ PATH_KERNELS = {
     "mesh_train": ((), tuple(KERNELS)),
     "mesh_dense": ((), tuple(KERNELS)),
     # ... and the RAG wave runs the navis search
-    "rag": (("pool_merge", "adc_distance", "casr_rerank"), NAVIS_OFF),
+    "rag": (("pool_merge", "adc_distance", "casr_rerank", "cache_replay"),
+            NAVIS_OFF),
 }
 # FreshDiskANN search waves the presets path ran (_scan_gate), each of
 # which must launch rerank_l2_shared exactly once
@@ -300,8 +340,19 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+T_START = time.perf_counter()
+# Past this many seconds the smoke dumps every thread's stack to standard
+# error (and runs on), so that a run stopped at the 1,200 s limit shows
+# where it was
+STACKS_AFTER_S = 1_100
+
+
 def emit(phase: str, **fields) -> None:
+    """The phase's JSON line on standard output, and its time since the
+    start on standard error (where a run that is stopped ended)."""
     print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s {phase}",
+          file=sys.stderr, flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -833,6 +884,7 @@ def phase_kernels(torch) -> dict:
                        if k not in ("name", "route", "source", "replaces",
                                     "launches")}
     records["rerank_l2_shared"] = (rec, extra)
+    cache_records = phase_cache_kernels(torch)
 
     grades = {"pool_merge": "exact (distance bits and ids)",
               "adc_distance": "bit-exact",
@@ -854,7 +906,159 @@ def phase_kernels(torch) -> dict:
                                     "bound_by") if k in rec},
              **extra)
         out[name] = rec
+    return {**out, **cache_records}
+
+
+def _cache_inputs(torch, gen, cap: int):
+    """A wave's traces [WAVE, CACHE_ROW] (prefixes of 1-160 pages, -1
+    after) and an op stream of as many entries: four in five accesses,
+    one in ten an eviction hint for a page accessed 1-8 entries before
+    (so mostly resident), one in ten an admit, one in twenty a -1 hole.
+    Pages come from a range of 4 x cap, skewed (u**3) so that hot pages
+    re-hit: windows promote, frozen slots and CLOCK hands turn over."""
+    dev = gen.device
+    lens = torch.randint(1, 161, (WAVE,), generator=gen, device=dev)
+    skewed = lambda *shape: (4 * cap * torch.rand(
+        shape, generator=gen, device=dev) ** 3).to(torch.int32)
+    col = torch.arange(CACHE_ROW, device=dev)
+    traces = torch.where(col < lens[:, None], skewed(WAVE, CACHE_ROW), -1)
+    n = int(lens.sum())
+    r = torch.rand((n,), generator=gen, device=dev)
+    kinds = torch.where(r < 0.8, 0, torch.where(r < 0.9, 1, 2)).to(torch.int8)
+    pages = skewed(n)
+    back = (torch.arange(n, device=dev) - torch.randint(
+        1, 9, (n,), generator=gen, device=dev)).clamp(min=0)
+    pages = torch.where(kinds == 1, pages[back], pages)
+    holes = torch.rand((n,), generator=gen, device=dev) < 0.05
+    return traces, torch.where(holes, -1, pages), kinds
+
+
+def _cache_case(torch, entry: str, policy: str, cap: int, inputs) -> dict:
+    """``entry`` on a fresh state against ``ref.cache_apply`` on a copy:
+    every table and scalar and the hit count equal.  The plain version
+    (the host replay) is timed by host clock on that run, the kernel by
+    CUDA events and the profiler on the tables as they evolve.  The bound is
+    the bytes the run must move: its valid entries (and kinds), each
+    distinct page's entries read and written once, the region tables
+    read and written once, the scalars and the key."""
+    from repro_torch import random as jr
+    from repro_torch.core import cache as cache_mod
+    from repro_torch.kernels import ops, ref
+    traces, pages, kinds = inputs
+    st = cache_mod.init_cache(CACHE_P_MAX, cap, policy, jr.PRNGKey(cap),
+                              device="cuda")
+    k_tables = [getattr(st, n).clone() for n in cache_mod.TABLES]
+    p_tables = [t.clone() for t in k_tables]
+    if entry == "cache_replay":
+        run_k = lambda: ops.cache_replay(st.policy, k_tables, traces)
+        run_p = lambda: ref.cache_apply(st.policy, p_tables, traces=traces)
+        valid = traces[traces >= 0]
+        n_in = int(valid.numel()) * 4
+    else:
+        run_k = lambda: ops.cache_ops(st.policy, k_tables, pages, kinds)
+        run_p = lambda: ref.cache_apply(st.policy, p_tables, pages=pages,
+                                        kinds=kinds)
+        valid = pages[pages >= 0]
+        n_in = int(pages.numel()) * 5
+    hits_k = run_k()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits_p = run_p()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    differ = [n for n, a, b in zip(cache_mod.TABLES, k_tables, p_tables)
+              if not torch.equal(a, b)]
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(k_tables + [hits_k], p_tables + [hits_p]))
+    ms = time_ms(torch, run_k, iters=5, warmup=1)
+    dev_ms = device_ms(torch, run_k, iters=3)
+    w, f = st.window_pages.numel(), st.frozen_pages.numel()
+    n_bytes = (n_in + int(torch.unique(valid).numel()) * 9 * 2 +
+               2 * (w + f) * 4 * 2 + 3 * 4 * 2 + 16 * 2 + 4)
+    return {"policy": policy, "capacity": cap, "W": w, "F": f,
+            "operations": int(valid.numel()), "hits": int(hits_k),
+            "hits_equal": int(hits_k) == int(hits_p),
+            "fields_differing": differ, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": n_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+            "frozen_fill": int(k_tables[7]), "clock": int(k_tables[9])}
+
+
+def phase_cache_kernels(torch) -> dict:
+    """cache_replay and cache_ops against ref.cache_apply for every policy
+    at CACHE_CAPS; each case bit-equal on every CacheState field, the key
+    included, and on the hit count.  Returns each entry's record, from
+    navis at 256 pages (the smoke's configuration)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out = {}
+    for cap in CACHE_CAPS:
+        inputs = _cache_inputs(torch, gen, cap)
+        for entry in ("cache_replay", "cache_ops"):
+            for policy in CACHE_POLICIES:
+                case = _cache_case(torch, entry, policy, cap, inputs)
+                emit(f"kernel:{entry}:{policy}_{cap}", **case)
+                require(not case["fields_differing"] and case["hits_equal"],
+                        f"{entry} ({policy}, {cap} pages) differs from its "
+                        f"plain version: {case['fields_differing']}, hits "
+                        f"equal {case['hits_equal']}")
+                if (policy, cap) == ("navis", 256):
+                    source, replaces = KERNELS[entry]
+                    out[entry] = {
+                        "name": entry, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": 0,
+                        **{k: case[k] for k in (
+                            "max_abs_err", "ms", "device_ms", "plain_ms",
+                            "bound_ms", "bound_by")},
+                        "library_ms": None,
+                        "library_reason": "no single PyTorch call computes "
+                                          "the serial replay"}
     return out
+
+
+class _ReplayCheck:
+    """Records each cache kernel call of the main path inside the block
+    (the handle's tables before and after, its input, its hit count) and
+    grades it afterwards against ``ref.cache_apply`` on the host from the
+    same tables: the card's cache must equal the host replay bit for bit.
+    The two copies of the tables a call costs fall inside the wave's
+    ``replay_s``."""
+
+    def __init__(self, torch):
+        from repro_torch.core import cache as cache_mod
+        self.torch, self.cls, self.calls = torch, cache_mod.DeviceCache, []
+
+    def __enter__(self):
+        spy, orig_replay, orig_apply = self, self.cls.replay, self.cls.apply
+        self.orig = (orig_replay, orig_apply)
+
+        def record(handle, fn, kw):
+            before = [t.clone() for t in handle.tables]
+            hits = fn()
+            spy.calls.append((handle.policy, before, kw,
+                              [t.clone() for t in handle.tables], hits))
+            return hits
+
+        self.cls.replay = lambda h, traces: record(
+            h, lambda: orig_replay(h, traces), {"traces": traces})
+        self.cls.apply = lambda h, pages, kinds: record(
+            h, lambda: orig_apply(h, pages, kinds),
+            {"pages": pages.reshape(-1).to(self.torch.int32),
+             "kinds": kinds.to(self.torch.int8)})
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.replay, self.cls.apply = self.orig
+
+    def check(self) -> dict:
+        from repro_torch.kernels import ref
+        t0 = time.perf_counter()
+        bad = []
+        for i, (policy, before, kw, after, hits) in enumerate(self.calls):
+            want = ref.cache_apply(policy, before, **kw)
+            if int(want) != int(hits) or not all(
+                    self.torch.equal(a, b) for a, b in zip(before, after)):
+                bad.append(i)
+        return {"calls": len(self.calls), "differing_calls": bad,
+                "host_replay_s": time.perf_counter() - t0}
 
 
 def _spec_small(name: str = "navis", **overrides):
@@ -1060,9 +1264,11 @@ def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
         launched = dict(ops.launches)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        ids, dists, stats, state = eng.search_many(state, qs)
+        with _ReplayCheck(torch) as replay_check:
+            ids, dists, stats, state = eng.search_many(state, qs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
+        replayed = replay_check.check()
         ctr = state.ctr_search
         per_q = lambda f: (int(getattr(ctr, f)) -
                            int(getattr(before, f))) / WAVE
@@ -1076,11 +1282,19 @@ def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
              cache_hits_per_query=per_q("cache_hits"),
              wave_s=timing["wave_s"], rerank_s=timing["rerank_s"],
              rerank_share_of_wave=timing["rerank_s"] / wall,
-             replay_s=timing["replay_s"], launches=wave_launches)
+             replay_s=timing["replay_s"], replay_check=replayed,
+             launches=wave_launches)
         require(wave_launches["casr_rerank"] == 1 and
                 wave_launches["rerank_l2"] == 0,
                 f"fineweb: a wave's CASR stage is not one casr_rerank "
                 f"launch: {wave_launches}")
+        require(wave_launches["cache_replay"] == 1 and
+                wave_launches["cache_ops"] == 0 and replayed["calls"] == 1,
+                f"fineweb: a wave's replay is not one cache_replay launch: "
+                f"{wave_launches}")
+        require(not replayed["differing_calls"],
+                "fineweb: the card's cache differs from the host replay of "
+                "the wave's traces")
         all_ids.append(ids)
     emit("fineweb_like:profile", **profile_window(
         torch, lambda: eng.search_many(state, queries[:WAVE])))
@@ -1110,10 +1324,12 @@ def phase_fineweb_update(torch, eng, state, cents, n_rounds: int = 4):
         launched = dict(ops.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats, state = eng.insert_many(state, vs)
+        with _ReplayCheck(torch) as replay_check:
+            stats, state = eng.insert_many(state, vs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         wave_launches = _launched_since(ops, launched)
+        replayed = replay_check.check()
         ctr = state.ctr_insert
         per = lambda f: (int(getattr(ctr, f)) -
                          int(getattr(before, f))) / WAVE
@@ -1132,23 +1348,37 @@ def phase_fineweb_update(torch, eng, state, cents, n_rounds: int = 4):
              cache_hits_per_insert=per("cache_hits"),
              entrance_promotions=state.ent.count - ent0,
              priority_admits=counts["priority_admits"], dropped=dropped,
-             launches=wave_launches)
+             replay_check=replayed, launches=wave_launches)
         require(wave_launches["casr_rerank"] == 1 and
                 wave_launches["rerank_l2"] == 0,
                 f"fineweb:update: an insert wave's CASR stage is not one "
                 f"casr_rerank launch: {wave_launches}")
+        require(wave_launches["cache_replay"] == 1 and
+                wave_launches["cache_ops"] <= 1,
+                f"fineweb:update: an insert wave's cache is not one "
+                f"cache_replay and at most one cache_ops launch: "
+                f"{wave_launches}")
+        require(not replayed["differing_calls"],
+                "fineweb:update: the card's cache differs from the host "
+                "replay of the wave's traces and commits")
         require(dropped == 0, f"fineweb:update: {dropped} inserts dropped")
         inserted.append(vs)
         per_insert_s.append(wall / WAVE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ids, dists, _, state = eng.search_many(state, qs)
+        with _ReplayCheck(torch) as replay_check:
+            ids, dists, _, state = eng.search_many(state, qs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        replayed = replay_check.check()
         require(bool(torch.isfinite(dists[ids >= 0]).all()),
                 "fineweb:update: non-finite distance")
         emit(f"fineweb_like:update:search{w}", queries=WAVE, wall_s=wall,
-             qps=WAVE / wall)
+             qps=WAVE / wall, replay_s=eng.last_wave_timing["replay_s"],
+             replay_check=replayed)
+        require(not replayed["differing_calls"],
+                "fineweb:update: the card's cache differs from the host "
+                "replay of a search wave's traces")
 
     n_new = n_rounds * WAVE
     new_ids = torch.arange(n0, n0 + n_new, device="cuda", dtype=torch.int32)
@@ -2172,13 +2402,16 @@ def phase_ab(torch, eng, state, qs, vecs, label: str = "ab") -> None:
     whose ids are equal with the same I/O (reads, bytes, serial rounds,
     cache hits and misses)."""
     from repro_torch.kernels import ops
-    ids_k, d_k, st_k, _ = eng.search_many(state, qs)
+    ids_k, d_k, st_k, state_k = eng.search_many(state, qs)
     torch.cuda.synchronize()
     before = dict(ops.launches)
     with ops.plain_on_device():
-        ids_p, d_p, st_p, _ = eng.search_many(state, qs)
+        ids_p, d_p, st_p, state_p = eng.search_many(state, qs)
     torch.cuda.synchronize()
     flat = dict(ops.launches) == before
+    # the traversal's kernels are exact, so both waves charge the same
+    # pages: the replayed caches must be equal bit for bit
+    cache_diff = _tree_diff(torch, state_k.cache, state_p.cache)
     differ = ids_k != ids_p
     same_q = ~differ.any(1)
     io_same = torch.stack([a == b for a, b in zip(st_k, st_p)]).all(0)
@@ -2201,8 +2434,10 @@ def phase_ab(torch, eng, state, qs, vecs, label: str = "ab") -> None:
          near_tie_slots=near_ties, dists_within_tolerance=d_ok,
          queries_with_equal_ids=int(same_q.sum()),
          equal_io_among_them=int((io_same & same_q).sum()),
-         launch_counts_flat_under_plain=flat)
+         cache_diff=cache_diff, launch_counts_flat_under_plain=flat)
     require(flat, f"{label}: kernels launched under plain_on_device()")
+    require(not cache_diff, f"{label}: the replayed cache differs under the "
+            f"plain path: {cache_diff}")
     require(d_ok, f"{label}: distances outside the rerank tolerance")
     require(bool(io_same[same_q].all()),
             f"{label}: a query with equal ids has other I/O under the plain "
@@ -2243,21 +2478,27 @@ def serving_path(torch, paths: Paths) -> dict:
     FP32_MODELS; then training (read as ``train``, ``train_path``); then
     the mesh (read as ``mesh``, ``mesh_path``); then RAG, where qwen2-0.5b
     embeds and the navis engine retrieves (read as ``rag``).  Returns each
-    path's counts by name."""
-    paths.start("serving")
-    cfg, params = phase_serving(torch)
-    params32 = phase_serving_fp32(torch)
-    phase_serving_chunked(torch, params32, params)
-    del params32
-    for arch, layers, loads in SERVE_MODELS:
-        phase_serving_model(torch, arch, layers, loads)
-        torch.cuda.empty_cache()
-    for arch in FP32_MODELS:
-        phase_serving_fp32(torch, arch, FP32_LAYERS)
-        torch.cuda.empty_cache()
-    counts = {"serving": paths.end("serving")}
-    counts["train"] = train_path(torch, paths)
-    counts.update(mesh_path(torch, paths))
+    path's counts by name.  The mesh path's dry-run sweep, a host
+    subprocess, starts first and runs beside all of them."""
+    sweep = _start_dryrun()
+    try:
+        paths.start("serving")
+        cfg, params = phase_serving(torch)
+        params32 = phase_serving_fp32(torch)
+        phase_serving_chunked(torch, params32, params)
+        del params32
+        for arch, layers, loads in SERVE_MODELS:
+            phase_serving_model(torch, arch, layers, loads)
+            torch.cuda.empty_cache()
+        for arch in FP32_MODELS:
+            phase_serving_fp32(torch, arch, FP32_LAYERS)
+            torch.cuda.empty_cache()
+        counts = {"serving": paths.end("serving")}
+        counts["train"] = train_path(torch, paths)
+    except BaseException:
+        _stop(sweep)
+        raise
+    counts.update(mesh_path(torch, paths, sweep))
     paths.start("rag")
     phase_serving_rag(torch, cfg, params)
     counts["rag"] = paths.end("rag")
@@ -2737,8 +2978,8 @@ def train_path(torch, paths: Paths) -> dict:
     paths.start("train")
     for load in TRAIN_LOADS:
         phase_train(torch, TRAIN_ARCH, load)
-    for arch, load in TRAIN_MODELS:
-        phase_train(torch, arch, load)
+    for arch, layers, load in TRAIN_MODELS:
+        phase_train(torch, arch, load, layers)
     phase_train_launcher(torch)
     for arch in TRAIN_FP32:
         phase_train_fp32(torch, arch)
@@ -2751,15 +2992,20 @@ def train_path(torch, paths: Paths) -> dict:
 # the dry-run's memory model
 # ---------------------------------------------------------------------------
 
-def mesh_path(torch, paths: Paths) -> dict:
+def mesh_path(torch, paths: Paths, sweep=None) -> dict:
     """``launch/mesh.py`` on the card: MESH_ARCH served through a 1 x 1
     mesh on a one-rank NCCL group, then the dry-run over every cell (the
-    counts read as ``mesh``); then MESH_ARCH trained through the same
-    mesh (read as ``mesh_train``); then the dense models served and
-    trained through it (read as ``mesh_dense``).  The group is torn down
-    after."""
-    _init_group(torch, "mesh")
-    sweep = _start_dryrun()
+    counts read as ``mesh``; ``sweep`` is its subprocess if already
+    started); then MESH_ARCH trained through the same mesh (read as
+    ``mesh_train``); then the dense models served and trained through it
+    (read as ``mesh_dense``).  The group is torn down after."""
+    if sweep is None:
+        sweep = _start_dryrun()
+    try:
+        _init_group(torch, "mesh")
+    except BaseException:
+        _stop(sweep)
+        raise
     try:
         paths.start("mesh")
         phase_mesh_serve(torch)
@@ -2773,9 +3019,7 @@ def mesh_path(torch, paths: Paths) -> dict:
         out["mesh_dense"] = paths.end("mesh_dense")
         return out
     finally:
-        if sweep.poll() is None:
-            sweep.kill()
-            sweep.communicate()
+        _stop(sweep)
         torch.distributed.destroy_process_group()
 
 
@@ -2994,7 +3238,7 @@ DRYRUN_OUT = ROOT / "build" / "dryrun"
 def _start_dryrun():
     """``python -m repro_torch.launch.dryrun --all --both-meshes`` started
     on the host (meta tensors over virtual counting meshes), to run beside
-    the mesh path's work on the card."""
+    the serving, training and mesh paths' work on the card."""
     import os
     import shutil
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
@@ -3003,6 +3247,13 @@ def _start_dryrun():
          "--both-meshes", "--out", str(DRYRUN_OUT)], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _stop(sweep) -> None:
+    """Kill the dry-run's subprocess if it still runs."""
+    if sweep.poll() is None:
+        sweep.kill()
+        sweep.communicate()
 
 
 def phase_mesh_dryrun(torch, sweep) -> None:
@@ -3495,8 +3746,9 @@ def _train_batch(torch, cfg, batch: int, seq: int, seed: int, device):
     return out
 
 
-def phase_train(torch, arch: str, load) -> None:
-    """``make_train_step`` for ``arch`` at its published widths (bf16,
+def phase_train(torch, arch: str, load, layers=None) -> None:
+    """``make_train_step`` for ``arch`` at its published widths (cut to its
+    first ``layers`` layers where given; bf16,
     seeded random weights, AdamW with bf16 state and the launcher's cosine
     schedule) at ``load``: TRAIN_STEPS steps on one repeated batch, each
     timed on the host clock to a synchronise, then one profiled step.
@@ -3513,9 +3765,9 @@ def phase_train(torch, arch: str, load) -> None:
     from repro_torch.train.train_step import init_opt_state, make_train_step
     from repro_torch.tree import tree_leaves
     batch, seq = load
-    cfg, reduced = _published(arch)
+    cfg, reduced = _published(arch, layers=layers)
     if (batch, seq) == TRAIN_LOADS[-1] and arch == TRAIN_ARCH:
-        reduced = reduced + ["batch: 4 of the train_4k cell's 256"]
+        reduced = reduced + [f"batch: {batch} of the train_4k cell's 256"]
     start = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3709,8 +3961,9 @@ def phase_scan_backward_fp64(torch) -> None:
 
 
 def main() -> int:
+    import faulthandler
     import os
-    t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(STACKS_AFTER_S)
     # cuBLAS gives one result for one input only with a fixed workspace,
     # which torch.use_deterministic_algorithms needs (set before any use)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3788,7 +4041,8 @@ def main() -> int:
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths.values())
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}
-    emit("smoke", seconds=time.perf_counter() - t_start)
+    faulthandler.cancel_dump_traceback_later()
+    emit("smoke", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": list(records.values())}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -10,20 +10,24 @@ chance), LFU, and ``none``.
 Reads and replay are split, as in the reference.  During a wave every
 traversal probes one snapshot with :func:`lookup` (a gather of ``status``
 on the device) and records the pages it charged.  :func:`apply_traces`
-then replays the wave's traces in order, one :func:`access` per page —
-a serial state machine with threefry draws on each promotion.  The port
-runs that replay on the host, over Python lists, as the paper's cache
-lives in host DRAM: the state is copied to the host once per wave and
-back once, and the eviction draws run threefry on Python ints.
-``chip_smoke.py`` times it as a phase of every wave; a device-side replay
-is later work.
+then replays the wave's traces in order, one access per page: a serial
+state machine with threefry draws on each promotion.  The state lives on
+its device, its scalars (``frozen_fill``, ``clock_hand``, ``clock``) as
+0-d int32 tensors, so a wave needs no host sync for it.
 
-The sequential (threaded) paths, ``Engine.search`` / ``insert`` and their
-batches, and an insert wave's commit phase keep one :class:`HostCache`
-unpacked for the whole operation: each charged page goes through
-:meth:`HostCache.access` in order, eviction hints through
-:meth:`HostCache.invalidate` and entrance promotions through
-:meth:`HostCache.priority_admit`, and the state is packed once at the end.
+:func:`open` gives a handle on a state: a :class:`DeviceCache` for a CUDA
+state, which runs every call as one launch of the ``cache_replay`` /
+``cache_ops`` kernel (``kernels/csrc/cache_replay.cu``) in place on its
+own copy of the tables, and a :class:`HostCache` for a CPU state, which
+runs the same state machine on the host (the kernels' plain version,
+``kernels.ref.cache_apply``).  Both take ``access`` (a threaded hop's
+charged pages), ``replay`` (a wave's traces), ``invalidate`` (eviction
+hints), ``priority_admit`` (entrance promotions) and ``apply`` (a stream
+of the three), skip ``-1`` pages, and pack the state with ``state()``.
+The sequential (threaded) paths, ``Engine.search`` / ``insert``, their
+batches and FreshDiskANN's merge, keep one handle for the whole
+operation; an insert wave's commits send their hints and admits as one
+stream after the commits.
 """
 from __future__ import annotations
 
@@ -34,11 +38,16 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
 
 NOT_CACHED, IN_WINDOW, IN_FROZEN = 0, 1, 2
 POLICIES = {"navis": 0, "lru": 1, "clock": 2, "lfu": 3, "none": 4}
 _PROBES = 8          # randomized-eviction probe budget (paper default)
 _INUSE_TICKS = 64    # "currently in use" guard for frozen eviction
+ACCESS, INVALIDATE, PRIORITY_ADMIT = (kernel_ops.ACCESS, kernel_ops.INVALIDATE,
+                                      kernel_ops.PRIORITY_ADMIT)
+# the state's tensors, in the cache kernels' order (every field but policy)
+TABLES = tuple(name for name, _, _ in kernel_ops.CACHE_TABLES)
 
 
 @dataclasses.dataclass
@@ -51,9 +60,9 @@ class CacheState:
     window_last: torch.Tensor    # [W] int32 last-access tick
     frozen_pages: torch.Tensor   # [F] int32, -1 empty
     frozen_last: torch.Tensor    # [F] int32 last-access tick
-    frozen_fill: int
-    clock_hand: int
-    clock: int
+    frozen_fill: torch.Tensor    # int32 0-d: installs into empty slots
+    clock_hand: torch.Tensor     # int32 0-d (CLOCK policy)
+    clock: torch.Tensor          # int32 0-d global tick
     key: torch.Tensor            # int64 [2]: threefry key for eviction
 
 
@@ -69,13 +78,15 @@ def init_cache(p_max: int, capacity_pages: int, policy: str,
     else:
         w, f = capacity_pages, 1
     full = lambda n: torch.full((n,), -1, dtype=torch.int32, device=device)
+    zero = lambda: torch.zeros((), dtype=torch.int32, device=device)
     return CacheState(
         policy=POLICIES[policy],
         status=torch.zeros((p_max,), dtype=torch.int8, device=device),
         hits=torch.zeros((p_max,), dtype=torch.int32, device=device),
         slot_of=full(p_max), window_pages=full(w), window_last=full(w),
         frozen_pages=full(f), frozen_last=full(f),
-        frozen_fill=0, clock_hand=0, clock=0, key=key.to(device))
+        frozen_fill=zero(), clock_hand=zero(), clock=zero(),
+        key=key.to(device))
 
 
 def lookup(st: CacheState, pages: torch.Tensor) -> torch.Tensor:
@@ -86,13 +97,23 @@ def lookup(st: CacheState, pages: torch.Tensor) -> torch.Tensor:
     return st.status[pages.long()] != NOT_CACHED
 
 
+def _page_list(pages) -> list[int]:
+    """Page ids as host ints (a tensor of any shape, a list or one int)."""
+    if isinstance(pages, torch.Tensor):
+        return pages.reshape(-1).tolist()
+    return [int(pages)] if np.ndim(pages) == 0 else [int(p) for p in pages]
+
+
 class HostCache:
     """A :class:`CacheState` unpacked on the host for the serial replay:
     the page-indexed tables as numpy copies, the small region tables as
-    lists; :meth:`state` packs it back onto ``device``."""
+    lists, the scalars and the key as ints; :meth:`state` packs it back
+    onto ``device``.  The handle of a CPU state, and the cache kernels'
+    plain version (``kernels.ref.cache_apply``)."""
 
     _PAGES = ("status", "hits", "slot_of")
     _REGIONS = ("window_pages", "window_last", "frozen_pages", "frozen_last")
+    _SCALARS = ("frozen_fill", "clock_hand", "clock")
 
     def __init__(self, st: CacheState):
         self.device = st.status.device
@@ -100,20 +121,18 @@ class HostCache:
             setattr(self, name, np.array(getattr(st, name).cpu().numpy()))
         for name in self._REGIONS:
             setattr(self, name, getattr(st, name).cpu().tolist())
+        for name in self._SCALARS:
+            setattr(self, name, int(getattr(st, name)))
         self.policy = st.policy
-        self.frozen_fill = st.frozen_fill
-        self.clock_hand = st.clock_hand
-        self.clock = st.clock
         self.key = tuple(int(k) for k in st.key.cpu())
 
     def state(self) -> CacheState:
-        arrays = {n: torch.from_numpy(getattr(self, n)).to(self.device)
+        arrays = {n: torch.from_numpy(getattr(self, n).copy()).to(self.device)
                   for n in self._PAGES}
         arrays.update({n: torch.tensor(getattr(self, n), dtype=torch.int32,
                                        device=self.device)
-                       for n in self._REGIONS})
-        return CacheState(policy=self.policy, frozen_fill=self.frozen_fill,
-                          clock_hand=self.clock_hand, clock=self.clock,
+                       for n in self._REGIONS + self._SCALARS})
+        return CacheState(policy=self.policy,
                           key=torch.tensor(self.key, dtype=torch.int64,
                                            device=self.device), **arrays)
 
@@ -145,6 +164,8 @@ class HostCache:
         self.slot_of[page] = victim
         self.frozen_pages[victim] = page
         self.frozen_last[victim] = self.clock
+        # counts installs into empty slots: invalidate never lowers it, so
+        # a refilled slot counts twice (the reference's count)
         self.frozen_fill += 0 if old >= 0 else 1
         self.key = key
 
@@ -182,9 +203,9 @@ class HostCache:
             return freq.index(min(freq))
         return self.window_last.index(min(self.window_last))
 
-    # -- one access ------------------------------------------------------------
+    # -- one operation -------------------------------------------------------
 
-    def access(self, page: int) -> bool:
+    def _access(self, page: int) -> bool:
         """One page access; returns whether it hit."""
         self.clock += 1
         if self.policy == POLICIES["none"]:
@@ -207,33 +228,22 @@ class HostCache:
             self._admit_window(page, victim)
             if self.policy == POLICIES["clock"]:
                 self.clock_hand = (victim + 1) % len(self.window_pages)
-        return hit
+        return bool(hit)
 
-    def priority_admit(self, page: int) -> None:
+    def _priority_admit(self, page: int) -> None:
         """Admit ``page`` straight into the frozen region, bypassing the
         two-hits-in-window filter (the entrance-aware hint, §7): a freshly
         promoted entrance member's edgelist page is about to seed every
         traversal.  NAVIS policy only; a page already frozen only gets its
         in-use stamp refreshed.  No clock tick, no I/O."""
-        if self.policy != POLICIES["navis"] or page < 0:
+        if self.policy != POLICIES["navis"]:
             return
         if self.status[page] == IN_FROZEN:
             self.frozen_last[self.slot_of[page]] = self.clock
         else:
             self._install_frozen(page)
 
-    def replay(self, traces: torch.Tensor) -> int:
-        """Access every page of each trace row ``[Q, T]`` (-1 padded, valid
-        entries a prefix) in wave order; returns the hit count."""
-        hits = 0
-        for row in traces.cpu().tolist():
-            for page in row:
-                if page < 0:
-                    break
-                hits += self.access(page)
-        return hits
-
-    def invalidate(self, page: int) -> None:
+    def _invalidate(self, page: int) -> None:
         """Eviction hint when an edge page dies (§8.2)."""
         if self.status[page] == NOT_CACHED:
             return
@@ -247,41 +257,156 @@ class HostCache:
         self.slot_of[page] = -1
         self.hits[page] = 0
 
+    def _check(self, page: int) -> None:
+        if page >= len(self.status):
+            raise IndexError(f"page {page} is past the cache's "
+                             f"{len(self.status)} pages")
+
+    def replay_rows(self, rows: list[list[int]]) -> int:
+        """Access every page of each row, in order, up to the row's first
+        -1; returns the hit count."""
+        hits = 0
+        for row in rows:
+            for page in row:
+                if page < 0:
+                    break
+                self._check(page)
+                hits += self._access(page)
+        return hits
+
+    def run(self, pages: list[int], kinds: list[int]) -> int:
+        """Run each (kind, page) in order, -1 pages skipped; returns the
+        accesses' hit count."""
+        hits = 0
+        step = {INVALIDATE: self._invalidate,
+                PRIORITY_ADMIT: self._priority_admit}
+        for page, kind in zip(pages, kinds):
+            if page < 0:
+                continue
+            self._check(page)
+            if kind == ACCESS:
+                hits += self._access(page)
+            else:
+                step[kind](page)
+        return hits
+
+    # -- the handle (as DeviceCache's) ---------------------------------------
+
+    def _hits(self, n: int) -> torch.Tensor:
+        return torch.tensor([n], dtype=torch.int32, device=self.device)
+
+    def replay(self, traces: torch.Tensor) -> torch.Tensor:
+        """Replay trace rows ``[Q, T]`` (-1 padded, valid entries a prefix)
+        in wave order; returns the hit count, int32 [1]."""
+        return self._hits(self.replay_rows(traces.tolist()))
+
+    def access(self, pages) -> torch.Tensor:
+        """Access ``pages`` in order (-1 skipped); returns the hits, int32
+        [1]."""
+        pages = _page_list(pages)
+        return self._hits(self.run(pages, [ACCESS] * len(pages)))
+
+    def invalidate(self, pages) -> None:
+        pages = _page_list(pages)
+        self.run(pages, [INVALIDATE] * len(pages))
+
+    def priority_admit(self, pages) -> None:
+        pages = _page_list(pages)
+        self.run(pages, [PRIORITY_ADMIT] * len(pages))
+
+    def apply(self, pages: torch.Tensor, kinds: torch.Tensor) -> torch.Tensor:
+        """Run the stream ``pages`` [N] of ``kinds`` [N] in order."""
+        return self._hits(self.run(pages.tolist(), kinds.tolist()))
+
+
+class DeviceCache:
+    """The handle of a CUDA state: its own copy of the state's tensors
+    (cloned once, so the caller's state stays valid), updated in place by
+    one ``cache_replay`` or ``cache_ops`` launch per call, with no host
+    sync.  Hit counts come back as device tensors, int32 [1]."""
+
+    def __init__(self, st: CacheState):
+        self.policy = st.policy
+        self.device = st.status.device
+        self.tables = tuple(getattr(st, n).clone() for n in TABLES)
+
+    def state(self) -> CacheState:
+        return CacheState(self.policy, **{n: t.clone() for n, t in
+                                          zip(TABLES, self.tables)})
+
+    def _pages(self, pages) -> torch.Tensor:
+        if isinstance(pages, torch.Tensor):
+            return pages.reshape(-1).to(self.device, torch.int32).contiguous()
+        return torch.tensor(_page_list(pages), dtype=torch.int32,
+                            device=self.device)
+
+    def replay(self, traces: torch.Tensor) -> torch.Tensor:
+        return kernel_ops.cache_replay(
+            self.policy, self.tables, traces.to(torch.int32).contiguous())
+
+    def access(self, pages) -> torch.Tensor:
+        return kernel_ops.cache_ops(self.policy, self.tables,
+                                    self._pages(pages), kind=ACCESS)
+
+    def invalidate(self, pages) -> None:
+        kernel_ops.cache_ops(self.policy, self.tables, self._pages(pages),
+                             kind=INVALIDATE)
+
+    def priority_admit(self, pages) -> None:
+        kernel_ops.cache_ops(self.policy, self.tables, self._pages(pages),
+                             kind=PRIORITY_ADMIT)
+
+    def apply(self, pages: torch.Tensor, kinds: torch.Tensor) -> torch.Tensor:
+        return kernel_ops.cache_ops(self.policy, self.tables,
+                                    self._pages(pages),
+                                    kinds.to(self.device,
+                                             torch.int8).contiguous())
+
+
+Handle = DeviceCache | HostCache
+
+
+def open(st: CacheState) -> Handle:  # noqa: A001
+    """A handle that advances a copy of ``st``: on the card through the
+    cache kernels, on the CPU through the host state machine."""
+    return DeviceCache(st) if st.status.is_cuda else HostCache(st)
+
 
 def apply_traces(st: CacheState, traces: torch.Tensor
-                 ) -> tuple[int, CacheState]:
+                 ) -> tuple[torch.Tensor, CacheState]:
     """Replay traces ``[Q, T]`` (int, -1-padded, valid entries a prefix of
-    each row) in wave order; returns (replay hit count, new state).  The
-    merged state evolves exactly as if the accesses had been issued one
-    after another."""
-    host = HostCache(st)
-    hits = host.replay(traces)
-    return hits, host.state()
+    each row) in wave order; returns (replay hit count, int32 [1] on the
+    state's device; new state).  The merged state evolves exactly as if
+    the accesses had been issued one after another."""
+    cache = open(st)
+    hits = cache.replay(traces)
+    return hits, cache.state()
 
 
 def apply_trace(st: CacheState, trace: torch.Tensor
-                ) -> tuple[int, CacheState]:
+                ) -> tuple[torch.Tensor, CacheState]:
     """Replay one trace ``[T]``."""
     return apply_traces(st, trace[None])
 
 
-def priority_admit(st: CacheState, page: int) -> CacheState:
-    """:meth:`HostCache.priority_admit` on a packed state."""
-    if st.policy != POLICIES["navis"] or page < 0:
+def priority_admit(st: CacheState, page) -> CacheState:
+    """The entrance-aware admit of ``page`` (skipped if -1) on a packed
+    state (NAVIS policy only)."""
+    if st.policy != POLICIES["navis"]:
         return st
-    host = HostCache(st)
-    host.priority_admit(page)
-    return host.state()
+    cache = open(st)
+    cache.priority_admit(page)
+    return cache.state()
 
 
-def invalidate_pages(st: CacheState, pages: list[int]) -> CacheState:
-    """Apply the eviction hint to each page id in ``pages``, in order."""
-    if st.policy == POLICIES["none"] or not pages:
+def invalidate_pages(st: CacheState, pages) -> CacheState:
+    """Apply the eviction hint to each page id in ``pages``, in order (-1
+    skipped)."""
+    if st.policy == POLICIES["none"] or len(pages) == 0:
         return st
-    host = HostCache(st)
-    for p in pages:
-        host.invalidate(p)
-    return host.state()
+    cache = open(st)
+    cache.invalidate(pages)
+    return cache.state()
 
 
 def invalidate_where(st: CacheState, drop: torch.Tensor) -> CacheState:

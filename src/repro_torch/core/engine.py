@@ -252,12 +252,12 @@ class Engine:
         self.device = resolve_device(device)
         self.codec: Optional[pq_mod.PQCodec] = None
         self._sym: Optional[torch.Tensor] = None
-        # host-clock seconds of the last wave.  search_many: traversal +
-        # rerank on the device (until its traces reach the host; the rerank
-        # stage alone, classifier included, between two syncs, in
-        # rerank_s), then the cache replay.  insert_many: seek_s (phase ①
-        # until its traces reach the host), replay_s, commit_s (phase ②,
-        # the cache packed); append_s on the buffered path
+        # host-clock seconds of the last wave, each stage ended by a
+        # sync.  search_many: wave_s, traversal + rerank on the device
+        # (the rerank stage alone, classifier included, in rerank_s), then
+        # replay_s, the cache replay.  insert_many: seek_s (phase ①),
+        # replay_s, commit_s (phase ②, the cache packed); append_s on the
+        # buffered path
         self.last_wave_timing: dict = {}
         # insert_many: RMW re-reads charged, entrance promotions and
         # priority admits of the last wave
@@ -391,7 +391,7 @@ class Engine:
                      cache=None):
         """Traverse + rerank (+ the buffer's hits), one lane per query: a
         wave against the frozen snapshot ``state.cache``, or one query
-        threaded through ``cache`` (a :class:`cache.HostCache`).  Returns
+        threaded through ``cache`` (a handle, :func:`cache.open`).  Returns
         (ids, dists, stats, counters, traverse result)."""
         spec = self.spec
         b = qs.shape[0]
@@ -458,9 +458,10 @@ class Engine:
         qs = queries.to(self.device, torch.float32)
         t0 = time.perf_counter()
         ids, dists, stats, ctrs, res = self._search_core(state, qs)
-        traces = res.trace.cpu()          # waits for the wave to finish
+        _sync(qs)
         t1 = time.perf_counter()
-        _, cache = cache_mod.apply_traces(state.cache, traces)
+        _, cache = cache_mod.apply_traces(state.cache, res.trace)
+        _sync(qs)
         self.last_wave_timing = {"wave_s": t1 - t0,
                                  "rerank_s": self.last_rerank_s,
                                  "replay_s": time.perf_counter() - t1}
@@ -480,14 +481,14 @@ class Engine:
         threaded through them.  Returns (ids [Q, k], dists [Q, k],
         per-query OpStats, new state)."""
         qs = queries.to(self.device, torch.float32)
-        host = cache_mod.HostCache(state.cache)
+        cache = cache_mod.open(state.cache)
         ids, dists, stats, ctrs = [], [], [], []
         for i in range(qs.shape[0]):
-            out = self._search_core(state, qs[i:i + 1], host)
+            out = self._search_core(state, qs[i:i + 1], cache)
             for acc, x in zip((ids, dists, stats, ctrs), out):
                 acc.append(x)
         state = dataclasses.replace(
-            state, cache=host.state(),
+            state, cache=cache.state(),
             ctr_search=merge_counters(state.ctr_search, sum_counters(
                 _join_counters(ctrs, torch.cat))))
         return (torch.cat(ids), torch.cat(dists),
@@ -496,14 +497,14 @@ class Engine:
     # -- insert ---------------------------------------------------------------
 
     def _insert_one(self, st: EngineState, v: torch.Tensor,
-                    host: cache_mod.HostCache,
+                    cache: cache_mod.Handle,
                     page_seen: torch.Tensor | None = None):
         """One sequential in-place insertion (the reference's
         ``_insert_inplace``) into ``st``, which the caller owns (written
         in place; the returned state shares its tensors), its cache
-        unpacked in ``host``.  ``page_seen`` [P_max] seeds the traversal's
-        page buffer (a merge's shared one).  Returns (stats, state,
-        page_seen)."""
+        advanced through the handle ``cache``.  ``page_seen`` [P_max]
+        seeds the traversal's page buffer (a merge's shared one).
+        Returns (stats, state, page_seen)."""
         spec = self.spec
         dev = self.device
         ctr0 = IOCounters.zeros((), dev)
@@ -525,7 +526,7 @@ class Engine:
         new_code = pq_mod.encode(self.codec, v[None])[0]
         st.codes[slot] = new_code
         ires = insert_mod.insert_vertex(
-            st.store, spec.lspec, self.codec, st.codes, self._sym, host,
+            st.store, spec.lspec, self.codec, st.codes, self._sym, cache,
             ctr0, v, entries[0], e_pos=spec.e_pos, k=spec.k, s=spec.s_pos,
             rerank=spec.rerank, beam_width=spec.beam_width,
             max_hops=spec.max_hops, tombstone=st.tombstone,
@@ -546,7 +547,7 @@ class Engine:
             if spec.cache_policy == "navis" and ent.count > count0:
                 # entrance-aware hint (§7): a promoted member's edgelist
                 # page seeds future traversals
-                host.priority_admit(int(ires.store.edge_page[slot]))
+                cache.priority_admit(ires.store.edge_page[slot])
         stats = _delta_stats(ctr0, ctr, ires.hops + ires.rerank_rounds)
         st.tombstone[slot] = False
         st.free_mask[slot] = False
@@ -588,9 +589,9 @@ class Engine:
             return (OpStats(*[f[0] for f in stats]), st,
                     torch.zeros((state.store.p_max,), dtype=torch.bool,
                                 device=self.device))
-        host = cache_mod.HostCache(state.cache)
-        stats, st, seen = self._insert_one(_owned(state), v, host)
-        return stats, dataclasses.replace(st, cache=host.state()), seen
+        cache = cache_mod.open(state.cache)
+        stats, st, seen = self._insert_one(_owned(state), v, cache)
+        return stats, dataclasses.replace(st, cache=cache.state()), seen
 
     def insert_batch(self, state: EngineState, vectors: torch.Tensor):
         """Insertions one after another (the reference's scan).  Returns
@@ -598,13 +599,13 @@ class Engine:
         vs = vectors.to(self.device, torch.float32)
         if self.spec.update_path == "buffered":
             return self._append_buffer(state, vs, [True] * vs.shape[0])
-        host = cache_mod.HostCache(state.cache)
+        cache = cache_mod.open(state.cache)
         st, stats = _owned(state), []
         for i in range(vs.shape[0]):
-            s_i, st, _ = self._insert_one(st, vs[i], host)
+            s_i, st, _ = self._insert_one(st, vs[i], cache)
             stats.append(s_i)
         return _stack_stats(stats), dataclasses.replace(st,
-                                                        cache=host.state())
+                                                        cache=cache.state())
 
     def insert_many(self, state: EngineState, vectors: torch.Tensor,
                     valid: torch.Tensor | None = None):
@@ -623,9 +624,10 @@ class Engine:
         entrance-aware admit; commits past capacity are dropped.  The
         state is read back on the host once before the commits (the free
         list, the live entrance members, the new slots' membership) and
-        the commits' cache effects are applied after them, in commit
-        order (no commit reads the cache), so the commits queue on the
-        device without a sync.
+        the commits' cache effects (eviction hints, then the admit, per
+        commit) go to the cache after them as one stream, in commit order
+        (no commit reads the cache), so the commits queue on the device
+        without a sync.
 
         On the buffered path there is nothing to fan out: the kept
         vectors are appended to the buffer in order (no position seeking,
@@ -667,10 +669,12 @@ class Engine:
         # padding lanes charge nothing and replay nothing
         ctrs = ctrs.map(lambda x: torch.where(ok, x, 0))
         rounds = torch.where(ok, seek.hops + seek.rerank_rounds, 0)
-        traces = torch.where(ok[:, None], seek.trace, -1).cpu()
+        traces = torch.where(ok[:, None], seek.trace, -1)
+        _sync(vs)
         t1 = time.perf_counter()
-        host = cache_mod.HostCache(state.cache)
-        host.replay(traces)
+        cache = cache_mod.open(state.cache)
+        cache.replay(traces)
+        _sync(vs)
         t2 = time.perf_counter()
 
         # -- phase ②: serial conflict-aware commits -----------------------
@@ -726,16 +730,19 @@ class Engine:
             st.free_mask[slot] = False
             st.young_mask[slot] = True
             commit_ctr[i] = sres.counters
-        # the commits' cache effects in commit order: eviction hints, then
-        # the promoted member's admit
-        if plan and host.policy != cache_mod.POLICIES["none"]:
-            dead_lists = (torch.stack(hints).tolist() if hints
-                          else [[]] * len(admits))
-            for dead, page in zip(dead_lists, admits):
-                for p in dead:
-                    if p >= 0:
-                        host.invalidate(p)
-                host.priority_admit(page)
+        # the commits' cache effects in commit order, one stream: each
+        # commit's eviction hints, then its promoted member's admit
+        if plan and cache.policy != cache_mod.POLICIES["none"]:
+            admit = torch.tensor(admits, dtype=torch.int32, device=dev)
+            dead = (torch.stack(hints).to(torch.int32) if hints else
+                    admit.new_empty((len(admits), 0)))
+            kinds = torch.cat([
+                torch.full(dead.shape, cache_mod.INVALIDATE, dtype=torch.int8,
+                           device=dev),
+                torch.full((len(admits), 1), cache_mod.PRIORITY_ADMIT,
+                           dtype=torch.int8, device=dev)], 1)
+            cache.apply(torch.cat([dead, admit[:, None]], 1).reshape(-1),
+                        kinds.reshape(-1))
         n_reused = sum(reuse for _, _, reuse in plan)
         dropped = torch.tensor(keep, device=dev)
         dropped[[i for i, _, _ in plan]] = False
@@ -743,7 +750,7 @@ class Engine:
         stats = _delta_stats(IOCounters.zeros((b,), dev), per, rounds,
                              dropped)
         st = dataclasses.replace(
-            st, store=store, ent=ent, cache=host.state(),
+            st, store=store, ent=ent, cache=cache.state(),
             n_deleted=st.n_deleted - n_reused,
             free_count=st.free_count - n_reused,
             ctr_insert=merge_counters(st.ctr_insert, sum_counters(per)))
@@ -777,12 +784,12 @@ class Engine:
         written once) and empty the buffer.  Returns (merge OpStats, new
         state)."""
         spec = self.spec
-        host = cache_mod.HostCache(state.cache)
+        cache = cache_mod.open(state.cache)
         st = _owned(state)
         page_seen = torch.zeros((st.store.p_max,), dtype=torch.bool,
                                 device=self.device)
         for i in range(state.buf_count):
-            _, st, seen = self._insert_one(st, state.buf_vecs[i], host,
+            _, st, seen = self._insert_one(st, state.buf_vecs[i], cache,
                                            page_seen=page_seen)
             page_seen = page_seen | seen
         n_pages = -(-st.store.count // spec.lspec.per_page)
@@ -794,7 +801,7 @@ class Engine:
             pad_bytes_written=ctr.pad_bytes_written + n_pages * PAGE_BYTES)
         stats = _delta_stats(state.ctr_insert, ctr, torch.zeros(
             (), dtype=torch.int32, device=self.device))
-        return stats, dataclasses.replace(st, cache=host.state(),
+        return stats, dataclasses.replace(st, cache=cache.state(),
                                           ctr_insert=ctr, buf_count=0)
 
     # -- calibration (paper §5.2 warm-up) ----------------------------------

@@ -7,8 +7,8 @@ for the new vertex; it reuses :func:`search.disk_traverse` and reranks
 with CASR at ``s_pos`` or, in the baselines, with the full rerank (the
 whole pool by exact distance, then the first R).  :func:`position_seek`
 runs a wave of seeks batch-first against a frozen snapshot
-(``insert_many``'s phase ①) or one seek threaded through a
-:class:`cache.HostCache` (the sequential insert).
+(``insert_many``'s phase ①) or one seek threaded through a cache handle
+(:func:`cache.open`: the sequential insert).
 
 The structural update wires the new vertex to its neighbors, adds
 reciprocal edges (pruning the farthest edge by symmetric-PQ distance when
@@ -77,7 +77,7 @@ def select_neighbors(pool_ids: torch.Tensor, casr_res, r: int
 
 class StructuralResult(NamedTuple):
     store: GraphStore
-    cache: cache_mod.HostCache | None
+    cache: cache_mod.Handle | None
     counters: IOCounters | None
     n_wired: torch.Tensor       # reciprocal edges actually added
     modified: torch.Tensor      # [r] bool — which nbr edgelists changed
@@ -245,7 +245,7 @@ def _reserve(store: GraphStore, spec: LayoutSpec, k: int) -> torch.Tensor:
 
 
 def structural_update(store: GraphStore, spec: LayoutSpec,
-                      cache: cache_mod.HostCache | None,
+                      cache: cache_mod.Handle | None,
                       counters: IOCounters | None, new_vec: torch.Tensor,
                       nbrs: torch.Tensor, codes: torch.Tensor,
                       sym_tables: torch.Tensor,
@@ -277,9 +277,7 @@ def structural_update(store: GraphStore, spec: LayoutSpec,
             old, -1)
         if cache is not None and \
                 cache.policy != cache_mod.POLICIES["none"]:
-            for p in dead_pages.tolist():
-                if p >= 0:
-                    cache.invalidate(p)
+            cache.invalidate(dead_pages)        # -1 entries are skipped
     return StructuralResult(store, cache, counters, n_modified, modified,
                             dead_pages)
 
@@ -406,7 +404,7 @@ class SeekResult(NamedTuple):
 
 def position_seek(store: GraphStore, spec: LayoutSpec,
                   codec: pq_mod.PQCodec, codes: torch.Tensor,
-                  cache: cache_mod.CacheState | cache_mod.HostCache,
+                  cache: cache_mod.CacheState | cache_mod.Handle,
                   counters: IOCounters, new_vecs: torch.Tensor,
                   entry_ids: torch.Tensor, *, e_pos: int, k: int, s: int,
                   rerank: str = "casr", beam_width: int = 4,
@@ -420,8 +418,8 @@ def position_seek(store: GraphStore, spec: LayoutSpec,
     by :func:`select_neighbors`; ``"full"`` reranks the whole pool (one
     ``rerank_l2_rows`` launch) and takes its first R, in one rerank
     round.  No structural mutation.  A snapshot ``cache`` runs the wave
-    frozen (each lane records its trace); a :class:`cache.HostCache` runs
-    one seek threaded through it (the sequential insert).  ``page_seen``
+    frozen (each lane records its trace); a cache handle runs one seek
+    threaded through it (the sequential insert).  ``page_seen``
     and ``visited`` go to the traversal."""
     lut = pq_mod.adc_lut(codec, new_vecs)
     res = search_mod.disk_traverse(
@@ -454,7 +452,7 @@ def position_seek(store: GraphStore, spec: LayoutSpec,
 
 
 def commit_insert(store: GraphStore, spec: LayoutSpec,
-                  cache: cache_mod.HostCache | None, counters: IOCounters,
+                  cache: cache_mod.Handle | None, counters: IOCounters,
                   new_vec: torch.Tensor, nbrs: torch.Tensor,
                   codes: torch.Tensor, sym_tables: torch.Tensor,
                   new_id: int) -> StructuralResult:
@@ -481,7 +479,7 @@ class InsertResult(NamedTuple):
 
 def insert_vertex(store: GraphStore, spec: LayoutSpec,
                   codec: pq_mod.PQCodec, codes: torch.Tensor,
-                  sym_tables: torch.Tensor, cache: cache_mod.HostCache,
+                  sym_tables: torch.Tensor, cache: cache_mod.Handle,
                   counters: IOCounters, new_vec: torch.Tensor,
                   entry_ids: torch.Tensor, *, e_pos: int, k: int, s: int,
                   rerank: str = "casr", beam_width: int = 4,

@@ -373,10 +373,9 @@ def admit_entrance_pages(cache: cache_mod.CacheState, store: GraphStore,
     ids = ent.ids
     pages = torch.where(ids >= 0, store.edge_page[ids.clamp(min=0).long()],
                         -1)
-    host = cache_mod.HostCache(cache)
-    for page in pages.tolist():
-        host.priority_admit(page)
-    return host.state()
+    handle = cache_mod.open(cache)
+    handle.priority_admit(pages)          # -1 entries are skipped
+    return handle.state()
 
 
 def refresh_default_entries(key: torch.Tensor, vectors: torch.Tensor,

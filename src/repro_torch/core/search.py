@@ -16,10 +16,10 @@ fan-outs and the build) the lanes probe one cache snapshot with
 :func:`cache.lookup` and record the pages they charge, in order, for a
 later ordered replay.  In the threaded mode (the reference's
 ``frozen_cache=False``: ``Engine.search`` / ``insert`` and their batches)
-one lane runs against a :class:`cache.HostCache`, and each page it charges
-is one :meth:`~cache.HostCache.access` in beam-slot order, so a page that
-an earlier access of the same traversal evicted misses as it does in the
-reference.  That mode syncs with the host once a hop.  Per hop the ADC
+one lane runs against a cache handle (:func:`cache.open`), and each hop's
+charged pages go through its ``access`` in beam-slot order (on the card,
+one ``cache_ops`` launch a hop), so a page that an earlier access of the
+same traversal evicted misses as it does in the reference.  Per hop the ADC
 scoring and the pool merge go through the kernel layer
 (:mod:`repro_torch.kernels.ops`).
 
@@ -157,7 +157,7 @@ def _charge_page_read(counters: IOCounters, spec: LayoutSpec,
 
 
 def fetch_edgelists(store: GraphStore, spec: LayoutSpec,
-                    cache: cache_mod.CacheState | cache_mod.HostCache,
+                    cache: cache_mod.CacheState | cache_mod.Handle,
                     counters: IOCounters,
                     page_seen: visited_mod.VisitedSet, ids: torch.Tensor,
                     valid: torch.Tensor, trace: torch.Tensor | None,
@@ -170,8 +170,8 @@ def fetch_edgelists(store: GraphStore, spec: LayoutSpec,
     frozen branch) hits come from :func:`cache.lookup` and the charged
     pages are appended to ``trace`` (``[B, T + 1]``; the last column takes
     the writes of uncharged slots) at ``trace_n`` in slot order.  Against
-    a :class:`cache.HostCache` (the threaded branch, one lane) each charged
-    page is one access, in slot order, and ``trace`` stays None.  Returns
+    a cache handle (the threaded branch, one lane) the charged pages are
+    accessed in slot order, and ``trace`` stays None.  Returns
     (edges [B, W, R], counters, page_seen, trace, trace_n).
     """
     w = ids.shape[1]
@@ -183,12 +183,11 @@ def fetch_edgelists(store: GraphStore, spec: LayoutSpec,
     charged = valid & ~visited_mod.contains(page_seen, pages) & \
         ~eq_earlier.any(-1)
     n_charged = charged.sum(1)
-    if isinstance(cache, cache_mod.HostCache):
-        # boolean indexing keeps slot order: the accesses run as the
-        # reference's scan over the beam issues them
-        n_hit = torch.full((1,), sum(cache.access(p) for p in
-                                     pages[charged].tolist()),
-                           device=ids.device)
+    if not isinstance(cache, cache_mod.CacheState):
+        # the lane's slots in order, -1 where uncharged: the accesses run
+        # as the reference's scan over the beam issues them
+        n_hit = cache.access(torch.where(charged, pages, -1)).to(
+            n_charged.dtype)
     else:
         hit = cache_mod.lookup(cache, pages.clamp(min=0)) & charged
         n_hit = hit.sum(1)
@@ -279,7 +278,7 @@ def traversal_state_bytes(*, n_max: int, p_max: int, pool_size: int,
 
 def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
                   codes: torch.Tensor,
-                  cache: cache_mod.CacheState | cache_mod.HostCache,
+                  cache: cache_mod.CacheState | cache_mod.Handle,
                   counters: IOCounters, entry_ids: torch.Tensor, *,
                   pool_size: int, beam_width: int = 4, max_hops: int = 512,
                   page_seen=None, visited: str = "hash",
@@ -287,7 +286,7 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
     """Greedy beam search, one lane per LUT.
 
     ``cache`` is a snapshot (frozen mode: the lanes record traces) or a
-    :class:`cache.HostCache` (threaded mode, the reference's
+    handle from :func:`cache.open` (threaded mode, the reference's
     ``frozen_cache=False``: one lane, the cache evolves in place, no
     trace).  ``entry_ids`` [B, n_entry] main ids (-1 padded);
     ``counters`` [B].  A lane converges when no unexpanded candidate
@@ -299,7 +298,7 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
     ``visited_overflow``).
     """
     b, n_entry = entry_ids.shape
-    threaded = isinstance(cache, cache_mod.HostCache)
+    threaded = not isinstance(cache, cache_mod.CacheState)
     if threaded and b != 1:
         raise ValueError(f"the threaded traversal runs one lane, got {b}")
     dev = lut.device

@@ -100,9 +100,9 @@ def cache_from(ref, p_max: int | None = None,
         window_last=_t(_a(ref, "window_last"), device, torch.int32),
         frozen_pages=_t(_a(ref, "frozen_pages"), device, torch.int32),
         frozen_last=_t(_a(ref, "frozen_last"), device, torch.int32),
-        frozen_fill=int(_a(ref, "frozen_fill")),
-        clock_hand=int(_a(ref, "clock_hand")),
-        clock=int(_a(ref, "clock")),
+        frozen_fill=_t(_a(ref, "frozen_fill"), device, torch.int32),
+        clock_hand=_t(_a(ref, "clock_hand"), device, torch.int32),
+        clock=_t(_a(ref, "clock"), device, torch.int32),
         key=_t(_a(ref, "key").astype(np.int64), device, torch.int64))
 
 

@@ -37,6 +37,8 @@ SIGNATURES = {
     "rerank_l2_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rerank_l2_shared_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "casr_rerank_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "cache_replay_launch": [_P] * 13 + [_I] * 6 + [_P],
+    "cache_ops_launch": [_P] * 14 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

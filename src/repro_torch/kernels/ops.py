@@ -7,8 +7,11 @@ Entry points: ``adc_distance``, ``pool_merge`` (and
 ``rerank_l2`` (rows the caller holds, ``[B, S, D]``), ``rerank_l2_rows``
 (rows read in place by id, ``[B, S]`` ids into ``[N, D]``: the full
 rerank), ``rerank_l2_shared`` (every lane against the same ``[S, D]``
-rows: FreshDiskANN's buffer scan, tiled, the same row body) and
-``casr_rerank``.
+rows: FreshDiskANN's buffer scan, tiled, the same row body),
+``casr_rerank``, and the cache's serial state machine: ``cache_replay``
+(trace rows in wave order) and ``cache_ops`` (a stream of accesses,
+eviction hints and entrance admits), both in place on a ``CacheState``'s
+tensors (``CACHE_TABLES``).
 
 ==============  ===================================================
 tensor device   implementation
@@ -40,8 +43,21 @@ import torch
 from repro_torch.kernels import ref
 
 launches = {"pool_merge": 0, "adc_distance": 0, "rerank_l2": 0,
-            "rerank_l2_rows": 0, "rerank_l2_shared": 0, "casr_rerank": 0}
+            "rerank_l2_rows": 0, "rerank_l2_shared": 0, "casr_rerank": 0,
+            "cache_replay": 0, "cache_ops": 0}
 POOL_MERGE_MAX = 1024    # the merge kernel's width limit, P + Q
+# The CacheState tensors the cache kernels update in place, in the C
+# entries' order, with their dtypes and ranks
+CACHE_TABLES = (("status", torch.int8, 1), ("hits", torch.int32, 1),
+                ("slot_of", torch.int32, 1), ("window_pages", torch.int32, 1),
+                ("window_last", torch.int32, 1),
+                ("frozen_pages", torch.int32, 1),
+                ("frozen_last", torch.int32, 1),
+                ("frozen_fill", torch.int32, 0),
+                ("clock_hand", torch.int32, 0), ("clock", torch.int32, 0),
+                ("key", torch.int64, 1))
+ACCESS, INVALIDATE, PRIORITY_ADMIT = 0, 1, 2     # cache_ops' kinds
+CACHE_SMEM_MAX = 227 * 1024      # the region tables live in shared memory
 _plain_on_device = False
 _entry: dict = {}       # C entry point name -> ctypes function
 _raw_stream = None      # device index -> its current stream's handle
@@ -270,3 +286,72 @@ def casr_rerank(q, vectors, pool_ids, *, k: int, s: int):
               rounds.data_ptr(), b, p, d, n, k, s)
         launches["casr_rerank"] += 1
     return exact_d, loaded, topk_ids, topk_d, n_loaded, rounds
+
+
+def _check_cache(tables) -> tuple[int, int, int]:
+    """Check a cache state's tensors (``CACHE_TABLES``' order) for the
+    kernel; returns (W, F, P_max)."""
+    if len(tables) != len(CACHE_TABLES):
+        raise ValueError(f"cache kernels take {len(CACHE_TABLES)} tensors, "
+                         f"got {len(tables)}")
+    for t, (name, dtype, ndim) in zip(tables, CACHE_TABLES):
+        _check(t, name, dtype, ndim)
+    p, w, f = tables[0].shape[0], tables[3].shape[0], tables[5].shape[0]
+    if (tables[1].shape[0] != p or tables[2].shape[0] != p or
+            tables[4].shape[0] != w or tables[6].shape[0] != f or
+            tables[10].shape[0] != 2 or w < 1 or f < 1):
+        raise ValueError("cache tables: mismatched shapes")
+    if 8 * (w + f) > CACHE_SMEM_MAX:
+        raise ValueError(f"cache kernels: the region tables (W {w} + F {f} "
+                         f"slots) do not fit shared memory")
+    return w, f, p
+
+
+def _table_ptrs(tables) -> list[int]:
+    return [t.data_ptr() for t in tables]
+
+
+def cache_replay(policy: int, tables, traces: torch.Tensor) -> torch.Tensor:
+    """Replay trace rows ``traces`` [Q, T] int32 (each up to its first -1)
+    in wave order into the cache state ``tables`` (``CACHE_TABLES``'
+    order), in place.  Returns the replay's hit count, int32 [1]."""
+    if _use_plain(*tables, traces):
+        return ref.cache_apply(policy, tables, traces=traces)
+    w, f, p = _check_cache(tables)
+    _check(traces, "traces", torch.int32, 2)
+    q, t = traces.shape
+    out = traces.new_zeros((1,))
+    if q and t:
+        _call("cache_replay_launch", traces, *_table_ptrs(tables),
+              traces.data_ptr(), out.data_ptr(), q, t, w, f, p, int(policy))
+        launches["cache_replay"] += 1
+    return out
+
+
+def cache_ops(policy: int, tables, pages: torch.Tensor,
+              kinds: torch.Tensor | None = None,
+              kind: int = ACCESS) -> torch.Tensor:
+    """Run the operations ``pages`` [N] int32 (-1 skipped) of ``kinds`` [N]
+    int8 (``ACCESS``, ``INVALIDATE``, ``PRIORITY_ADMIT``; or ``kind`` for
+    all where ``kinds`` is None) in order on the cache state ``tables``, in
+    place.  Returns the accesses' hit count, int32 [1]."""
+    extra = () if kinds is None else (kinds,)
+    if _use_plain(*tables, pages, *extra):
+        return ref.cache_apply(policy, tables, pages=pages, kinds=kinds,
+                               kind=kind)
+    w, f, p = _check_cache(tables)
+    _check(pages, "pages", torch.int32, 1)
+    n = pages.shape[0]
+    if kinds is not None:
+        _check(kinds, "kinds", torch.int8, 1)
+        if kinds.shape[0] != n:
+            raise ValueError(f"cache_ops: {n} pages, {kinds.shape[0]} kinds")
+    if kind not in (ACCESS, INVALIDATE, PRIORITY_ADMIT):
+        raise ValueError(f"cache_ops: unknown kind {kind}")
+    out = pages.new_zeros((1,))
+    if n:
+        _call("cache_ops_launch", pages, *_table_ptrs(tables),
+              pages.data_ptr(), 0 if kinds is None else kinds.data_ptr(),
+              out.data_ptr(), n, int(kind), w, f, p, int(policy))
+        launches["cache_ops"] += 1
+    return out

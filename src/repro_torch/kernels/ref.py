@@ -15,7 +15,9 @@ is a stable argsort, the TPU kernel's rank definition.
 tensors, bit for bit what ``rerank_l2_rows_ref`` gives on those rows'
 ids).  ``casr_rerank_ref``
 is the CASR loop written batch-first over the rerank and merge plain
-versions.
+versions.  ``cache_apply`` is the cache kernels' plain version: the host
+state machine of :class:`repro_torch.core.cache.HostCache`, run on the
+state's tensors and written back into them.
 """
 from __future__ import annotations
 
@@ -127,3 +129,26 @@ def casr_rerank_ref(q, vectors, pool_ids, k: int, s: int, *,
     known_d = torch.where(loaded, exact_d, INF)
     topk_ids, topk_d = _topk(pool_ids, known_d, k, pool_merge)
     return exact_d, loaded, topk_ids, topk_d, n_loaded, rounds
+
+
+def cache_apply(policy: int, tables, *, traces=None, pages=None, kinds=None,
+                kind: int = 0) -> torch.Tensor:
+    """The cache kernels' plain version, with their signature: the state's
+    tensors ``tables`` (``ops.CACHE_TABLES``' order), then trace rows
+    ``traces`` [Q, T] (each up to its first -1) or an op stream ``pages``
+    [N] with ``kinds`` [N] (or ``kind`` for all), -1 pages skipped.  Runs
+    them on the host through :class:`~repro_torch.core.cache.HostCache`,
+    writes the new state back into ``tables`` in place and returns the hit
+    count, int32 [1] on the state's device."""
+    from repro_torch.core import cache as cache_mod   # core imports ops
+    host = cache_mod.HostCache(cache_mod.CacheState(
+        policy, **dict(zip(cache_mod.TABLES, tables))))
+    if traces is not None:
+        n_hit = host.replay_rows(traces.tolist())
+    else:
+        ks = ([kind] * pages.shape[0] if kinds is None else kinds.tolist())
+        n_hit = host.run(pages.tolist(), ks)
+    new = host.state()
+    for t, name in zip(tables, cache_mod.TABLES):
+        t.copy_(getattr(new, name))
+    return torch.tensor([n_hit], dtype=torch.int32, device=tables[0].device)

@@ -21,6 +21,8 @@ from repro.kernels.pq_adc import adc_distance_pallas
 from repro.kernels.rerank_l2 import rerank_l2_pallas
 from repro.kernels.topk_pool import pool_merge_pallas
 from repro_torch import interop
+from repro_torch import random as jr
+from repro_torch.core import cache as tcache
 from repro_torch.core import casr as tcasr
 from repro_torch.core.iomodel import IOCounters
 from repro_torch.core.layout import LayoutSpec
@@ -361,9 +363,16 @@ def test_cpu_tensors_never_launch():
                     torch.tensor([[0, 2, 1, -1]], dtype=torch.int32), k=2,
                     s=2)
     ops.rerank_l2_shared(torch.ones((1, 8)), torch.zeros((3, 8)), 2)
+    st = tcache.init_cache(16, 4, "navis", jr.PRNGKey(0), device="cpu")
+    tables = [getattr(st, n) for n in tcache.TABLES]
+    ops.cache_replay(st.policy, tables,
+                     torch.tensor([[1, 2, 1, -1]], dtype=torch.int32))
+    ops.cache_ops(st.policy, tables, torch.tensor([3, -1, 1],
+                                                  dtype=torch.int32))
     assert ops.launches == {"pool_merge": 0, "adc_distance": 0,
                             "rerank_l2": 0, "rerank_l2_rows": 0,
-                            "rerank_l2_shared": 0, "casr_rerank": 0}
+                            "rerank_l2_shared": 0, "casr_rerank": 0,
+                            "cache_replay": 0, "cache_ops": 0}
 
 
 def test_unsupported_devices_raise():
