@@ -122,6 +122,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_S = 67e12         # H100 SXM fp32 outside the tensor cores
 WAVE = 256                  # lanes per kernel check and per query wave
+PEAK_TF32_S = 495e12        # H100 SXM TF32 on the tensor cores, dense
 RERANK_RTOL, RERANK_ATOL = 1e-5, 1e-3
 # The cache kernels' check: every policy at the smoke's capacity (256
 # pages) and the engine's default (1,024), on WAVE trace rows as wide as
@@ -271,8 +272,9 @@ KERNELS = {
     # the same kernel reading its rows in place by id (the full rerank)
     "rerank_l2_rows": ("src/repro_torch/kernels/csrc/rerank_l2.cu",
                        "src/repro/kernels/rerank_l2.py:29"),
-    # every lane against the same rows, tiled, the row body's sums
-    # (FreshDiskANN's buffer scan)
+    # every lane against the same rows, q.x on the tensor cores behind a
+    # guard that recomputes near pairs with the row body (FreshDiskANN's
+    # buffer scan)
     "rerank_l2_shared": ("src/repro_torch/kernels/csrc/rerank_l2_shared.cu",
                          "src/repro/kernels/rerank_l2.py:29"),
     # on the main path, the rerank kernel together with CASR's group loop
@@ -443,6 +445,12 @@ def _is_kernel(key: str, name: str) -> bool:
     kernel's row reads ``void name_kernel<...>(...)``)."""
     key = key.removeprefix("void ")
     return key.startswith((name + "_kernel(", name + "_kernel<"))
+
+
+def cache_us_per_launch(profile: dict) -> dict:
+    """The cache kernels' device µs a launch in a ``profile_window``."""
+    return {k: ms * 1e3 / n for k, (ms, n) in profile["port_kernels"].items()
+            if k.startswith("cache_") and n}
 
 
 def profile_window(torch, fn) -> dict:
@@ -621,30 +629,62 @@ def _slot_ids(torch, b: int, n_rows: int, count: int):
         b, -1).contiguous()
 
 
-def _shared_grade(torch, q, rows, count: int, label: str) -> dict:
-    """``rerank_l2_shared`` on (q, rows, count): within the rerank grade
-    of its plain version, bit-equal to ``rerank_l2_rows`` (the row body)
-    on the same rows, INF past ``count`` (all gated); and the smallest d
-    against ``‖x‖² + ‖q‖²``, where the expanded form would cancel."""
+def _shared_grade(torch, q, rows, count: int, label: str,
+                  self_queries: bool = False) -> dict:
+    """``rerank_l2_shared`` on (q, rows, count), gated: within the rerank
+    grade of its plain version on every pair, INF past ``count``,
+    bit-equal to ``rerank_l2_rows`` (the row body) on every pair its guard
+    recomputed and on every pair whose exact d is under ``(SHARED_TAU - 2
+    SHARED_EPS) S`` (S = ``‖q'‖² + ‖x'‖²``, shifted by the mean of the
+    first 16 rows as the kernel shifts), the same result again with the
+    flags marked; with ``self_queries``, each query's smallest distance 0
+    (a buffered vector its own top hit).  Reported: the guard's flagged
+    share, and the unguarded form's largest error over ``SHARED_EPS S``
+    (the guard's premise: under 1)."""
     from repro_torch.kernels import ops, ref
+    b, n_s = q.shape[0], rows.shape[0]
     got = ops.rerank_l2_shared(q, rows, count)
     want = ref.rerank_l2_shared_ref(q, rows, count)
-    body = ops.rerank_l2_rows(q, rows, _slot_ids(torch, q.shape[0],
-                                                 rows.shape[0], count))
+    body = ops.rerank_l2_rows(q, rows, _slot_ids(torch, b, n_s, count))
+    flags = torch.zeros((b, n_s), dtype=torch.uint8, device="cuda")
+    marked = ops.rerank_l2_shared_guarded(q, rows, count, ops.SHARED_TAU,
+                                          flags)
+    raw = ops.rerank_l2_shared_guarded(q, rows, count, float("-inf"))
     torch.cuda.synchronize()
-    ok = bool(torch.allclose(got[:, :count], want[:, :count],
-                             rtol=RERANK_RTOL, atol=RERANK_ATOL)) and \
+    live = slice(0, count)
+    ok = bool(torch.allclose(got[:, live], want[:, live], rtol=RERANK_RTOL,
+                             atol=RERANK_ATOL)) and \
         bool((got[:, count:] == 3.4e38).all())
-    same = bool(torch.equal(got, body))
-    norms = (q * q).sum(1)[:, None] + (rows[:count] * rows[:count]).sum(1)
-    out = dict(max_abs_err=float((got[:, :count] - want[:, :count]).abs()
+    c = rows[:min(count, 16)].mean(0)
+    sn = ((q - c) ** 2).sum(1)[:, None] + ((rows[live] - c) ** 2).sum(1)
+    flagged = flags[:, live].bool()
+    near = want[:, live] <= (ops.SHARED_TAU - 2 * ops.SHARED_EPS) * sn
+    must = flagged | near
+    same = bool(torch.equal(got[:, live][must], body[:, live][must]))
+    again = bool(torch.equal(marked, got))
+    tol = RERANK_ATOL + RERANK_RTOL * want[:, live].abs()
+    raw_err = (raw[:, live] - want[:, live]).abs()
+    own_top = (not self_queries or
+               bool((got[:, live].min(1).values == 0).all()))
+    out = dict(max_abs_err=float((got[:, live] - want[:, live]).abs()
                                  .max()) if count else 0.0,
-               within_grade=ok, equal_to_row_body=same,
-               min_d_over_norms=float((want[:, :count] / norms).min())
+               within_grade=ok, flagged=int(flagged.sum()),
+               flagged_share=float(flagged.float().mean()) if count else 0.0,
+               near=int(near.sum()), near_unflagged=int((near & ~flagged)
+                                                       .sum()),
+               equal_to_row_body_where_flagged_or_near=same,
+               repeatable=again, own_top_hit=own_top,
+               unguarded_max_err_over_eps_s=float(
+                   (raw_err / (ops.SHARED_EPS * sn)).max()) if count
+               else 0.0,
+               unguarded_outside_grade=int((raw_err > tol).sum()),
+               min_d_over_norms=float((want[:, live] / sn).min())
                if count else None)
-    require(ok and same, f"rerank_l2_shared {label} outside rtol "
-            f"{RERANK_RTOL} / atol {RERANK_ATOL}, not INF past the count, "
-            f"or not bit-equal to rerank_l2_rows on the rows: {out}")
+    require(ok and same and again and own_top,
+            f"rerank_l2_shared {label} outside rtol {RERANK_RTOL} / atol "
+            f"{RERANK_ATOL}, not INF past the count, not bit-equal to "
+            f"rerank_l2_rows where flagged or near, not repeatable, or a "
+            f"buffered vector not its own top hit: {out}")
     return out
 
 
@@ -841,9 +881,10 @@ def phase_kernels(torch) -> dict:
     #    scan): buffer_256's lanes and rows, 200 of 256 in use, then a
     #    buffer of 4,096 with 10 and all in use, and
     #    4,096 near-duplicates queried by themselves plus noise (every pair
-    #    where the expanded form would cancel); within the rerank grade,
-    #    bit-equal to rerank_l2_rows on the slots' ids, INF past the count,
-    #    and rerank_l2_rows' time beside it --------------------------------
+    #    where the unshifted expanded form would cancel); within the rerank
+    #    grade, bit-equal to rerank_l2_rows on the slots' ids where the
+    #    guard recomputed and where d is near, INF past the count, and
+    #    rerank_l2_rows' time beside it -------------------------------------
     rows4k = vectors[:4096]
     q4k = (rows4k[torch.randint(0, 4096, (b,), generator=gen, device=dev)]
            + 0.5 * torch.randn((b, d), generator=gen, device=dev))
@@ -871,8 +912,18 @@ def phase_kernels(torch) -> dict:
             lambda q_=q_, rows_=rows_, c=count: torch.cdist(q_, rows_[:c]),
             n_bytes=count * d * 4 + b * d * 4 + b * n_s * 4,
             n_ops=3 * b * count * d)
+        # the kernel's products: three TF32 ones (2 b count d each) on the
+        # tensor cores; the difference form's fp32 operations beside them
+        t_tf32 = 6 * b * count * d / PEAK_TF32_S * 1e3
+        shared[case][1]["bound_fp32_ms"] = shared[case][0]["bound_ms"]
+        shared[case][0]["bound_ms"] = max(
+            t_tf32, (count * d * 4 + b * d * 4 + b * n_s * 4) /
+            PEAK_BYTES_S * 1e3)
+        shared[case][0]["bound_by"] = (
+            "operations" if shared[case][0]["bound_ms"] == t_tf32
+            else "bytes")
         shared[case][1].update(
-            rows=n_s, count=count,
+            rows=n_s, count=count, bound_3xtf32_ms=t_tf32,
             library_computes="torch.cdist(q, rows[:count]): the root",
             rerank_l2_rows_ms=time_ms(torch, by_id),
             rerank_l2_rows_device_ms=device_ms(torch, by_id),
@@ -893,7 +944,10 @@ def phase_kernels(torch) -> dict:
                                 "bit-equal to rerank_l2 on the rows "
                                 "gathered",
               "rerank_l2_shared": f"rtol {RERANK_RTOL} / atol "
-                                  f"{RERANK_ATOL}; INF past the count",
+                                  f"{RERANK_ATOL}; INF past the count; "
+                                  "bit-equal to rerank_l2_rows where the "
+                                  "guard recomputes and where d <= (tau - "
+                                  "2 eps) S",
               "casr_rerank": "ids, loads and rounds exact outside near "
                              f"ties; distances rtol {RERANK_RTOL} / atol "
                              f"{RERANK_ATOL}"}
@@ -1296,8 +1350,10 @@ def phase_fineweb(torch, n: int = FINEWEB_N, block: int = FINEWEB_BLOCK,
                 "fineweb: the card's cache differs from the host replay of "
                 "the wave's traces")
         all_ids.append(ids)
-    emit("fineweb_like:profile", **profile_window(
-        torch, lambda: eng.search_many(state, queries[:WAVE])))
+    profile = profile_window(torch,
+                             lambda: eng.search_many(state, queries[:WAVE]))
+    emit("fineweb_like:profile", **profile,
+         cache_us_per_launch=cache_us_per_launch(profile))
     truth = brute_force_topk(queries, vecs, n, 10)
     recall = recall_at_k(torch.cat(all_ids), truth)
     emit("fineweb_like", recall_at_10=recall, gated=False,
@@ -1415,17 +1471,26 @@ def phase_fineweb_update(torch, eng, state, cents, n_rounds: int = 4):
         _, _, _, state = eng.search(state, qs[i])
         torch.cuda.synchronize()
         seq_search_s.append(time.perf_counter() - t0)
+    # one more of each profiled (a cache_ops launch a hop), its state
+    # dropped
+    vs1, qs1 = insert_stream(gen, cents, 1, drift=0.2), query_stream(
+        gen, cents, 1)
+    seq_profile = profile_window(torch, lambda: eng.search(
+        eng.insert(state, vs1[0])[1], qs1[0]))
     emit("fineweb_like:update:sequential",
          insert_s=seq_insert_s, search_s=seq_search_s,
          mean_insert_s=sum(seq_insert_s) / 8,
          mean_search_s=sum(seq_search_s) / 8,
-         wave_s_per_insert=per_insert_s)
+         wave_s_per_insert=per_insert_s,
+         profile_port_kernels=seq_profile["port_kernels"],
+         cache_us_per_launch=cache_us_per_launch(seq_profile))
     # profiled on the state before the rounds: after them fewer than
     # WAVE slots are left
     vs = insert_stream(gen, cents, WAVE, drift=0.2)
     profile = profile_window(torch, lambda: eng.insert_many(state0, vs))
     emit("fineweb_like:update:profile", **profile,
-         timing=eng.last_wave_timing)
+         timing=eng.last_wave_timing,
+         cache_us_per_launch=cache_us_per_launch(profile))
     return state
 
 
@@ -1810,7 +1875,8 @@ def phase_ab_buffer(torch, eng, state, vs, qs) -> None:
     with the kernels and under plain_on_device() (``phase_ab``'s gates;
     ids ``n_max + slot`` read from the buffer)."""
     grades = {w: _shared_grade(torch, x, state.buf_vecs, state.buf_count,
-                               f"ab:presets:buffer:{w}")
+                               f"ab:presets:buffer:{w}",
+                               self_queries=w == "buffered")
               for w, x in (("buffered", vs), ("queries", qs))}
     emit("ab:presets:buffer:grade", buf_count=state.buf_count, **grades)
     half = vs.shape[0] // 2

@@ -18,12 +18,13 @@ its device, its scalars (``frozen_fill``, ``clock_hand``, ``clock``) as
 :func:`open` gives a handle on a state: a :class:`DeviceCache` for a CUDA
 state, which runs every call as one launch of the ``cache_replay`` /
 ``cache_ops`` kernel (``kernels/csrc/cache_replay.cu``) in place on its
-own copy of the tables, and a :class:`HostCache` for a CPU state, which
-runs the same state machine on the host (the kernels' plain version,
-``kernels.ref.cache_apply``).  Both take ``access`` (a threaded hop's
-charged pages), ``replay`` (a wave's traces), ``invalidate`` (eviction
-hints), ``priority_admit`` (entrance promotions) and ``apply`` (a stream
-of the three), skip ``-1`` pages, and pack the state with ``state()``.
+own copy of the tables (made once; ``state()`` hands it over), and a
+:class:`HostCache` for a CPU state, which runs the same state machine on
+the host (the kernels' plain version, ``kernels.ref.cache_apply``).
+Both take ``access`` (a threaded hop's charged pages), ``replay`` (a
+wave's traces), ``invalidate`` (eviction hints), ``priority_admit``
+(entrance promotions) and ``apply`` (a stream of the three), skip ``-1``
+pages, and pack the state with ``state()``.
 The sequential (threaded) paths, ``Engine.search`` / ``insert``, their
 batches and FreshDiskANN's merge, keep one handle for the whole
 operation; an insert wave's commits send their hints and admits as one
@@ -321,9 +322,11 @@ class HostCache:
 
 class DeviceCache:
     """The handle of a CUDA state: its own copy of the state's tensors
-    (cloned once, so the caller's state stays valid), updated in place by
-    one ``cache_replay`` or ``cache_ops`` launch per call, with no host
-    sync.  Hit counts come back as device tensors, int32 [1]."""
+    (cloned once, when it opens, so the caller's state stays valid),
+    updated in place by one ``cache_replay`` or ``cache_ops`` launch per
+    call, with no host sync.  Hit counts come back as device tensors,
+    int32 [1].  :meth:`state` hands those tensors to the state it returns,
+    with no second copy, and closes the handle."""
 
     def __init__(self, st: CacheState):
         self.policy = st.policy
@@ -331,8 +334,10 @@ class DeviceCache:
         self.tables = tuple(getattr(st, n).clone() for n in TABLES)
 
     def state(self) -> CacheState:
-        return CacheState(self.policy, **{n: t.clone() for n, t in
-                                          zip(TABLES, self.tables)})
+        tables, self.tables = self.tables, None
+        if tables is None:
+            raise RuntimeError("DeviceCache: state() was already taken")
+        return CacheState(self.policy, **dict(zip(TABLES, tables)))
 
     def _pages(self, pages) -> torch.Tensor:
         if isinstance(pages, torch.Tensor):

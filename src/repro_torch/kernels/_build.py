@@ -29,13 +29,15 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: every pointer and the stream are void*, every int an int
+_F = ctypes.c_float
+# C entry points: every pointer and the stream are void*, every int an int,
+# every float a float
 SIGNATURES = {
     "pool_merge_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "adc_distance_launch": [_P, _P, _P, _I, _I, _I, _P],
     "rerank_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
     "rerank_l2_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "rerank_l2_shared_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "rerank_l2_shared_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "casr_rerank_launch": [_P] * 9 + [_I] * 6 + [_P],
     "cache_replay_launch": [_P] * 13 + [_I] * 6 + [_P],
     "cache_ops_launch": [_P] * 14 + [_I] * 6 + [_P],

@@ -7,7 +7,8 @@ Entry points: ``adc_distance``, ``pool_merge`` (and
 ``rerank_l2`` (rows the caller holds, ``[B, S, D]``), ``rerank_l2_rows``
 (rows read in place by id, ``[B, S]`` ids into ``[N, D]``: the full
 rerank), ``rerank_l2_shared`` (every lane against the same ``[S, D]``
-rows: FreshDiskANN's buffer scan, tiled, the same row body),
+rows: FreshDiskANN's buffer scan, on the tensor cores behind a guard that
+recomputes near pairs with the row body),
 ``casr_rerank``, and the cache's serial state machine: ``cache_replay``
 (trace rows in wave order) and ``cache_ops`` (a stream of accesses,
 eviction hints and entrance admits), both in place on a ``CacheState``'s
@@ -46,6 +47,16 @@ launches = {"pool_merge": 0, "adc_distance": 0, "rerank_l2": 0,
             "rerank_l2_rows": 0, "rerank_l2_shared": 0, "casr_rerank": 0,
             "cache_replay": 0, "cache_ops": 0}
 POOL_MERGE_MAX = 1024    # the merge kernel's width limit, P + Q
+# rerank_l2_shared's guard (csrc/rerank_l2_shared.cu): the shifted expanded
+# form with q'.x' in 3xTF32 is within SHARED_EPS (||q'||^2 + ||x'||^2) of
+# the exact d; a pair with d^ <= SHARED_TAU (||q'||^2 + ||x'||^2) is
+# recomputed in the difference form, so every other pair is within the
+# rerank grade's rtol (RERANK_RTOL) and every pair with exact d <=
+# (SHARED_TAU - 2 SHARED_EPS) (||q'||^2 + ||x'||^2) is recomputed
+RERANK_RTOL, RERANK_ATOL = 1e-5, 1e-3
+SHARED_EPS = 2.0 ** -20
+SHARED_TAU = SHARED_EPS * (1 + 1 / RERANK_RTOL)
+SHARED_MAX_D = 8192      # the shift vector lives in shared memory
 # The CacheState tensors the cache kernels update in place, in the C
 # entries' order, with their dtypes and ranks
 CACHE_TABLES = (("status", torch.int8, 1), ("hits", torch.int32, 1),
@@ -57,7 +68,11 @@ CACHE_TABLES = (("status", torch.int8, 1), ("hits", torch.int32, 1),
                 ("clock_hand", torch.int32, 0), ("clock", torch.int32, 0),
                 ("key", torch.int64, 1))
 ACCESS, INVALIDATE, PRIORITY_ADMIT = 0, 1, 2     # cache_ops' kinds
-CACHE_SMEM_MAX = 227 * 1024      # the region tables live in shared memory
+# The cache kernels hold the region tables, the window's hits and list,
+# the map of resident pages and the drawn-ahead installs in shared memory
+# (at most 227 KB), so W + F <= 8,225 slots whatever the split
+# (csrc/cache_replay.cu, cache_smem_bytes)
+CACHE_SMEM_MAX = 227 * 1024
 _plain_on_device = False
 _entry: dict = {}       # C entry point name -> ctypes function
 _raw_stream = None      # device index -> its current stream's handle
@@ -183,27 +198,46 @@ def rerank_l2_shared(q: torch.Tensor, rows: torch.Tensor,
                      count: int) -> torch.Tensor:
     """q [B, D] f32; rows [S, D] f32, the same for every lane; count, a
     host int in [0, S] -> [B, S] exact squared L2 to rows ``< count``
-    (on the card bit-equal to ``rerank_l2_rows`` on those rows), INF from
-    row ``count`` on."""
+    (within the rerank grade; on the card bit-equal to ``rerank_l2_rows``
+    wherever the guard recomputes a pair, and on every pair with d under
+    ``(SHARED_TAU - 2 SHARED_EPS) (||q'||^2 + ||x'||^2)``), INF from row
+    ``count`` on."""
     if not 0 <= count <= rows.shape[0]:
         raise ValueError(f"rerank_l2_shared: count {count} outside "
                          f"[0, {rows.shape[0]}]")
     if _use_plain(q, rows):
         return ref.rerank_l2_shared_ref(q, rows, count)
+    return rerank_l2_shared_guarded(q, rows, count, SHARED_TAU)
+
+
+def rerank_l2_shared_guarded(q: torch.Tensor, rows: torch.Tensor,
+                             count: int, tau: float,
+                             flags: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """The kernel of :func:`rerank_l2_shared` on CUDA tensors with the
+    guard's threshold ``tau`` (``-inf``: no pair recomputed) and, where
+    ``flags`` (a zeroed ``[B, S]`` uint8) is given, each recomputed pair
+    marked 1 in it: ``chip_smoke.py`` measures the guard with these."""
     _check(q, "q", torch.float32, 2)
     _check(rows, "rows", torch.float32, 2)
     b, d = q.shape
     s = rows.shape[0]
-    if rows.shape[1] != d:
+    if rows.shape[1] != d or not 0 <= count <= s:
         raise ValueError(f"rerank_l2_shared shapes: q {tuple(q.shape)}, "
-                         f"rows {tuple(rows.shape)}")
-    if d % 4 or q.data_ptr() % 16 or rows.data_ptr() % 16:
-        raise ValueError("rerank_l2_shared: want D % 4 == 0 and 16-byte "
-                         "aligned q and rows")
+                         f"rows {tuple(rows.shape)}, count {count}")
+    if d % 4 or d > SHARED_MAX_D or q.data_ptr() % 16 or \
+            rows.data_ptr() % 16:
+        raise ValueError(f"rerank_l2_shared: want D % 4 == 0, D <= "
+                         f"{SHARED_MAX_D} and 16-byte aligned q and rows")
+    if flags is not None:
+        _check(flags, "flags", torch.uint8, 2)
+        if flags.shape != (b, s) or flags.device != q.device:
+            raise ValueError("rerank_l2_shared: flags must be [B, S]")
     out = q.new_empty((b, s))
     if b and s:
         _call("rerank_l2_shared_launch", q, q.data_ptr(), rows.data_ptr(),
-              out.data_ptr(), b, s, d, int(count))
+              out.data_ptr(), 0 if flags is None else flags.data_ptr(),
+              b, s, d, int(count), float(tau))
         launches["rerank_l2_shared"] += 1
     return out
 
@@ -288,6 +322,28 @@ def casr_rerank(q, vectors, pool_ids, *, k: int, s: int):
     return exact_d, loaded, topk_ids, topk_d, n_loaded, rounds
 
 
+def cache_smem_bytes(w: int, f: int) -> int:
+    """The cache kernels' shared memory for W window and F frozen slots, as
+    their ``Layout`` places it: 32 installs' draws (24 bytes each), the
+    input's next 32 entries, 8 counters, 32 leftovers of the map's
+    build, the map's keys and 2-byte locations in 5 (W + F) / 12 buckets of
+    4 slots, the window's pages, stamps and hits, the frozen pages and
+    stamps, the empty-slot bitmap's two levels, each location's slot, the
+    window list's two links; each table aligned to its element (a bucket
+    to 16 and 8 bytes), the whole to 16 bytes."""
+    r = w + f
+    nb = max((5 * r + 11) // 12, 2)
+    n_emp = -(-w // 32)
+    at = 0
+    for n, align in ((32 * 24, 8), (32 * 4, 4), (8 * 4, 4), (32 * 4, 4),
+                     (nb * 16, 16), (nb * 8, 8), (w * 4, 4), (w * 4, 4),
+                     (w * 4, 4), (f * 4, 4), (f * 4, 4), (n_emp * 4, 4),
+                     (-(-n_emp // 32) * 4, 4), (r * 2, 2), (w * 2, 2),
+                     (w * 2, 2)):
+        at = -(-at // align) * align + n
+    return -(-at // 16) * 16
+
+
 def _check_cache(tables) -> tuple[int, int, int]:
     """Check a cache state's tensors (``CACHE_TABLES``' order) for the
     kernel; returns (W, F, P_max)."""
@@ -301,9 +357,11 @@ def _check_cache(tables) -> tuple[int, int, int]:
             tables[4].shape[0] != w or tables[6].shape[0] != f or
             tables[10].shape[0] != 2 or w < 1 or f < 1):
         raise ValueError("cache tables: mismatched shapes")
-    if 8 * (w + f) > CACHE_SMEM_MAX:
-        raise ValueError(f"cache kernels: the region tables (W {w} + F {f} "
-                         f"slots) do not fit shared memory")
+    if p >= 1 << 29:
+        raise ValueError(f"cache kernels: P_max {p} >= 2**29 pages")
+    if cache_smem_bytes(w, f) > CACHE_SMEM_MAX:
+        raise ValueError(f"cache kernels: the region tables and the map of "
+                         f"W {w} + F {f} slots do not fit shared memory")
     return w, f, p
 
 

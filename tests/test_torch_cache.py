@@ -97,6 +97,105 @@ def test_op_stream_matches_reference(policy, cap):
                                        (pages >= 0)).sum())
 
 
+def _residency_premise(st) -> None:
+    """What the cache kernels' map of resident pages rests on (its
+    prologue traps where it fails): every page in window slot i has status
+    IN_WINDOW and slot_of i, every page in frozen slot j IN_FROZEN and j,
+    no page sits in two slots; and no other page has a status but
+    NOT_CACHED."""
+    g = interop.to_numpy(st)
+    status, slot_of = np.asarray(g["status"]), np.asarray(g["slot_of"])
+    listed = []
+    for region, want in (("window_pages", tcache.IN_WINDOW),
+                         ("frozen_pages", tcache.IN_FROZEN)):
+        pages = np.asarray(g[region])
+        slots = np.flatnonzero(pages >= 0)
+        np.testing.assert_array_equal(status[pages[slots]], want,
+                                      err_msg=region)
+        np.testing.assert_array_equal(slot_of[pages[slots]], slots,
+                                      err_msg=region)
+        listed.extend(pages[slots].tolist())
+    assert len(set(listed)) == len(listed)
+    assert int((status != tcache.NOT_CACHED).sum()) == len(listed)
+
+
+@pytest.mark.parametrize("cap", [30, 256])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_residency_premise_holds_on_every_state(policy, cap):
+    """The premise holds after every operation chunk of a stream of
+    accesses, hints and admits (the port's handle), after
+    ``invalidate_where`` and ``grow`` on the result, and on the
+    reference's state after the same stream, imported through
+    ``interop``."""
+    p_max = 4 * cap
+    kinds, pages = _stream(3 * cap + len(policy), cap, 12 * cap)
+    st = tcache.init_cache(p_max, cap, policy, jr.PRNGKey(13),
+                           device="cpu")
+    _residency_premise(st)
+    step = 3 * cap
+    for lo in range(0, pages.shape[0], step):
+        cache = tcache.open(st)
+        cache.apply(torch.from_numpy(pages[lo:lo + step]),
+                    torch.from_numpy(kinds[lo:lo + step]))
+        st = cache.state()
+        _residency_premise(st)
+    drop = torch.from_numpy(np.random.default_rng(cap).random(p_max) < 0.3)
+    _residency_premise(tcache.invalidate_where(st, drop))
+    grown = tcache.grow(st, p_max + 17)
+    _residency_premise(grown)
+    cache = tcache.open(grown)
+    cache.access(torch.tensor([p_max + 16, p_max, 3]))
+    _residency_premise(cache.state())
+    st_j = jcache.init_cache(p_max, cap, policy, jax.random.PRNGKey(13))
+    _, st_j = _ref_stream(st_j, jnp.asarray(kinds), jnp.asarray(pages))
+    _residency_premise(interop.cache_from(st_j, device="cpu"))
+
+
+@pytest.mark.parametrize("entry", ["apply_traces", "priority_admit",
+                                   "invalidate_pages"])
+def test_card_handle_copies_once_and_leaves_the_caller(entry, monkeypatch):
+    """Through the card's handle class (driven here over CPU tensors on
+    the plain route) each state entry leaves the caller's state as it was
+    and equals the host replay; the handle copies the tables once, when it
+    opens, and hands them to the state it returns."""
+    cap = 30
+    kinds, pages = _stream(17, cap, 200)
+    st = tcache.init_cache(4 * cap, cap, "navis", jr.PRNGKey(5),
+                           device="cpu")
+    host = tcache.open(st)
+    host.apply(torch.from_numpy(pages), torch.from_numpy(kinds))
+    st = host.state()
+    before = interop.to_numpy(st)
+    traces = torch.from_numpy(np.where(np.arange(40) < 30, pages[:40], -1)
+                              .astype(np.int32)[None].repeat(2, 0))
+    targets = [int(p) for p in np.asarray(before["frozen_pages"])
+               if p >= 0][:3] + [int(pages[3]), -1]
+    run = {"apply_traces": lambda: tcache.apply_traces(st, traces),
+           "priority_admit": lambda: tcache.priority_admit(st, 7),
+           "invalidate_pages": lambda: tcache.invalidate_pages(st,
+                                                               targets)}
+    want = run[entry]()
+    monkeypatch.setattr(tcache, "open", tcache.DeviceCache)
+    got = run[entry]()
+    if entry == "apply_traces":
+        assert int(got[0]) == int(want[0])
+        got, want = got[1], want[1]
+    _same_cache(got, want)
+    after = interop.to_numpy(st)
+    for name in before:
+        np.testing.assert_array_equal(after[name], before[name],
+                                      err_msg=name)
+    handle = tcache.DeviceCache(st)
+    tables = handle.tables
+    assert all(t.data_ptr() != getattr(st, n).data_ptr()
+               for t, n in zip(tables, tcache.TABLES))
+    handle.replay(traces)
+    out = handle.state()
+    assert all(getattr(out, n) is t for t, n in zip(tables, tcache.TABLES))
+    with pytest.raises(RuntimeError):
+        handle.state()
+
+
 @pytest.mark.parametrize("policy", POLICIES)
 def test_handle_calls_match_one_stream(policy):
     """``access``, ``invalidate`` and ``priority_admit`` on a handle, one

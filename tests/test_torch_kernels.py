@@ -295,6 +295,132 @@ def test_rerank_shared_count_outside_rows_raises(count):
                              count)
 
 
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna`` rounds it: half away from zero at
+    the 13th mantissa bit, the low 13 bits cut."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _truncate32(x):
+    """float64 sums to float32 toward zero: the tensor core's fp32
+    accumulation, taken at its worst (a truncating add)."""
+    t = x.astype(np.float32)
+    over = np.abs(t.astype(np.float64)) > np.abs(x)
+    t[over] = np.nextafter(t[over], np.float32(0))
+    return t
+
+
+def _shared_guard_mirror(q, rows, count, warps_k: int):
+    """The CUDA kernel's arithmetic for ``rerank_l2_shared`` on the host:
+    both sides shifted by the mean of the first min(count, 16) rows; D cut
+    in stages of 32 x ``warps_k`` elements, K-warp w summing elements 32 w
+    .. 32 w + 31 of each: each norm 8 fmaf squares a lane a stage, a tree
+    over 4 lanes, the stages added in order; q'.x' as lo.hi + hi.lo + hi.hi
+    TF32 products in steps of 8 elements (lane t: elements 4t, 4t + 1 and
+    then 4t + 2, 4t + 3 of each 16), a fresh truncating accumulator a
+    stage added into an fp32 total; the K-warps' sums combined in a
+    pairwise tree.  Returns (d^, S = ||q'||^2 + ||x'||^2, the guard's
+    flags with ``ops.SHARED_TAU``)."""
+    f32 = np.float32
+    x = rows[:count]
+    d = q.shape[1]
+    c = np.zeros(d, f32)
+    for r in range(min(count, 16)):
+        c = (c + x[r]).astype(f32)
+    c = (c * f32(1.0 / min(count, 16))).astype(f32)
+    qs, xs = (q - c).astype(f32), (x - c).astype(f32)
+    halves = [(_tf32(v), _tf32((v - _tf32(v)).astype(f32))) for v in (qs, xs)]
+    (qh, ql), (xh, xl) = halves
+    tot = np.zeros((warps_k, q.shape[0], count), f32)
+    nq = np.zeros((warps_k, q.shape[0]), f32)
+    nx = np.zeros((warps_k, count), f32)
+    for s0 in range(0, d, 32):
+        w = (s0 // 32) % warps_k
+        acc = np.zeros_like(tot[w])
+        for j in range(2):
+            for step in range(2):
+                ks = [s0 + 16 * j + 4 * t + 2 * step + e for t in range(4)
+                      for e in range(2)]
+                for a, b in ((ql, xh), (qh, xl), (qh, xh)):
+                    acc = _truncate32(acc.astype(np.float64) +
+                                      a[:, ks].astype(np.float64) @
+                                      b[:, ks].astype(np.float64).T)
+        tot[w] = (tot[w] + acc).astype(f32)
+        for v, n in ((qs, nq[w]), (xs, nx[w])):
+            lanes = np.zeros((v.shape[0], 4), f32)
+            for j in range(2):
+                for e in range(4):
+                    col = v[:, [s0 + 16 * j + 4 * t + e for t in range(4)]]
+                    lanes = (lanes.astype(np.float64) +
+                             col.astype(np.float64) ** 2).astype(f32)
+            pair = (lanes[:, [0, 2]] + lanes[:, [1, 3]]).astype(f32)
+            n[:] = (n + (pair[:, 0] + pair[:, 1]).astype(f32)).astype(f32)
+
+    def tree(v):
+        v = list(v)
+        h = 1
+        while h < len(v):
+            for i in range(0, len(v) - h, 2 * h):
+                v[i] = (v[i] + v[i + h]).astype(f32)
+            h *= 2
+        return v[0]
+    sn = (tree(nq)[:, None] + tree(nx)[None]).astype(f32)
+    dot = tree(tot)
+    dh = (sn.astype(np.float64) - 2.0 * dot.astype(np.float64)).astype(f32)
+    return dh, sn, dh <= (f32(ops.SHARED_TAU) * sn).astype(f32)
+
+
+def _guard_case(case: str):
+    """(queries, rows) at D = 768: FineWeb-like rows (24 clusters of
+    scale 3 and noise 1, norms ~7,680) against a query wave from the same
+    mixture or against themselves, or near-duplicates of one vector
+    queried by noisy copies."""
+    rng = np.random.default_rng(768)
+    d, n = 768, 128
+    if case == "near_duplicates":
+        rows = (rng.standard_normal(d) + 0.05 * rng.standard_normal(
+            (n, d))).astype(np.float32)
+        q = rows[rng.integers(0, n, 48)] + 0.05 * rng.standard_normal(
+            (48, d))
+        return q.astype(np.float32), rows
+    cents = rng.standard_normal((24, d)) * 3
+    draw = lambda m: (cents[rng.integers(0, 24, m)] +
+                      rng.standard_normal((m, d))).astype(np.float32)
+    rows = draw(n)
+    return (rows[:48].copy() if case == "fineweb_self" else draw(48)), rows
+
+
+@pytest.mark.parametrize("warps_k", [1, 8])
+@pytest.mark.parametrize("case", ["fineweb_queries", "fineweb_self",
+                                  "near_duplicates"])
+def test_rerank_shared_guard_arithmetic(case, warps_k):
+    """The card's guard rehearsed for both tile shapes (D summed by one
+    warp, or split over eight): with ``ops``' tau, every pair the shifted
+    3xTF32 form leaves unflagged is within rtol 1e-5 / atol 1e-3 of the
+    reference's rerank (vmapped over the lanes, rows shared); the form
+    stays within ``SHARED_EPS`` S of the exact d; every pair with exact d
+    under (tau - 2 eps) S is flagged (each self-pair); and on the
+    near-duplicates, which the shift spreads apart, almost none is."""
+    q, rows = _guard_case(case)
+    want = np.asarray(jax.vmap(jref.rerank_l2_ref, in_axes=(0, None))(
+        jnp.asarray(q), jnp.asarray(rows)))
+    dh, sn, flag = _shared_guard_mirror(q, rows, rows.shape[0], warps_k)
+    exact = ((q.astype(np.float64)[:, None] -
+              rows.astype(np.float64)[None]) ** 2).sum(-1)
+    assert np.abs(dh - exact).max() <= ops.SHARED_EPS * sn.min() or \
+        (np.abs(dh - exact) <= ops.SHARED_EPS * sn).all()
+    np.testing.assert_allclose(dh[~flag], want[~flag], rtol=ops.RERANK_RTOL,
+                               atol=ops.RERANK_ATOL)
+    near = exact <= (ops.SHARED_TAU - 2 * ops.SHARED_EPS) * sn
+    assert flag[near].all()
+    assert ops.SHARED_TAU == ops.SHARED_EPS * (1 + 1 / ops.RERANK_RTOL)
+    if case == "fineweb_self":
+        assert flag[np.arange(48), np.arange(48)].all()
+    if case == "near_duplicates":
+        assert flag.mean() <= 0.01
+
+
 def test_merge_buffer_hits_scores_through_the_shared_entry(monkeypatch):
     """FreshDiskANN's buffer scan calls ``rerank_l2_shared`` once a wave
     with the buffer and its count, and the by-id entry not at all; the
