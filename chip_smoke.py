@@ -10,7 +10,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version at the
 main path's shapes (the cache kernels, ``cache_replay`` and
 ``cache_ops``, bit for bit on every state field for each policy at 256
-and 1,024 pages), then drives eight paths, each with the launch counts
+and 1,024 pages; ``pool_merge`` bit for bit with each route it takes
+counted; ``casr_rerank`` on its ring and its direct route), times the
+merge and CASR by case (``kernel_timings``) and the smallest launch,
+then drives eight paths, each with the launch counts
 set to 0 just before it and read just after:
 
 - search: builds and searches a small index (the test suite's
@@ -113,6 +116,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -333,6 +337,38 @@ PATH_KERNELS = {
 # FreshDiskANN search waves the presets path ran (_scan_gate), each of
 # which must launch rerank_l2_shared exactly once
 BUFFER_SCANS = {"waves": 0}
+# pool_merge's checks (P, Q, kind of _merge_case), each bit for bit and
+# with the unsorted route taken by exactly the lanes whose pool is not
+# ascending (which sorted route a sorted pool takes is the kernel's own
+# tuning, and only has to be launched somewhere): the hop's (40, 192)
+# and the seek's (64, 192), the entrance's (32, 32), FreshDiskANN's
+# chunks of (10, 1,014), adversarial inputs, unsorted pools short and at
+# the limit, and a sorted one of 512; together they reach all three routes
+MERGE_CASES = ((40, 192, "grid"), (32, 32, "grid"), (10, 30, "grid"),
+               (64, 128, "grid"), (40, 192, "all_equal"),
+               (40, 192, "unsorted"), (40, 192, "signed_zero"),
+               (64, 8, "grid"), (512, 512, "unsorted"), (64, 192, "grid"),
+               (10, 1014, "grid"), (40, 192, "steady"), (64, 192, "steady"),
+               (10, 1014, "steady"), (16, 32, "unsorted"),
+               (512, 512, "grid"))
+# the merges and CASR calls whose device time kernel_timings reports
+MERGE_TIMED = ((40, 192, "grid"), (40, 192, "steady"), (64, 192, "grid"),
+               (64, 192, "steady"), (32, 32, "grid"), (10, 1014, "grid"),
+               (10, 1014, "steady"), (40, 192, "unsorted"),
+               (512, 512, "unsorted"))
+CASR_STORE = (100_000, 768)     # the synthetic store: FineWeb-like width
+CASR_WIDE_STORE = (2_000, 8_192)   # D at the wrapper's limit (65.5 MB)
+# (P, s, store, k): the hop's P 40 / s 4 and the seek's P 64 / s 8, the
+# longest chain of rounds (s 1), the wrapper's limit (P 256), a top-k past
+# 32 (its list in shared memory, not in the merge warp's registers), and
+# S 8 at D 8,192, where two stages of the ring do not fit (rows read
+# directly)
+CASR_CASES = ((40, 4, "narrow", 10), (64, 8, "narrow", 10),
+              (40, 1, "narrow", 10), (256, 8, "narrow", 10),
+              (64, 8, "narrow", 40), (64, 8, "wide", 10))
+CASR_K, CASR_DUP = 10, 2_000
+# what the kernels line carries besides the kernels (launch_floor_ms)
+KERNEL_LINE = {}
 # the five baselines; the presets path also runs navis with bitmaps
 BASELINES = ("freshdiskann", "odinann", "odinann_cache", "layout_only",
              "sel_vec")
@@ -503,8 +539,8 @@ def phase_env(torch) -> dict:
     _build.library()
     log = (lib.parent / "ptxas.log").read_text()
     usage = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    emit("build", seconds=time.perf_counter() - t0, library=str(
-        lib.relative_to(ROOT)), ptxas=usage)
+    emit("build", seconds=time.perf_counter() - t0,
+         library=os.path.relpath(lib, ROOT), ptxas=usage)
     return fields
 
 
@@ -536,9 +572,11 @@ def _kernel_record(torch, name, max_err, kernel, plain, library, n_bytes,
 def _merge_case(torch, gen, b: int, p: int, q: int, kind: str):
     """(pool_d, pool_ids, new_d, new_ids) for one merge check.  ``grid``:
     sorted pools with padded tails and new blocks with dropped entries,
-    distances on a 0.25 grid so ties occur; the adversarial kinds:
-    ``all_equal``, ``unsorted`` (pool in random order), ``signed_zero``
-    (-0.0 beside 0.0)."""
+    distances on a 0.25 grid so ties occur (most new entries can enter);
+    ``steady``: each pool the P smallest of 8 L draws from the same grid,
+    as a converged hop's pool or FreshDiskANN's top-k is (few can enter);
+    the adversarial kinds: ``all_equal``, ``unsorted`` (pool in random
+    order), ``signed_zero`` (-0.0 beside 0.0)."""
     dev = gen.device
     grid = lambda shape: torch.round(torch.rand(
         shape, generator=gen, device=dev) * 400) / 4
@@ -557,6 +595,9 @@ def _merge_case(torch, gen, b: int, p: int, q: int, kind: str):
         pool_d = torch.sort(pool_d, dim=1).values
         pool_d[:, p - p // 4:] = 3.4e38
         pool_i[:, p - p // 4:] = -1
+    elif kind == "steady":
+        pool_d = torch.sort(grid((b, 8 * (p + q))), dim=1).values[:, :p]
+        pool_d = pool_d.contiguous()
     drop = torch.rand((b, q), generator=gen, device=dev) < 0.2
     new_d[drop], new_i[drop] = 3.4e38, -1
     return pool_d, pool_i, new_d, new_i
@@ -585,6 +626,86 @@ def _casr_case(torch, gen, vectors, b: int, p: int, n_dup: int):
     pools[torch.arange(p, device=dev) >= p - tail] = -1
     pools[-1] = -1
     return q.contiguous(), pools.contiguous()
+
+
+def _casr_store(torch, gen, shape):
+    """A [N, D] store whose rows i < N // 2 up to CASR_DUP repeat at i +
+    N // 2 (exact ties that only the pool position can break)."""
+    n, d = shape
+    vectors = torch.randn((n, d), generator=gen, device="cuda")
+    n_dup = min(CASR_DUP, n // 2)
+    vectors[n // 2:n // 2 + n_dup] = vectors[:n_dup]
+    return vectors
+
+
+def _casr_dup(vectors) -> int:
+    return min(CASR_DUP, vectors.shape[0] // 2)
+
+
+def _casr_label(p: int, s: int, store: str, k: int = CASR_K) -> str:
+    return (f"p{p}_s{s}" + ("_d8192" if store == "wide" else "") +
+            ("" if k == CASR_K else f"_k{k}"))
+
+
+def _prefetched_rows(torch, pools, rounds, s: int, stages: int) -> int:
+    """Rows the ring read and CASR did not load: each lane's valid ids in
+    the groups issued past its last loaded one (min(G, rounds + stages -
+    1) groups issued, min(G, rounds) loaded)."""
+    p = pools.shape[1]
+    g_max = -(-p // s)
+    group = torch.arange(p, device=pools.device) // s
+    loaded = rounds.long().clamp(max=g_max)[:, None]
+    issued = (rounds.long() + max(stages - 1, 0)).clamp(max=g_max)[:, None]
+    past = (group[None] >= loaded) & (group[None] < issued) & (pools >= 0)
+    return int(past.sum())
+
+
+def kernel_timings(torch) -> dict:
+    """Device ms a call (the profiler's) of ``pool_merge`` at MERGE_TIMED
+    and of ``casr_rerank`` at CASR_CASES, CASR's P 40 / s 4 and
+    ``rerank_l2_rows`` on pools of 64 also with the L2 overwritten before
+    each call (``device_ms_cold``), and ``launch_floor_ms``: the smallest
+    launch, one ``zero_()`` of 256 floats.  Inputs come from a fixed seed
+    and only the wrappers' signatures are used, so ``tools/kernel_phase.py
+    --timings`` runs it on another checkout's kernels for a comparison in
+    one call."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(2222)
+    b = WAVE
+    floor = torch.zeros(256, device="cuda")
+
+    def device_time(fn):    # the profiler now and then records no kernel event
+        for _ in range(3):
+            ms = device_ms(torch, fn)
+            if isinstance(ms, float):
+                break
+        return ms
+
+    out = {"launch_floor_ms": device_time(floor.zero_),
+           "pool_merge": {}, "casr_rerank": {}, "rerank_l2_rows": {}}
+    for p, q, kind in MERGE_TIMED:
+        args = _merge_case(torch, gen, b, p, q, kind)
+        out["pool_merge"][f"{p}x{q}_{kind}"] = device_time(
+            lambda: ops.pool_merge(*args))
+    stores = {"narrow": _casr_store(torch, gen, CASR_STORE),
+              "wide": _casr_store(torch, gen, CASR_WIDE_STORE)}
+    for p, s, store, k in CASR_CASES:
+        vs = stores[store]
+        q, pools = _casr_case(torch, gen, vs, b, p, _casr_dup(vs))
+        label = _casr_label(p, s, store, k)
+        call = lambda: ops.casr_rerank(q, vs, pools, k=k, s=s)
+        out["casr_rerank"][label] = device_time(call)
+        if (p, s, store, k) in ((40, 4, "narrow", CASR_K),
+                                (64, 8, "narrow", CASR_K)):
+            out["casr_rerank"][label + "_cold_l2"] = device_ms_cold(
+                torch, call, "casr_rerank_kernel")
+        if (p, s, store, k) == (64, 8, "narrow", CASR_K):
+            rows = lambda: ops.rerank_l2_rows(q, vs, pools)
+            out["rerank_l2_rows"]["pools_p64"] = device_time(rows)
+            out["rerank_l2_rows"]["pools_p64_cold_l2"] = device_ms_cold(
+                torch, rows, "rerank_l2_rows_kernel")
+    emit("kernel:timings", **out)
+    return out
 
 
 def _distinct_rows(torch, pools, loaded) -> int:
@@ -698,23 +819,36 @@ def phase_kernels(torch) -> dict:
 
     # -- pool_merge: exact (distance bits and ids), ties and adversarial
     #    inputs included ------------------------------------------------
+    timings = kernel_timings(torch)
+    KERNEL_LINE["launch_floor_ms"] = timings["launch_floor_ms"]
     worst = 0.0
-    for p, q, kind in ((40, 192, "grid"), (32, 32, "grid"),
-                       (10, 30, "grid"), (64, 128, "grid"),
-                       (40, 192, "all_equal"), (40, 192, "unsorted"),
-                       (40, 192, "signed_zero"), (64, 8, "grid"),
-                       (512, 512, "unsorted")):
+    route_counts = {}
+    total_routes = torch.zeros(3, dtype=torch.int64, device=dev)
+    for p, q, kind in MERGE_CASES:
         args = _merge_case(torch, gen, b, p, q, kind)
-        kd, ki = ops.pool_merge(*args)
+        routes = torch.zeros(3, dtype=torch.int64, device=dev)
+        kd, ki = ops.pool_merge_with_routes(*args, routes)
         pd, pi = ref.pool_merge_ref(*args)
+        n_unsorted = int((args[0][:, :-1] > args[0][:, 1:]).any(1).sum())
         torch.cuda.synchronize()
         require(torch.equal(kd.view(torch.int32), pd.view(torch.int32)) and
                 torch.equal(ki, pi),
                 f"pool_merge ({p},{q}) {kind} differs from its plain version")
+        require(int(routes.sum()) == b and int(routes[2]) == n_unsorted,
+                f"pool_merge ({p},{q}) {kind} took routes {routes.tolist()} "
+                f"over {b} lanes, {n_unsorted} of them with an unsorted "
+                f"pool: want one route a lane, the unsorted one exactly "
+                f"there")
+        route_counts[f"{p}x{q}_{kind}"] = routes.tolist()
+        total_routes += routes
         worst = max(worst, float((kd - pd).abs().max()))
         if (p, q, kind) == (40, 192, "grid"):
             m_args = args
             cat_d = torch.cat([args[0], args[2]], 1)
+    emit("kernel:pool_merge:routes", routes=list(ops.POOL_MERGE_ROUTES),
+         by_case=route_counts, total=total_routes.tolist())
+    require(bool((total_routes > 0).all()),
+            f"pool_merge: a route never launched: {total_routes.tolist()}")
     # The merge must read L (distance, id) pairs and write P; its work is
     # sorting the Q new entries and one merge pass, about Q log2 Q + L
     # compares a lane (a kernel's own sort network is its choice).
@@ -726,6 +860,10 @@ def phase_kernels(torch) -> dict:
         lambda: torch.sort(cat_d, dim=1, stable=True),
         n_bytes=b * L * 8 + b * 40 * 8,
         n_ops=b * (192 * math.ceil(math.log2(192)) + L))
+    records["pool_merge"][1].update(
+        device_ms_by_case=timings["pool_merge"],
+        bound_ms_by_case={f"{p}x{q}_{kind}": b * (2 * p + q) * 8 /
+                          PEAK_BYTES_S * 1e3 for p, q, kind in MERGE_TIMED})
 
     # -- adc_distance: bit-exact -------------------------------------------
     m = 96
@@ -779,29 +917,47 @@ def phase_kernels(torch) -> dict:
         lambda: torch.cdist(r_args[0][:, None], r_args[1]),
         n_bytes=b * d * 4 + b * s * d * 4 + b * s * 4, n_ops=3 * b * s * d)
 
-    # -- casr_rerank: the fused group loop over a [100_000, 768] store ------
-    n, n_dup, k = 100_000, 2_000, 10
-    vectors = torch.randn((n, d), generator=gen, device=dev)
-    vectors[n // 2:n // 2 + n_dup] = vectors[:n_dup]
-    casr_grades = []
-    for p, s in ((40, 4), (64, 8)):
-        q, pools = _casr_case(torch, gen, vectors, b, p, n_dup)
-        got = ops.casr_rerank(q, vectors, pools, k=k, s=s)
-        want = ref.casr_rerank_ref(q, vectors, pools, k, s)
+    # -- casr_rerank: the fused group loop over a [100_000, 768] store, and
+    #    S 8 at D 8,192 (rows read directly) over a [2,000, 8,192] one ----
+    n_dup, k = CASR_DUP, CASR_K
+    vectors = _casr_store(torch, gen, CASR_STORE)
+    wide = None
+    casr_grades = {}
+    for p, s, store, k_ in CASR_CASES:
+        if store == "wide" and wide is None:
+            wide = _casr_store(torch, gen, CASR_WIDE_STORE)
+        vs = vectors if store == "narrow" else wide
+        q, pools = _casr_case(torch, gen, vs, b, p, _casr_dup(vs))
+        got = ops.casr_rerank(q, vs, pools, k=k_, s=s)
+        want = ref.casr_rerank_ref(q, vs, pools, k_, s)
+        by_id = ops.rerank_l2_rows(q, vs, pools)
         torch.cuda.synchronize()
+        label = _casr_label(p, s, store, k_)
         grade = _check_casr(torch, got, want, b)
-        emit(f"kernel:casr_rerank:check_p{p}_s{s}", **grade)
+        stages = ops.casr_rerank_stages(vs, p, k_, s)
+        body = bool(torch.equal(got[0][got[1]].view(torch.int32),
+                                by_id[got[1]].view(torch.int32)))
+        grade.update(ring_stages=stages, merge_in_registers=k_ <= 32,
+                     exact_d_equal_to_rerank_l2_rows_where_loaded=body)
+        emit(f"kernel:casr_rerank:check_{label}", **grade)
         require(grade["other_differing_lanes"] == 0 and
-                grade["exact_d_within_grade"],
-                f"casr_rerank (P={p}, s={s}) differs from its plain version "
-                f"outside near ties: {grade}")
-        casr_grades.append(grade)
-        if (p, s) == (40, 4):
+                grade["exact_d_within_grade"] and body,
+                f"casr_rerank ({label}) differs from its plain version "
+                f"outside near ties, or its exact_d from rerank_l2_rows' "
+                f"where loaded: {grade}")
+        require((stages == 0) == (store == "wide"),
+                f"casr_rerank ({label}) runs with {stages} ring stages: "
+                f"want rows read directly (0) exactly at D 8,192")
+        casr_grades[label] = grade
+        if (p, s, store, k_) == (40, 4, "narrow", k):
             c_args = (q, vectors, pools)
             loaded_rows = int(want[4].sum())
             distinct_rows = _distinct_rows(torch, pools, want[1])
+            c_stages = stages
+            c_past = _prefetched_rows(torch, pools, want[5], s, stages)
     rec, extra = _kernel_record(
-        torch, "casr_rerank", max(g["max_abs_err"] for g in casr_grades),
+        torch, "casr_rerank",
+        max(g["max_abs_err"] for g in casr_grades.values()),
         lambda: ops.casr_rerank(*c_args, k=k, s=4),
         lambda: ref.casr_rerank_ref(*c_args, k, 4),
         None,
@@ -816,13 +972,19 @@ def phase_kernels(torch) -> dict:
                              "data-dependent group loop")
     extra.update(loop_of_kernels_ms=time_ms(torch, pr6),
                  loop_of_kernels_device_ms=device_ms(torch, pr6),
-                 loaded_rows=loaded_rows, distinct_rows=distinct_rows)
+                 loaded_rows=loaded_rows, distinct_rows=distinct_rows,
+                 ring_stages=c_stages, rows_read_past_loads=c_past,
+                 bytes_read_past_loads=c_past * d * 4,
+                 device_ms_by_case=timings["casr_rerank"])
     records["casr_rerank"] = (rec, extra)
 
     # -- rerank_l2_rows: rows read by id from the same store; within the
     #    rerank grade of the plain version, and equal to rerank_l2 on the
     #    rows gathered (one row body) ---------------------------------------
     q64, pools64 = _casr_case(torch, gen, vectors, b, 64, n_dup)
+    rows_cold = device_ms_cold(
+        torch, lambda: ops.rerank_l2_rows(q64, vectors, pools64),
+        "rerank_l2_rows_kernel")
     buf = torch.arange(256, device=dev, dtype=torch.int32)
     buf_ids = torch.where(buf < 200, buf, -1)[None].expand(b, -1).contiguous()
     q_buf = (vectors[torch.randint(0, 200, (b,), generator=gen, device=dev)]
@@ -867,6 +1029,8 @@ def phase_kernels(torch) -> dict:
                 gather_cdist_ms=time_ms(torch, gather_cdist),
                 gather_cdist_device_ms=device_ms(torch, gather_cdist))
     rec, extra = rows["pools_p64"]
+    extra.update(device_ms_cold_l2=rows_cold,
+                 device_ms_by_case=timings["rerank_l2_rows"])
     extra["buffer_256"] = {
         k: v for k, v in {**rows["buffer_256"][0],
                           **rows["buffer_256"][1]}.items()
@@ -937,7 +1101,9 @@ def phase_kernels(torch) -> dict:
     records["rerank_l2_shared"] = (rec, extra)
     cache_records = phase_cache_kernels(torch)
 
-    grades = {"pool_merge": "exact (distance bits and ids)",
+    grades = {"pool_merge": "exact (distance bits and ids); the unsorted "
+                            "route exactly on unsorted pools, every route "
+                            "launched",
               "adc_distance": "bit-exact",
               "rerank_l2": f"rtol {RERANK_RTOL} / atol {RERANK_ATOL}",
               "rerank_l2_rows": f"rtol {RERANK_RTOL} / atol {RERANK_ATOL}; "
@@ -950,7 +1116,8 @@ def phase_kernels(torch) -> dict:
                                   "2 eps) S",
               "casr_rerank": "ids, loads and rounds exact outside near "
                              f"ties; distances rtol {RERANK_RTOL} / atol "
-                             f"{RERANK_ATOL}"}
+                             f"{RERANK_ATOL}, bit-equal to rerank_l2_rows "
+                             "where loaded"}
     out = {}
     for name, (rec, extra) in records.items():
         emit(f"kernel:{name}", lanes=b, grade=grades[name],
@@ -1558,7 +1725,8 @@ def phase_ab_update(torch, eng, state, cents, label: str = "ab:update",
             beam_width=spec.beam_width, max_hops=spec.max_hops,
             tombstone=state.tombstone, visited=spec.visited_impl)
 
-    seek_k = seek()
+    with _merge_routes(torch) as routes:
+        seek_k = seek()
     if time_casr:
         _time_casr_on_seek_pools(torch, vs, state.store.vectors,
                                  seek_k.pool_ids, spec.k, spec.s_pos)
@@ -1587,7 +1755,9 @@ def phase_ab_update(torch, eng, state, cents, label: str = "ab:update",
     n_differ = int(differ.sum())
     state_diff = _tree_diff(torch, st_k, st_p)
     stats_same = not _tree_diff(torch, stats_k, stats_p)
-    emit(label, inserts=WAVE, differing_seek_lanes=n_differ,
+    emit(label, inserts=WAVE,
+         seek_merge_routes=_routes_line(torch, routes),
+         differing_seek_lanes=n_differ,
          near_tie_lanes_among_them=int((differ & near).sum()),
          near_tie_lanes=int(near.sum()), committed_state_diff=state_diff,
          opstats_identical=stats_same,
@@ -2462,13 +2632,71 @@ def _pq_scan_recall(torch, eng, state, qs, truth, n: int, depth: int):
     return float(hits.float().mean())
 
 
+@contextlib.contextmanager
+def _merge_routes(torch):
+    """While open, ``ops.pool_merge`` launches through
+    ``pool_merge_with_routes`` (the same kernel, the same results, one
+    launch counted as before), adding each lane's route to the int64 [3]
+    of its (P, Q) in the dict it yields: which routes a path's merges
+    take.  Each call also records, on the device, its lanes whose pool
+    still ends in padding (3.4e38: a search's first hops) and the new
+    entries below each pool's largest (the survivors the kernel places).
+    Only around calls that run the kernels."""
+    from repro_torch.kernels import ops
+    by_shape = {}
+    kernel = ops.pool_merge
+
+    def counted(pool_d, pool_ids, new_d, new_ids):
+        key = f"{pool_d.shape[1]}x{new_d.shape[1]}"
+        acc = by_shape.setdefault(key, {
+            "routes": torch.zeros(3, dtype=torch.int64,
+                                  device=pool_d.device), "calls": []})
+        top = pool_d[:, -1:]
+        padded = top[:, 0] >= 3.4e38
+        survivors = (new_d < top).sum(1)
+        acc["calls"].append(torch.stack([
+            padded.sum(), (survivors * padded).sum(), survivors.sum(),
+            torch.tensor(pool_d.shape[0], device=pool_d.device)]))
+        return ops.pool_merge_with_routes(pool_d, pool_ids, new_d, new_ids,
+                                          acc["routes"])
+    ops.pool_merge = counted
+    try:
+        yield by_shape
+    finally:
+        ops.pool_merge = kernel
+
+
+def _routes_line(torch, by_shape: dict) -> dict:
+    """By (P, Q): the lanes each route took, the merges and lanes, the
+    lanes whose pool ended in padding (in all, and merge by merge) and the
+    mean survivors of those lanes and of the others."""
+    from repro_torch.kernels import ops
+    out = {}
+    for key, acc in sorted(by_shape.items()):
+        calls = torch.stack(acc["calls"]).tolist()
+        padded = sum(c[0] for c in calls)
+        lanes = sum(c[3] for c in calls)
+        out[key] = {
+            **dict(zip(ops.POOL_MERGE_ROUTES, acc["routes"].tolist())),
+            "merges": len(calls), "lanes": lanes, "padded_lanes": padded,
+            "padded_lanes_by_merge": [c[0] for c in calls],
+            "mean_survivors_padded": sum(c[1] for c in calls) / padded
+            if padded else None,
+            "mean_survivors_other": (sum(c[2] - c[1] for c in calls) /
+                                     (lanes - padded))
+            if lanes > padded else None}
+    return out
+
+
 def phase_ab(torch, eng, state, qs, vecs, label: str = "ab") -> None:
     """One wave with the kernels, then under plain_on_device(): ids equal
     outside near ties, distances within the rerank grade, and each query
     whose ids are equal with the same I/O (reads, bytes, serial rounds,
-    cache hits and misses)."""
+    cache hits and misses).  The kernels' wave also counts the merge
+    kernel's routes by shape (``merge_routes``)."""
     from repro_torch.kernels import ops
-    ids_k, d_k, st_k, state_k = eng.search_many(state, qs)
+    with _merge_routes(torch) as routes:
+        ids_k, d_k, st_k, state_k = eng.search_many(state, qs)
     torch.cuda.synchronize()
     before = dict(ops.launches)
     with ops.plain_on_device():
@@ -2500,7 +2728,8 @@ def phase_ab(torch, eng, state, qs, vecs, label: str = "ab") -> None:
          near_tie_slots=near_ties, dists_within_tolerance=d_ok,
          queries_with_equal_ids=int(same_q.sum()),
          equal_io_among_them=int((io_same & same_q).sum()),
-         cache_diff=cache_diff, launch_counts_flat_under_plain=flat)
+         cache_diff=cache_diff, launch_counts_flat_under_plain=flat,
+         merge_routes=_routes_line(torch, routes))
     require(flat, f"{label}: kernels launched under plain_on_device()")
     require(not cache_diff, f"{label}: the replayed cache differs under the "
             f"plain path: {cache_diff}")
@@ -4109,7 +4338,7 @@ def main() -> int:
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}
     faulthandler.cancel_dump_traceback_later()
     emit("smoke", seconds=time.perf_counter() - T_START)
-    print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"kernels": list(records.values()), **KERNEL_LINE}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,12 +33,13 @@ _F = ctypes.c_float
 # C entry points: every pointer and the stream are void*, every int an int,
 # every float a float
 SIGNATURES = {
-    "pool_merge_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pool_merge_launch": [_P] * 7 + [_I] * 3 + [_P],
     "adc_distance_launch": [_P, _P, _P, _I, _I, _I, _P],
     "rerank_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
     "rerank_l2_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rerank_l2_shared_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "casr_rerank_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "casr_rerank_stages": [_P] + [_I] * 4,
     "cache_replay_launch": [_P] * 13 + [_I] * 6 + [_P],
     "cache_ops_launch": [_P] * 14 + [_I] * 6 + [_P],
 }

@@ -10,7 +10,9 @@
 // 16-byte aligned with D % 4 == 0 are read as float4 (each lane takes four
 // neighbouring elements, lanes on neighbouring 16 bytes); other rows one
 // float at a time.  The path depends only on D and the alignment, so a
-// row's value does not depend on which kernel computed it.
+// row's value does not depend on which kernel computed it, nor on whether
+// casr_rerank.cu read the row from device memory or from its ring of
+// rows in shared memory (row_sqdist_shared: the same float4 body).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -22,32 +24,51 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The float4 body: lane k sums elements 4k .. 4k + 3, 4(k + 32) .. of the
+// row, in that order, through fmaf; x read through the read-only path
+// from device memory (kGlobal) or from shared memory.
+template <bool kGlobal>
+__device__ __forceinline__ float row_sqdist4(const float4* __restrict__ x4,
+                                             const float4* __restrict__ q4,
+                                             int D, int lane) {
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int k = lane; k < (D >> 2); k += 32) {
+    const float4 a = kGlobal ? __ldg(x4 + k) : x4[k];
+    const float4 b = q4[k];
+    float t = a.x - b.x;
+    acc = fmaf(t, t, acc);
+    t = a.y - b.y;
+    acc = fmaf(t, t, acc);
+    t = a.z - b.z;
+    acc = fmaf(t, t, acc);
+    t = a.w - b.w;
+    acc = fmaf(t, t, acc);
+  }
+  return warp_sum(acc);
+}
+
 __device__ __forceinline__ float row_sqdist(const float* __restrict__ x,
                                             const float* __restrict__ q,
                                             int D, int lane) {
-  float acc = 0.0f;
   if ((D & 3) == 0 && ((reinterpret_cast<uintptr_t>(x) |
-                        reinterpret_cast<uintptr_t>(q)) & 15) == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-#pragma unroll 4
-    for (int k = lane; k < (D >> 2); k += 32) {
-      const float4 a = __ldg(x4 + k);
-      const float4 b = q4[k];
-      float t = a.x - b.x;
-      acc = fmaf(t, t, acc);
-      t = a.y - b.y;
-      acc = fmaf(t, t, acc);
-      t = a.z - b.z;
-      acc = fmaf(t, t, acc);
-      t = a.w - b.w;
-      acc = fmaf(t, t, acc);
-    }
-  } else {
-    for (int k = lane; k < D; k += 32) {
-      const float t = __ldg(x + k) - q[k];
-      acc = fmaf(t, t, acc);
-    }
+                        reinterpret_cast<uintptr_t>(q)) & 15) == 0)
+    return row_sqdist4<true>(reinterpret_cast<const float4*>(x),
+                             reinterpret_cast<const float4*>(q), D, lane);
+  float acc = 0.0f;
+  for (int k = lane; k < D; k += 32) {
+    const float t = __ldg(x + k) - q[k];
+    acc = fmaf(t, t, acc);
   }
   return warp_sum(acc);
+}
+
+// row_sqdist of a row held in shared memory (16-byte aligned, D % 4 == 0,
+// as the float4 body wants): the same sums in the same order, so the same
+// value as the row read from device memory.
+__device__ __forceinline__ float row_sqdist_shared(const float* x,
+                                                   const float* q, int D,
+                                                   int lane) {
+  return row_sqdist4<false>(reinterpret_cast<const float4*>(x),
+                            reinterpret_cast<const float4*>(q), D, lane);
 }

@@ -3,13 +3,16 @@
 ``repro/core/casr.py`` around the reference's rerank and merge kernels).
 
 Entry points: ``adc_distance``, ``pool_merge`` (and
-``pool_merge_chunked``, successive merges within the kernel's width),
+``pool_merge_chunked``, successive merges within the kernel's width;
+``pool_merge_with_routes`` counts the kernel's route by lane),
 ``rerank_l2`` (rows the caller holds, ``[B, S, D]``), ``rerank_l2_rows``
 (rows read in place by id, ``[B, S]`` ids into ``[N, D]``: the full
 rerank), ``rerank_l2_shared`` (every lane against the same ``[S, D]``
 rows: FreshDiskANN's buffer scan, on the tensor cores behind a guard that
 recomputes near pairs with the row body),
-``casr_rerank``, and the cache's serial state machine: ``cache_replay``
+``casr_rerank`` (its rows prefetched a group ahead through a ring in
+shared memory; ``casr_rerank_stages`` says which route a call takes), and
+the cache's serial state machine: ``cache_replay``
 (trace rows in wave order) and ``cache_ops`` (a stream of accesses,
 eviction hints and entrance admits), both in place on a ``CacheState``'s
 tensors (``CACHE_TABLES``).
@@ -47,6 +50,11 @@ launches = {"pool_merge": 0, "adc_distance": 0, "rerank_l2": 0,
             "rerank_l2_rows": 0, "rerank_l2_shared": 0, "casr_rerank": 0,
             "cache_replay": 0, "cache_ops": 0}
 POOL_MERGE_MAX = 1024    # the merge kernel's width limit, P + Q
+# the merge kernel's routes, by lane (csrc/pool_merge.cu): a sorted pool
+# (every caller's) ranks the new entries below its largest by counting, or
+# sends all P + Q keys through the sort network where they are too many;
+# an unsorted one sorts all P + Q keys
+POOL_MERGE_ROUTES = ("sorted_count", "sorted_network", "unsorted")
 # rerank_l2_shared's guard (csrc/rerank_l2_shared.cu): the shifted expanded
 # form with q'.x' in 3xTF32 is within SHARED_EPS (||q'||^2 + ||x'||^2) of
 # the exact d; a pair with d^ <= SHARED_TAU (||q'||^2 + ||x'||^2) is
@@ -247,6 +255,17 @@ def pool_merge(pool_d, pool_ids, new_d, new_ids):
     and stable on ties -> (d [B, P] f32, ids [B, P] int32)."""
     if _use_plain(pool_d, pool_ids, new_d, new_ids):
         return ref.pool_merge_ref(pool_d, pool_ids, new_d, new_ids)
+    return pool_merge_with_routes(pool_d, pool_ids, new_d, new_ids)
+
+
+def pool_merge_with_routes(pool_d, pool_ids, new_d, new_ids, routes=None):
+    """The kernel of :func:`pool_merge` on CUDA tensors, adding each lane's
+    route to ``routes`` (a zeroed int64 ``[3]`` on the device, or None),
+    in the order of ``POOL_MERGE_ROUTES``.  The route changes the
+    kernel's speed, never its result; ``chip_smoke.py`` shows every route
+    launched with it."""
+    if not all(t.is_cuda for t in (pool_d, pool_ids, new_d, new_ids)):
+        raise ValueError("pool_merge_with_routes: CUDA tensors only")
     for t, name, dt in ((pool_d, "pool_d", torch.float32),
                         (pool_ids, "pool_ids", torch.int32),
                         (new_d, "new_d", torch.float32),
@@ -259,12 +278,19 @@ def pool_merge(pool_d, pool_ids, new_d, new_ids):
         raise ValueError("pool_merge: mismatched shapes")
     if p + q > POOL_MERGE_MAX:
         raise ValueError(f"pool_merge: P + Q = {p + q} > {POOL_MERGE_MAX}")
+    if routes is not None:
+        _check(routes, "routes", torch.int64, 1)
+        if routes.shape != (len(POOL_MERGE_ROUTES),) or \
+                routes.device != pool_d.device:
+            raise ValueError("pool_merge: routes must be int64 [3] on the "
+                             "inputs' device")
     out_d = pool_d.new_empty((b, p))
     out_i = pool_ids.new_empty((b, p))
     if b and p:
         _call("pool_merge_launch", pool_d, pool_d.data_ptr(),
               pool_ids.data_ptr(), new_d.data_ptr(), new_ids.data_ptr(),
-              out_d.data_ptr(), out_i.data_ptr(), b, p, q)
+              out_d.data_ptr(), out_i.data_ptr(),
+              0 if routes is None else routes.data_ptr(), b, p, q)
         launches["pool_merge"] += 1
     return out_d, out_i
 
@@ -320,6 +346,17 @@ def casr_rerank(q, vectors, pool_ids, *, k: int, s: int):
               rounds.data_ptr(), b, p, d, n, k, s)
         launches["casr_rerank"] += 1
     return exact_d, loaded, topk_ids, topk_d, n_loaded, rounds
+
+
+def casr_rerank_stages(vectors: torch.Tensor, p: int, k: int, s: int) -> int:
+    """The ring stages :func:`casr_rerank`'s kernel runs with for a store
+    ``vectors`` on the card, pools of ``p``, top-``k`` and groups of
+    ``s``: two (one group prefetched past the one a round consumes), or 0
+    where it reads each group's rows straight from device memory."""
+    if not _entry:
+        _resolve()
+    return int(_entry["casr_rerank_stages"](
+        vectors.data_ptr(), p, vectors.shape[1], k, s))
 
 
 def cache_smem_bytes(w: int, f: int) -> int:

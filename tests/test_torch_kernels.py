@@ -103,6 +103,167 @@ def test_pool_merge_plain_adversarial(case):
         np.testing.assert_array_equal(got_i[0].numpy(), want_i)
 
 
+def _order_keys(d, pos):
+    """order_key.cuh on the host: the order-preserving bits of d (-0.0 as
+    +0.0) over the position, as uint64."""
+    u = np.asarray(d, np.float32).view(np.uint32).copy()
+    u[(u & 0x7FFFFFFF) == 0] = 0
+    u = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+    return (u << np.uint64(32)) | np.asarray(pos, np.uint64)
+
+
+def _bitonic(keys):
+    """The kernel's sort network on the host: bitonic over 2^n >= 32
+    elements padded with all-ones keys (the kernel's threads, one key
+    each), element e compared with e ^ j at stage (k, j), ascending where
+    e & k == 0."""
+    n = max(32, 1 << max(len(keys) - 1, 0).bit_length())
+    v = np.full(n, np.uint64(2 ** 64 - 1))
+    v[:len(keys)] = keys
+    e = np.arange(n)
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j:
+            lo = e[(e & j) == 0]
+            a, b = v[lo], v[lo | j]
+            up = (lo & k) == 0
+            swap = np.where(up, a > b, a < b)
+            v[lo] = np.where(swap, b, a)
+            v[lo | j] = np.where(swap, a, b)
+            j //= 2
+        k *= 2
+    return v
+
+
+def _merge_mirror(pool_d, pool_i, new_d, new_i):
+    """csrc/pool_merge.cu on the host for one lane.  The route: the pool is
+    sorted when each of its keys lies below the next.  Sorted: the n new
+    keys below the pool's largest survive; unless n (n + P) > 3 N
+    log2(N)^2 (N, the threads: the power of two >= L, at least 32), a
+    survivor's place is the survivors below it (counted) and the pool
+    keys below it (a binary search), a pool key's its index and the
+    survivors below it.  Otherwise: all L keys through the bitonic
+    network, the first P kept.  Returns (d, ids, route index into
+    ops.POOL_MERGE_ROUTES)."""
+    p = len(pool_d)
+    d = np.concatenate([pool_d, new_d]).astype(np.float32)
+    ids = np.concatenate([pool_i, new_i])
+    keys = _order_keys(d, np.arange(len(d)))
+    pk = keys[:p]
+    n_threads = max(32, 1 << (len(d) - 1).bit_length())
+    lg = n_threads.bit_length() - 1
+    cand = keys[p:]
+    survivors = cand[cand < pk[-1]]
+    n = len(survivors)
+    is_sorted = bool(np.all(pk[:-1] < pk[1:]))
+    if not is_sorted or n * (n + p) > 3 * n_threads * lg * lg:
+        out = _bitonic(keys)[:p]
+        pos = (out & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        return d[pos], ids[pos], 1 if is_sorted else 2
+    out = np.zeros(p, np.uint64)
+    filled = np.zeros(p, np.int64)
+    for key in survivors:
+        r = (survivors < key).sum() + np.searchsorted(pk, key)
+        if r < p:
+            out[r], filled[r] = key, filled[r] + 1
+    for i, key in enumerate(pk):
+        r = i + (survivors < key).sum()
+        if r < p:
+            out[r], filled[r] = key, filled[r] + 1
+    assert (filled == 1).all(), "a slot not written exactly once"
+    pos = (out & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return d[pos], ids[pos], 0
+
+
+def _route_case(case):
+    """One lane's (pool_d, pool_ids, new_d, new_ids) for the mirror: ties
+    on the 0.25 grid (few survivors, or an INF-padded pool that lets most
+    in), -0.0 beside 0.0, 3.4e38 ties between different ids, unsorted
+    pools (short, long, and a wide P), a pool sorted but for its last
+    pair, P > Q, L = 1,024 (sorted and not), and FreshDiskANN's chunks of
+    (10, 1,014) with a converged and an INF-padded pool."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    p, q = {"grid_few": (40, 192), "grid_many": (40, 192),
+            "grid_64_192": (64, 192), "signed_zero": (40, 192),
+            "inf_ties": (40, 192), "unsorted_short": (10, 30),
+            "unsorted_long": (40, 192), "unsorted_wide": (100, 300),
+            "last_pair_swapped": (40, 192),
+            "p_greater_than_q": (64, 8), "l1024_sorted": (512, 512),
+            "l1024_unsorted": (24, 1000), "chunk_few": (10, 1014),
+            "chunk_many": (10, 1014)}[case]
+    grid = lambda m: (np.round(rng.random(m) * 80) / 4).astype(np.float32)
+    ids = rng.permutation(10 ** 5)[:p + q].astype(np.int32)
+    new_d = grid(q)
+    if case in ("grid_few", "grid_64_192", "chunk_few", "p_greater_than_q"):
+        pool_d = np.sort(grid(8 * (p + q)))[:p]
+    elif case == "signed_zero":
+        pool_d = np.sort(grid(p)) * (rng.random(p) < 0.5)
+        pool_d[rng.random(p) < 0.5] *= -1
+        new_d[rng.random(q) < 0.3] = 0.0
+        new_d[rng.random(q) < 0.3] = -0.0
+        pool_d = pool_d[np.argsort(pool_d, kind="stable")]
+    elif case == "inf_ties":
+        pool_d = np.sort(grid(p))
+        pool_d[p - p // 4:] = INF
+        new_d[rng.random(q) < 0.6] = INF
+    elif case in ("unsorted_short", "unsorted_long", "unsorted_wide",
+                  "l1024_unsorted"):
+        pool_d = grid(p)
+    else:
+        pool_d = np.sort(grid(p))
+        pool_d[p - p // 4:] = INF
+        ids[p - p // 4:p] = -1
+        if case == "last_pair_swapped":
+            pool_d = np.sort(grid(p))
+            pool_d[-2], pool_d[-1] = pool_d[-1] + 1, pool_d[-2]
+    return pool_d.astype(np.float32), ids[:p], new_d, ids[p:]
+
+
+ROUTE_CASES = ("grid_few", "grid_many", "grid_64_192", "signed_zero",
+               "inf_ties", "unsorted_short", "unsorted_long",
+               "unsorted_wide", "last_pair_swapped", "p_greater_than_q",
+               "l1024_sorted", "l1024_unsorted", "chunk_few", "chunk_many")
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_pool_merge_route_mirror(case):
+    """The CUDA merge's route choice and its two routes (survivors ranked
+    by counting and placed by co-rank; the bitonic network), mirrored on
+    the host, bit for bit against the reference's merge and the Pallas
+    kernel in interpret mode (distance bits, so -0.0 stays -0.0, and ids)
+    and against the port's plain version; the unsorted route is taken
+    exactly where the pool's distances are not ascending (-0.0 equal to
+    0.0), as the card's route counts are held to in ``chip_smoke.py``."""
+    args = _route_case(case)
+    got_d, got_i, route = _merge_mirror(*args)
+    lane = [jnp.asarray(a) for a in args]
+    for want_d, want_i in (jref.pool_merge_ref(*lane),
+                           pool_merge_pallas(*lane, interpret=True)):
+        np.testing.assert_array_equal(got_d.view(np.int32),
+                                      np.asarray(want_d).view(np.int32))
+        np.testing.assert_array_equal(got_i, want_i)
+    t = [torch.from_numpy(a)[None] for a in args]
+    plain_d, plain_i = ops.pool_merge(*t)
+    np.testing.assert_array_equal(plain_d[0].numpy().view(np.int32),
+                                  got_d.view(np.int32))
+    np.testing.assert_array_equal(plain_i[0].numpy(), got_i)
+    assert (route == 2) == bool(np.any(args[0][:-1] > args[0][1:]))
+
+
+def test_pool_merge_route_cases_cover_every_route():
+    """The mirror's cases reach all three routes: FreshDiskANN's chunk and
+    the hop's (40, 192) with converged pools count, the chunk with an
+    INF-padded pool (~800 survivors) takes the network, and a pool sorted
+    but for its last pair the unsorted route."""
+    routes = {case: _merge_mirror(*_route_case(case))[2]
+              for case in ROUTE_CASES}
+    assert set(routes.values()) == {0, 1, 2}
+    assert routes["chunk_few"] == routes["grid_few"] == 0
+    assert routes["chunk_many"] == 1
+    assert routes["last_pair_swapped"] == 2
+
+
 def _casr_inputs(p: int, lanes: int = 6, n: int = 300, d: int = 48):
     """A store with duplicated rows (exact ties that only the pool position
     can break), queries near stored rows, pools in a noisy distance order
@@ -124,14 +285,15 @@ def _casr_inputs(p: int, lanes: int = 6, n: int = 300, d: int = 48):
     return vectors, qs, pools
 
 
-@pytest.mark.parametrize("p", [40, 64])
-@pytest.mark.parametrize("s", [4, 8])
+@pytest.mark.parametrize("s,p", [(4, 40), (8, 40), (4, 64), (8, 64),
+                                 (1, 40), (8, 256)])
 def test_casr_rerank_plain_matches_reference(p, s):
     """The plain CASR loop (what the fused kernel is held to on the card)
     and the port's CASR stage against the reference's casr_rerank_many,
     lane by lane: ids, loaded flags, loads, groups, rounds and I/O
     counters exact; distances to 1e-3 abs (the repo's rerank gate: the
-    sums run in another order)."""
+    sums run in another order).  s 1 at P 40 is the longest chain of
+    rounds, P 256 / s 8 the kernel's limit."""
     k = 10
     vectors, qs, pools = _casr_inputs(p)
     want = jcasr.casr_rerank_many(
