@@ -53,13 +53,13 @@ place.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch import spans
 from repro_torch.core import cache as cache_mod
 from repro_torch.core import casr as casr_mod
 from repro_torch.core import entrance as ent_mod
@@ -183,11 +183,22 @@ class OpStats(NamedTuple):
     dropped: torch.Tensor
 
 
-def _sync(t: torch.Tensor) -> None:
-    """Wait for the card's queued work (nothing to wait for on the CPU), so
-    a host clock around a stage measures the stage."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+WAVE_COUNTS = ("entry_iters", "traverse_iters", "traverse_lanes",
+               "visited_redo")
+
+
+def _wave_timing(rec: dict) -> dict:
+    """``search_many``'s ``last_wave_timing`` from its record
+    (:func:`spans.take`): ``wave_s`` from the root's start to the sync
+    after the traversal and rerank (where the replay starts), the
+    ``rerank`` and ``replay`` spans' seconds, and the record's ``spans``,
+    ``reads`` and ``counts`` (:data:`WAVE_COUNTS`, 0 where none ran)."""
+    at = {s.name: s for s in rec["spans"]}
+    return {"wave_s": at["replay"].t0 - at["search_many"].t0,
+            "rerank_s": at["rerank"].seconds,
+            "replay_s": at["replay"].seconds,
+            "spans": rec["spans"], "reads": rec["reads"],
+            "counts": {k: rec["counts"].get(k, 0) for k in WAVE_COUNTS}}
 
 
 def _delta_stats(before: IOCounters, after: IOCounters,
@@ -252,17 +263,18 @@ class Engine:
         self.device = resolve_device(device)
         self.codec: Optional[pq_mod.PQCodec] = None
         self._sym: Optional[torch.Tensor] = None
-        # host-clock seconds of the last wave, each stage ended by a
-        # sync.  search_many: wave_s, traversal + rerank on the device
-        # (the rerank stage alone, classifier included, in rerank_s), then
-        # replay_s, the cache replay.  insert_many: seek_s (phase ①),
-        # replay_s, commit_s (phase ②, the cache packed); append_s on the
-        # buffered path
+        # host-clock seconds of the last wave from its spans
+        # (:mod:`repro_torch.spans`), each stage ended by a sync.
+        # search_many: wave_s, traversal + rerank on the device (the
+        # rerank stage alone, classifier included, in rerank_s), then
+        # replay_s, the cache replay; and the wave's spans, host reads
+        # and loop counts (:func:`_wave_timing`).  insert_many: seek_s
+        # (phase ①), replay_s, commit_s (phase ②, the cache packed);
+        # append_s on the buffered path
         self.last_wave_timing: dict = {}
         # insert_many: RMW re-reads charged, entrance promotions and
         # priority admits of the last wave
         self.last_wave_counts: dict = {}
-        self.last_rerank_s = 0.0
         # consolidate: repair_s (the sweep), then the finalization's
         # refine_s (refine_blocks of 32), reclaim_defrag_s and refresh_s
         self.last_maint_timing: dict = {}
@@ -396,34 +408,38 @@ class Engine:
         spec = self.spec
         b = qs.shape[0]
         ctr0 = IOCounters.zeros((b,), qs.device)
-        lut = pq_mod.adc_lut(self.codec, qs)
-        entries, _ = self._entries(state, lut)
-        res = search_mod.disk_traverse(
-            state.store, spec.lspec, lut, state.codes,
-            state.cache if cache is None else cache, ctr0,
-            entries, pool_size=spec.e_search, beam_width=spec.beam_width,
-            max_hops=spec.max_hops, visited=spec.visited_impl)
-        ctr = res.counters
-        dead = (res.pool_ids >= 0) & \
-            state.tombstone[res.pool_ids.clamp(min=0).long()]
-        ctr = dataclasses.replace(
-            ctr, tombstone_skips=ctr.tombstone_skips + dead.sum(1))
-        pool = torch.where(dead, -1, res.pool_ids)
-        _sync(qs)
-        t0 = time.perf_counter()
-        if spec.rerank == "casr":
-            cres = casr_mod.casr_rerank(state.store, spec.lspec, qs, pool,
-                                        ctr, k=spec.k, s=spec.s_search)
-            ids, dists, ctr = cres.topk_ids, cres.topk_d, cres.counters
-            rounds = res.hops + cres.rerank_rounds
-        else:
-            ids, dists, _, ctr = search_mod.full_rerank(
-                state.store, spec.lspec, qs, res._replace(pool_ids=pool),
-                ctr, k=spec.k)
-            rounds = res.hops + (1 if spec.layout == "packed" else 2)
-            ctr = self._reclassify(ctr, qs, pool, state.store)
-        _sync(qs)
-        self.last_rerank_s = time.perf_counter() - t0
+        with spans.span("lut"):
+            lut = pq_mod.adc_lut(self.codec, qs)
+        with spans.span("entry"):
+            entries, _ = self._entries(state, lut)
+        with spans.span("traverse"):
+            res = search_mod.disk_traverse(
+                state.store, spec.lspec, lut, state.codes,
+                state.cache if cache is None else cache, ctr0,
+                entries, pool_size=spec.e_search, beam_width=spec.beam_width,
+                max_hops=spec.max_hops, visited=spec.visited_impl)
+        with spans.span("mask"):
+            ctr = res.counters
+            dead = (res.pool_ids >= 0) & \
+                state.tombstone[res.pool_ids.clamp(min=0).long()]
+            ctr = dataclasses.replace(
+                ctr, tombstone_skips=ctr.tombstone_skips + dead.sum(1))
+            pool = torch.where(dead, -1, res.pool_ids)
+            spans.sync(qs)
+        with spans.span("rerank"):
+            if spec.rerank == "casr":
+                cres = casr_mod.casr_rerank(state.store, spec.lspec, qs,
+                                            pool, ctr, k=spec.k,
+                                            s=spec.s_search)
+                ids, dists, ctr = cres.topk_ids, cres.topk_d, cres.counters
+                rounds = res.hops + cres.rerank_rounds
+            else:
+                ids, dists, _, ctr = search_mod.full_rerank(
+                    state.store, spec.lspec, qs, res._replace(pool_ids=pool),
+                    ctr, k=spec.k)
+                rounds = res.hops + (1 if spec.layout == "packed" else 2)
+                ctr = self._reclassify(ctr, qs, pool, state.store)
+            spans.sync(qs)
         if spec.update_path == "buffered":
             ids, dists = self._merge_buffer_hits(state, qs, ids, dists)
         stats = _delta_stats(ctr0, ctr, rounds)
@@ -456,15 +472,13 @@ class Engine:
         cache and the per-query counters add up.  Returns (ids [Q, k],
         dists [Q, k], per-query OpStats, new state)."""
         qs = queries.to(self.device, torch.float32)
-        t0 = time.perf_counter()
-        ids, dists, stats, ctrs, res = self._search_core(state, qs)
-        _sync(qs)
-        t1 = time.perf_counter()
-        _, cache = cache_mod.apply_traces(state.cache, res.trace)
-        _sync(qs)
-        self.last_wave_timing = {"wave_s": t1 - t0,
-                                 "rerank_s": self.last_rerank_s,
-                                 "replay_s": time.perf_counter() - t1}
+        with spans.span("search_many"):
+            ids, dists, stats, ctrs, res = self._search_core(state, qs)
+            spans.sync(qs)
+            with spans.span("replay"):
+                _, cache = cache_mod.apply_traces(state.cache, res.trace)
+                spans.sync(qs)
+        self.last_wave_timing = _wave_timing(spans.take())
         state = dataclasses.replace(
             state, cache=cache,
             ctr_search=merge_counters(state.ctr_search, sum_counters(ctrs)))
@@ -646,117 +660,120 @@ class Engine:
               else valid.to(dev, torch.bool))
         keep = ok.tolist()
         if spec.update_path == "buffered":
-            t0 = time.perf_counter()
-            out = self._append_buffer(state, vs, keep)
-            self.last_wave_timing = {"append_s": time.perf_counter() - t0}
+            with spans.span("append") as append:
+                out = self._append_buffer(state, vs, keep)
+            self.last_wave_timing = {"append_s": append.seconds}
             return out
 
         # -- phase ①: concurrent position seek on the frozen snapshot -----
-        t0 = time.perf_counter()
-        new_codes = pq_mod.encode(self.codec, vs)                 # [B, M]
-        entries, e_ent = self._entries(state, pq_mod.adc_lut(self.codec,
-                                                             vs))
-        seek = insert_mod.position_seek(
-            state.store, spec.lspec, self.codec, state.codes, state.cache,
-            IOCounters.zeros((b,), dev), vs, entries, e_pos=spec.e_pos,
-            k=spec.k, s=spec.s_pos, rerank=spec.rerank,
-            beam_width=spec.beam_width, max_hops=spec.max_hops,
-            tombstone=state.tombstone, visited=spec.visited_impl)
-        ctrs = seek.counters
-        if spec.rerank == "full":
-            # the classifier reads the snapshot, as the reference's wave
-            ctrs = self._reclassify(ctrs, vs, seek.pool_ids, state.store)
-        # padding lanes charge nothing and replay nothing
-        ctrs = ctrs.map(lambda x: torch.where(ok, x, 0))
-        rounds = torch.where(ok, seek.hops + seek.rerank_rounds, 0)
-        traces = torch.where(ok[:, None], seek.trace, -1)
-        _sync(vs)
-        t1 = time.perf_counter()
-        cache = cache_mod.open(state.cache)
-        cache.replay(traces)
-        _sync(vs)
-        t2 = time.perf_counter()
+        with spans.span("seek") as seek_span:
+            new_codes = pq_mod.encode(self.codec, vs)             # [B, M]
+            entries, e_ent = self._entries(state, pq_mod.adc_lut(self.codec,
+                                                                 vs))
+            seek = insert_mod.position_seek(
+                state.store, spec.lspec, self.codec, state.codes, state.cache,
+                IOCounters.zeros((b,), dev), vs, entries, e_pos=spec.e_pos,
+                k=spec.k, s=spec.s_pos, rerank=spec.rerank,
+                beam_width=spec.beam_width, max_hops=spec.max_hops,
+                tombstone=state.tombstone, visited=spec.visited_impl)
+            ctrs = seek.counters
+            if spec.rerank == "full":
+                # the classifier reads the snapshot, as the reference's wave
+                ctrs = self._reclassify(ctrs, vs, seek.pool_ids, state.store)
+            # padding lanes charge nothing and replay nothing
+            ctrs = ctrs.map(lambda x: torch.where(ok, x, 0))
+            rounds = torch.where(ok, seek.hops + seek.rerank_rounds, 0)
+            traces = torch.where(ok[:, None], seek.trace, -1)
+            spans.sync(vs)
+        with spans.span("replay") as replay_span:
+            cache = cache_mod.open(state.cache)
+            cache.replay(traces)
+            spans.sync(vs)
 
         # -- phase ②: serial conflict-aware commits -----------------------
-        st = _owned(state)
-        store, ent = st.store, st.ent
-        free = st.free_list[:st.free_count].tolist()
-        count, free_count = store.count, st.free_count
-        plan = []                      # (lane, slot, reused) per commit
-        for i in range(b):
-            if keep[i] and (count < store.n_max or free_count > 0):
-                reuse = free_count > 0
-                slot = free[free_count - 1] if reuse else count
-                free_count -= reuse
-                count = max(count, slot + 1)
-                plan.append((i, slot, reuse))
-        slots = [slot for _, slot, _ in plan]
-        is_member = (ent.main_to_ent[torch.tensor(slots, device=dev)] >= 0
-                     ).tolist() if slots else []
-        n_members = int((ent.ids >= 0).sum())
-        dirty = torch.zeros((store.p_max,), dtype=torch.bool, device=dev)
-        zero_ctr = IOCounters.zeros((), dev)
-        commit_ctr = [zero_ctr] * b
-        hints, admits, rereads = [], [], []
-        for (i, slot, reuse), member in zip(plan, is_member):
-            code = new_codes[i]
-            st.codes[slot] = code
-            nbrs = insert_mod.revalidate_neighbors(
-                seek.nbrs[i], slot, code, st.codes, self._sym, st.tombstone)
-            ctr, n_reread = insert_mod.charge_rmw_rereads(
-                zero_ctr, spec.lspec, store, nbrs, dirty)
-            rereads.append(n_reread)
-            page = store.next_page       # the new vertex's fresh page
-            sres = insert_mod.commit_insert(store, spec.lspec, None, ctr,
-                                            vs[i], nbrs, st.codes,
-                                            self._sym, slot)
-            store = sres.store
-            if sres.dead_pages is not None:      # decoupled layout only
-                hints.append(sres.dead_pages)
-            insert_mod.mark_dirty_pages(dirty, store, slot, nbrs,
-                                        sres.modified)
-            promoted = False
-            if spec.entrance == "dynamic":
-                count0 = ent.count
-                ent = ent_mod.navis_update(
-                    ent, slot, code, seek.pool_ids[i], e_ent[i], store.count,
-                    st.codes, self._sym, r_ent_frac=spec.ent_frac,
-                    n_members=n_members, is_member=member)
-                promoted = ent.count > count0
-                n_members += promoted
-            admits.append(page if promoted and
-                          spec.cache_policy == "navis" else -1)
-            st.tombstone[slot] = False
-            st.free_mask[slot] = False
-            st.young_mask[slot] = True
-            commit_ctr[i] = sres.counters
-        # the commits' cache effects in commit order, one stream: each
-        # commit's eviction hints, then its promoted member's admit
-        if plan and cache.policy != cache_mod.POLICIES["none"]:
-            admit = torch.tensor(admits, dtype=torch.int32, device=dev)
-            dead = (torch.stack(hints).to(torch.int32) if hints else
-                    admit.new_empty((len(admits), 0)))
-            kinds = torch.cat([
-                torch.full(dead.shape, cache_mod.INVALIDATE, dtype=torch.int8,
-                           device=dev),
-                torch.full((len(admits), 1), cache_mod.PRIORITY_ADMIT,
-                           dtype=torch.int8, device=dev)], 1)
-            cache.apply(torch.cat([dead, admit[:, None]], 1).reshape(-1),
-                        kinds.reshape(-1))
-        n_reused = sum(reuse for _, _, reuse in plan)
-        dropped = torch.tensor(keep, device=dev)
-        dropped[[i for i, _, _ in plan]] = False
-        per = merge_counters(ctrs, _join_counters(commit_ctr, torch.stack))
-        stats = _delta_stats(IOCounters.zeros((b,), dev), per, rounds,
-                             dropped)
-        st = dataclasses.replace(
-            st, store=store, ent=ent, cache=cache.state(),
-            n_deleted=st.n_deleted - n_reused,
-            free_count=st.free_count - n_reused,
-            ctr_insert=merge_counters(st.ctr_insert, sum_counters(per)))
-        _sync(vs)
-        self.last_wave_timing = {"seek_s": t1 - t0, "replay_s": t2 - t1,
-                                 "commit_s": time.perf_counter() - t2}
+        with spans.span("commit") as commit_span:
+            st = _owned(state)
+            store, ent = st.store, st.ent
+            free = st.free_list[:st.free_count].tolist()
+            count, free_count = store.count, st.free_count
+            plan = []                      # (lane, slot, reused) per commit
+            for i in range(b):
+                if keep[i] and (count < store.n_max or free_count > 0):
+                    reuse = free_count > 0
+                    slot = free[free_count - 1] if reuse else count
+                    free_count -= reuse
+                    count = max(count, slot + 1)
+                    plan.append((i, slot, reuse))
+            slots = [slot for _, slot, _ in plan]
+            is_member = (ent.main_to_ent[torch.tensor(slots, device=dev)] >= 0
+                         ).tolist() if slots else []
+            n_members = int((ent.ids >= 0).sum())
+            dirty = torch.zeros((store.p_max,), dtype=torch.bool, device=dev)
+            zero_ctr = IOCounters.zeros((), dev)
+            commit_ctr = [zero_ctr] * b
+            hints, admits, rereads = [], [], []
+            for (i, slot, reuse), member in zip(plan, is_member):
+                code = new_codes[i]
+                st.codes[slot] = code
+                nbrs = insert_mod.revalidate_neighbors(
+                    seek.nbrs[i], slot, code, st.codes, self._sym,
+                    st.tombstone)
+                ctr, n_reread = insert_mod.charge_rmw_rereads(
+                    zero_ctr, spec.lspec, store, nbrs, dirty)
+                rereads.append(n_reread)
+                page = store.next_page       # the new vertex's fresh page
+                sres = insert_mod.commit_insert(store, spec.lspec, None, ctr,
+                                                vs[i], nbrs, st.codes,
+                                                self._sym, slot)
+                store = sres.store
+                if sres.dead_pages is not None:      # decoupled layout only
+                    hints.append(sres.dead_pages)
+                insert_mod.mark_dirty_pages(dirty, store, slot, nbrs,
+                                            sres.modified)
+                promoted = False
+                if spec.entrance == "dynamic":
+                    count0 = ent.count
+                    ent = ent_mod.navis_update(
+                        ent, slot, code, seek.pool_ids[i], e_ent[i],
+                        store.count, st.codes, self._sym,
+                        r_ent_frac=spec.ent_frac, n_members=n_members,
+                        is_member=member)
+                    promoted = ent.count > count0
+                    n_members += promoted
+                admits.append(page if promoted and
+                              spec.cache_policy == "navis" else -1)
+                st.tombstone[slot] = False
+                st.free_mask[slot] = False
+                st.young_mask[slot] = True
+                commit_ctr[i] = sres.counters
+            # the commits' cache effects in commit order, one stream: each
+            # commit's eviction hints, then its promoted member's admit
+            if plan and cache.policy != cache_mod.POLICIES["none"]:
+                admit = torch.tensor(admits, dtype=torch.int32, device=dev)
+                dead = (torch.stack(hints).to(torch.int32) if hints else
+                        admit.new_empty((len(admits), 0)))
+                kinds = torch.cat([
+                    torch.full(dead.shape, cache_mod.INVALIDATE,
+                               dtype=torch.int8, device=dev),
+                    torch.full((len(admits), 1), cache_mod.PRIORITY_ADMIT,
+                               dtype=torch.int8, device=dev)], 1)
+                cache.apply(torch.cat([dead, admit[:, None]], 1).reshape(-1),
+                            kinds.reshape(-1))
+            n_reused = sum(reuse for _, _, reuse in plan)
+            dropped = torch.tensor(keep, device=dev)
+            dropped[[i for i, _, _ in plan]] = False
+            per = merge_counters(ctrs, _join_counters(commit_ctr, torch.stack))
+            stats = _delta_stats(IOCounters.zeros((b,), dev), per, rounds,
+                                 dropped)
+            st = dataclasses.replace(
+                st, store=store, ent=ent, cache=cache.state(),
+                n_deleted=st.n_deleted - n_reused,
+                free_count=st.free_count - n_reused,
+                ctr_insert=merge_counters(st.ctr_insert, sum_counters(per)))
+            spans.sync(vs)
+        self.last_wave_timing = {"seek_s": seek_span.seconds,
+                                 "replay_s": replay_span.seconds,
+                                 "commit_s": commit_span.seconds}
         self.last_wave_counts = {
             "rmw_rereads": int(torch.stack(rereads).sum()) if rereads
             else 0,
@@ -929,61 +946,64 @@ class Engine:
                 st, store=store, cache=cache, ctr_maint=ctr,
                 maint_cursor=cur + spec.maint_block), False
 
-        _sync(state.tombstone)
-        t0 = time.perf_counter()
-        yids = []
-        if spec.maint_refine:
-            # the live vertices inserted since the last pass, in id order
-            yids = torch.nonzero(state.young_mask & state.live_mask
-                                 )[:, 0].tolist()
-            if yids and spec.layout == "decoupled":
-                state = self._with_pages(
-                    state, len(yids) * insert_mod.pages_per_insert(lspec))
-        st = _owned(state)
-        if yids:
-            store, ctr = st.store, st.ctr_maint
-            for s in range(0, len(yids), 32):
-                store, ctr = maint_mod.refine_block(
-                    store, self.codec, st.codes, st.tombstone, st.cache, ctr,
-                    yids[s:s + 32], st.default_entries, spec=lspec,
-                    e_pos=spec.e_pos, beam_width=spec.beam_width,
-                    max_hops=spec.max_hops, visited=spec.visited_impl)
-            st.young_mask.zero_()
-            st = dataclasses.replace(st, store=store, ctr_maint=ctr)
-        _sync(st.tombstone)
-        t1 = time.perf_counter()
+        spans.sync(state.tombstone)
+        with spans.span("refine") as refine:
+            yids = []
+            if spec.maint_refine:
+                # the live vertices inserted since the last pass, in id
+                # order
+                yids = torch.nonzero(state.young_mask & state.live_mask
+                                     )[:, 0].tolist()
+                if yids and spec.layout == "decoupled":
+                    state = self._with_pages(
+                        state, len(yids) * insert_mod.pages_per_insert(lspec))
+            st = _owned(state)
+            if yids:
+                store, ctr = st.store, st.ctr_maint
+                for s in range(0, len(yids), 32):
+                    store, ctr = maint_mod.refine_block(
+                        store, self.codec, st.codes, st.tombstone, st.cache,
+                        ctr, yids[s:s + 32], st.default_entries, spec=lspec,
+                        e_pos=spec.e_pos, beam_width=spec.beam_width,
+                        max_hops=spec.max_hops, visited=spec.visited_impl)
+                st.young_mask.zero_()
+                st = dataclasses.replace(st, store=store, ctr_maint=ctr)
+            spans.sync(st.tombstone)
 
-        store, free_count, cache, ctr = maint_mod.reclaim_and_defrag(
-            st.store, st.tombstone, st.free_list, st.free_count,
-            st.free_mask, st.cache, st.ctr_maint, spec=lspec)
-        st = dataclasses.replace(st, store=store, free_count=free_count,
-                                 cache=cache, ctr_maint=ctr, maint_cursor=0)
-        _sync(st.tombstone)
-        t2 = time.perf_counter()
+        with spans.span("reclaim_defrag") as reclaim:
+            store, free_count, cache, ctr = maint_mod.reclaim_and_defrag(
+                st.store, st.tombstone, st.free_list, st.free_count,
+                st.free_mask, st.cache, st.ctr_maint, spec=lspec)
+            st = dataclasses.replace(st, store=store, free_count=free_count,
+                                     cache=cache, ctr_maint=ctr,
+                                     maint_cursor=0)
+            spans.sync(st.tombstone)
 
-        live_ids = torch.nonzero(st.live_mask)[:, 0].to(torch.int32)
-        key = jr.fold_in(jr.PRNGKey(1347),
-                         store.count * 131071 + st.n_deleted)
-        n_live = live_ids.shape[0]
-        ent = st.ent
-        if spec.entrance != "none" and n_live >= 2:
-            # a dynamic entrance tops itself back up through Algorithm 2 as
-            # inserts flow; a static one is refreshed only here
-            ent = maint_mod.refresh_entrance(
-                key, st.codes, self._sym, st.ent, st.tombstone,
-                live_ids.cpu().numpy(), sample_frac=spec.ent_frac,
-                r_ent=spec.r_ent, n_max=store.n_max,
-                top_up=spec.entrance != "dynamic")
-            cache = maint_mod.admit_entrance_pages(cache, store, ent)
-        default_entries = st.default_entries
-        if n_live > 0:
-            default_entries = maint_mod.refresh_default_entries(
-                jr.fold_in(key, 1), store.vectors, live_ids, spec.n_entry)
-        _sync(st.tombstone)
+        with spans.span("refresh") as refresh:
+            live_ids = torch.nonzero(st.live_mask)[:, 0].to(torch.int32)
+            key = jr.fold_in(jr.PRNGKey(1347),
+                             store.count * 131071 + st.n_deleted)
+            n_live = live_ids.shape[0]
+            ent = st.ent
+            if spec.entrance != "none" and n_live >= 2:
+                # a dynamic entrance tops itself back up through Algorithm
+                # 2 as inserts flow; a static one is refreshed only here
+                ent = maint_mod.refresh_entrance(
+                    key, st.codes, self._sym, st.ent, st.tombstone,
+                    live_ids.cpu().numpy(), sample_frac=spec.ent_frac,
+                    r_ent=spec.r_ent, n_max=store.n_max,
+                    top_up=spec.entrance != "dynamic")
+                cache = maint_mod.admit_entrance_pages(cache, store, ent)
+            default_entries = st.default_entries
+            if n_live > 0:
+                default_entries = maint_mod.refresh_default_entries(
+                    jr.fold_in(key, 1), store.vectors, live_ids,
+                    spec.n_entry)
+            spans.sync(st.tombstone)
         self.last_maint_timing = {
-            "refine_s": t1 - t0, "refine_blocks": -(-len(yids) // 32),
-            "reclaim_defrag_s": t2 - t1,
-            "refresh_s": time.perf_counter() - t2}
+            "refine_s": refine.seconds, "refine_blocks": -(-len(yids) // 32),
+            "reclaim_defrag_s": reclaim.seconds,
+            "refresh_s": refresh.seconds}
         return dataclasses.replace(st, ent=ent, cache=cache,
                                    default_entries=default_entries), True
 
@@ -994,15 +1014,14 @@ class Engine:
         ctr0 = state.ctr_maint
         state = dataclasses.replace(state, maint_cursor=0)
         steps = 0
-        t0 = time.perf_counter()
-        while state.maint_cursor < state.store.count:       # the sweep
-            state, _ = self.maintenance_step(state)
-            steps += 1
-        _sync(state.tombstone)
-        repair_s = time.perf_counter() - t0
+        with spans.span("repair") as repair:
+            while state.maint_cursor < state.store.count:       # the sweep
+                state, _ = self.maintenance_step(state)
+                steps += 1
+            spans.sync(state.tombstone)
         state, _ = self.maintenance_step(state)             # finalization
         steps += 1
-        self.last_maint_timing["repair_s"] = repair_s
+        self.last_maint_timing["repair_s"] = repair.seconds
         stats = _delta_stats(ctr0, state.ctr_maint, torch.tensor(
             steps, dtype=torch.int32, device=self.device))
         return stats, state

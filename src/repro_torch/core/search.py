@@ -41,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import cache as cache_mod
 from repro_torch.core import visited as visited_mod
 from repro_torch.core.entrance import EntranceGraph
@@ -70,8 +71,8 @@ def entrance_search(ent: EntranceGraph, lut: torch.Tensor,
     dev = lut.device
     c = ent.c_max
     # seed: the first live entry slot
-    seed = int(torch.argmax((ent.ids >= 0).to(torch.int32)))
-    seed_main = int(ent.ids[seed])
+    seed = spans.read(torch.argmax((ent.ids >= 0).to(torch.int32)), "seed")
+    seed_main = spans.read(ent.ids[seed], "seed")
     pool_idx = torch.full((b, pool_size), -1, dtype=torch.int32, device=dev)
     pool_d = torch.full((b, pool_size), INF, device=dev)
     pool_idx[:, 0] = seed
@@ -84,7 +85,8 @@ def entrance_search(ent: EntranceGraph, lut: torch.Tensor,
     unexp = pool_idx >= 0
     hops = torch.zeros((b,), dtype=torch.int32, device=dev)
     active = unexp.any(1) & (max_hops > 0)
-    while bool(active.any()):
+    while spans.read(active.any(), "loop"):
+        spans.count("entry_iters")
         cand_d = torch.where(unexp, pool_d, INF)
         best = cand_d.argmin(dim=1, keepdim=True)
         v = pool_idx.gather(1, best)[:, 0]
@@ -327,7 +329,9 @@ def disk_traverse(store: GraphStore, spec: LayoutSpec, lut: torch.Tensor,
     unexp = pool_ids >= 0
     hops = torch.zeros((b,), dtype=torch.int32, device=dev)
     active = unexp.any(1) & (max_hops > 0)
-    while bool(active.any()):
+    while spans.read(active.any(), "loop"):
+        spans.count("traverse_iters")
+        spans.count("traverse_lanes", b)    # converged lanes included
         act = active[:, None]
         cand_d = torch.where(unexp, pool_d, INF)
         sd, sel = torch.sort(cand_d, dim=1, stable=True)

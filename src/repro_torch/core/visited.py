@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 
 _FIB = 2654435761          # 2^32 / golden ratio (Fibonacci hash)
@@ -124,7 +125,7 @@ def contains(vs: VisitedSet, keys: torch.Tensor) -> torch.Tensor:
         found |= open_ & stopped & hit
         open_ &= ~stopped
         j += n
-        if j < size and not bool(open_.any()):
+        if j < size and not spans.read(open_.any(), "visited.contains"):
             break
     return found
 
@@ -146,7 +147,7 @@ def _add_key(table, count, overflow, k, ok) -> None:
         slot = torch.where(newly, s_at, slot)
         probing &= ~stopped
         j += n
-        if j < size and not bool(probing.any()):
+        if j < size and not spans.read(probing.any(), "visited.add_key"):
             break
     cur = table.gather(1, slot[:, None])[:, 0]
     table.scatter_(1, slot[:, None],
@@ -191,7 +192,8 @@ def add(vs: VisitedSet, keys: torch.Tensor, mask: torch.Tensor
              claim[:, None, :] & earlier).any(2)
     redo = clash.any() if size <= _CHUNK else \
         (clash | (first & ~stopped)).any()
-    if bool(redo):
+    if spans.read(redo, "visited.add"):
+        spans.count("visited_redo")
         table, count = vs.keys.clone(), vs.count.clone()
         ovf = vs.overflow.clone()
         for i in range(k):
