@@ -11,8 +11,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 main path's shapes (the cache kernels, ``cache_replay`` and
 ``cache_ops``, bit for bit on every state field for each policy at 256
 and 1,024 pages; ``pool_merge`` bit for bit with each route it takes
-counted; ``casr_rerank`` on its ring and its direct route), times the
-merge and CASR by case (``kernel_timings``) and the smallest launch,
+counted; ``casr_rerank`` on its ring and its direct route;
+``entrance_search`` bit for bit against the host loop at the deep96 and
+FineWeb-like widths, and timed on a wave of 10,000), times the merge and
+CASR by case (``kernel_timings``) and the smallest launch,
 then drives eight paths, each with the launch counts
 set to 0 just before it and read just after:
 
@@ -86,15 +88,16 @@ set to 0 just before it and read just after:
   and a wave of 256 embedded queries retrieves from it (its counts are
   read apart, as ``rag``).
 
-The search and update paths must launch ``pool_merge``, ``adc_distance``
-and ``casr_rerank`` (once per search or insert wave) and no other rerank
-entry; the presets path all of those, ``rerank_l2_rows`` (the full
-rerank) and ``rerank_l2_shared`` (FreshDiskANN's buffer scan, exactly
-once per FreshDiskANN search wave); the maintenance path as the search
-path, and a pass itself launches no rerank kernel; the sharded path as the
-search path, ``casr_rerank`` once per shard and wave; the serving,
-training and mesh paths none of the port's kernels (their products are
-``torch.matmul``), and the RAG wave as the search path.  Every engine
+The search and update paths must launch ``pool_merge``, ``adc_distance``,
+``entrance_search`` and ``casr_rerank`` (once per search or insert wave)
+and no other rerank entry; the presets path all of those,
+``rerank_l2_rows`` (the full rerank) and ``rerank_l2_shared``
+(FreshDiskANN's buffer scan, exactly once per FreshDiskANN search wave);
+the maintenance path as the search path, and a pass itself launches no
+rerank kernel; the sharded path as the search path, ``casr_rerank`` once
+per shard and wave; the serving, training and mesh paths none of the
+port's kernels (their products are ``torch.matmul``), and the RAG wave as
+the search path.  Every engine
 path replays its waves' traces with ``cache_replay`` (once a FineWeb-like
 search wave; once an insert wave, with at most one ``cache_ops`` for its
 commits' hints and admits), and the update and presets paths' threaded
@@ -292,6 +295,11 @@ KERNELS = {
                      "src/repro/core/cache.py:255"),
     "cache_ops": ("src/repro_torch/kernels/csrc/cache_replay.cu",
                   "src/repro/core/cache.py:275"),
+    # the entrance's whole beam search, its ADC and merge fused: no Pallas
+    # kernel; its counterpart is the reference's while_loop over
+    # adc_distance_pallas and pool_merge_pallas
+    "entrance_search": ("src/repro_torch/kernels/csrc/entrance_search.cu",
+                        "src/repro/core/search.py:43"),
 }
 # Each path's launch gate: the kernels it must launch, and those it must
 # not.  The navis preset's search and update paths rerank with CASR only,
@@ -301,24 +309,25 @@ KERNELS = {
 # [B, S, D] entry rerank_l2 is on no path (the kernel phase holds it).
 # Every engine path replays its waves' traces on the card (cache_replay);
 # the sequential paths (update, presets) thread their traversals through
-# cache_ops, one launch a hop.
+# cache_ops, one launch a hop.  Every engine path runs the entrance
+# (entrance_search, one launch a search or seek).
 NAVIS_OFF = ("rerank_l2", "rerank_l2_rows", "rerank_l2_shared")
 PATH_KERNELS = {
     "search": (("pool_merge", "adc_distance", "casr_rerank",
-                "cache_replay"), NAVIS_OFF),
+                "cache_replay", "entrance_search"), NAVIS_OFF),
     "update": (("pool_merge", "adc_distance", "casr_rerank", "cache_replay",
-                "cache_ops"), NAVIS_OFF),
+                "cache_ops", "entrance_search"), NAVIS_OFF),
     "presets": (("pool_merge", "adc_distance", "rerank_l2_rows",
                  "rerank_l2_shared", "casr_rerank", "cache_replay",
-                 "cache_ops"), ("rerank_l2",)),
+                 "cache_ops", "entrance_search"), ("rerank_l2",)),
     # refine's re-seek and the repair splice launch pool_merge and
     # adc_distance; casr_rerank runs in the insert and search waves
     # around the passes (a pass itself launches no rerank kernel)
     "maintenance": (("pool_merge", "adc_distance", "casr_rerank",
-                     "cache_replay"), NAVIS_OFF),
+                     "cache_replay", "entrance_search"), NAVIS_OFF),
     # every shard runs the navis search and insert waves (no buffer)
     "sharded": (("pool_merge", "adc_distance", "casr_rerank",
-                 "cache_replay"), NAVIS_OFF),
+                 "cache_replay", "entrance_search"), NAVIS_OFF),
     # the LM serves with torch.matmul and plain torch ops: no kernel of the
     # port (the reference reaches no Pallas kernel there) ...
     "serving": ((), tuple(KERNELS)),
@@ -331,8 +340,8 @@ PATH_KERNELS = {
     "mesh_train": ((), tuple(KERNELS)),
     "mesh_dense": ((), tuple(KERNELS)),
     # ... and the RAG wave runs the navis search
-    "rag": (("pool_merge", "adc_distance", "casr_rerank", "cache_replay"),
-            NAVIS_OFF),
+    "rag": (("pool_merge", "adc_distance", "casr_rerank", "cache_replay",
+             "entrance_search"), NAVIS_OFF),
 }
 # FreshDiskANN search waves the presets path ran (_scan_gate), each of
 # which must launch rerank_l2_shared exactly once
@@ -369,6 +378,13 @@ CASR_CASES = ((40, 4, "narrow", 10), (64, 8, "narrow", 10),
 CASR_K, CASR_DUP = 10, 2_000
 # what the kernels line carries besides the kernels (launch_floor_ms)
 KERNEL_LINE = {}
+# entrance_search's checks: (label, M, c_max, codes) at the engine's
+# ent_pool 32, r_ent 32 and max_hops 64: the deep96 cell's index (n_max
+# 120,000, so c_max 2,400) and the FineWeb-like one (n_max 21,200: 424);
+# the deep96 cell's wave of ENTRANCE_WAVE lanes is timed besides
+ENTRANCE_CASES = (("deep96", 32, 2_400, 20_000),
+                  ("fineweb_like", 96, 424, 20_000))
+ENTRANCE_WAVE = 10_000
 # the five baselines; the presets path also runs navis with bitmaps
 BASELINES = ("freshdiskann", "odinann", "odinann_cache", "layout_only",
              "sel_vec")
@@ -809,6 +825,113 @@ def _shared_grade(torch, q, rows, count: int, label: str,
     return out
 
 
+def _entrance_case(torch, gen, b: int, m: int, c: int, n: int):
+    """A random entrance of c slots (5% dead, slot 0 live), each linked to
+    16-32 distinct slots with a -1 tail, over n code rows, and b lanes'
+    LUTs."""
+    from repro_torch.core.entrance import EntranceGraph
+    dev = torch.device("cuda")
+    r = 32
+    ids = torch.randint(0, n, (c,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    dead = torch.rand(c, generator=gen, device=dev) < 0.05
+    dead[0] = False
+    ids[dead] = -1
+    edges = torch.rand((c, c), generator=gen, device=dev).argsort(1)[:, :r]
+    edges = edges.to(torch.int32).contiguous()
+    deg = torch.randint(r // 2, r + 1, (c, 1), generator=gen, device=dev)
+    edges[torch.arange(r, device=dev)[None] >= deg] = -1
+    ent = EntranceGraph(ids=ids, edges=edges, count=int((ids >= 0).sum()),
+                        main_to_ent=torch.full((n,), -1, dtype=torch.int32,
+                                               device=dev))
+    lut = torch.rand((b, m, 256), generator=gen, device=dev) * 10
+    codes = torch.randint(0, 256, (n, m), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    return ent, lut, codes
+
+
+def _entrance_records(torch, gen, b: int):
+    """entrance_search bit for bit against the host loop (E_ent, distance
+    bits, lane iterations): under plain_on_device() in both visited modes
+    and with its ADC and merge kernels (the loop the kernel replaced), at
+    ENTRANCE_CASES' widths over b lanes; timed against both loops, and on
+    the deep96 cell's wave of ENTRANCE_WAVE lanes against the loop with
+    kernels.  Bound: bytes, each input read once (the LUTs, the
+    entrance, the code rows it names) and the outputs written once."""
+    from repro_torch.core import search as search_mod
+    from repro_torch.kernels import ops
+    p, hops_max = 32, 64
+
+    def lanes(args, visited="hash"):
+        return search_mod.entrance_lanes(*args, pool_size=p,
+                                         max_hops=hops_max, visited=visited)
+
+    def loop(args):
+        return search_mod._entrance_loop(*args, pool_size=p,
+                                         max_hops=hops_max, visited="hash")
+
+    def plain(args, visited="hash"):
+        with ops.plain_on_device():
+            return lanes(args, visited)
+
+    def bits(out):
+        return [t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in out]
+
+    def same(a, b_):
+        return all(torch.equal(x, y) for x, y in zip(bits(a), bits(b_)))
+
+    def bound_ms(args, lanes_):
+        ent, lut, codes = args
+        c, r = ent.edges.shape
+        n_bytes = (lut.numel() * 4 + c * (r * 4 + 4 + codes.shape[1]) +
+                   lanes_ * (p * 8 + 4))
+        return n_bytes / PEAK_BYTES_S * 1e3
+
+    by_width = {}
+    for label, m, c, n in ENTRANCE_CASES:
+        args = _entrance_case(torch, gen, b, m, c, n)
+        got = lanes(args)
+        want = [plain(args, v) for v in ("hash", "bitmap")] + [loop(args)]
+        torch.cuda.synchronize()
+        require(all(same(got, w) for w in want),
+                f"entrance_search at {label}'s widths differs from the "
+                f"host loop")
+        kern = lambda args=args: lanes(args)
+        by_width[label] = {
+            "m": m, "c_max": c, "iters_max": int(got[2].max()),
+            "lane_steps": int(got[2].sum()),
+            "ms": time_ms(torch, kern), "device_ms": device_ms(torch, kern),
+            "loop_ms": time_ms(torch, lambda args=args: loop(args), iters=3,
+                               warmup=1),
+            "plain_ms": time_ms(torch, lambda args=args: plain(args),
+                                iters=2, warmup=1),
+            "bound_ms": bound_ms(args, b)}
+    label, m, c, n = ENTRANCE_CASES[0]
+    args = _entrance_case(torch, gen, ENTRANCE_WAVE, m, c, n)
+    got = lanes(args)
+    looped = loop(args)
+    torch.cuda.synchronize()
+    require(same(got, looped), "entrance_search on the deep96 wave differs "
+                               "from the host loop")
+    kern = lambda: lanes(args)
+    wave = {"lanes": ENTRANCE_WAVE, "iters_max": int(got[2].max()),
+            "lane_steps": int(got[2].sum()),
+            "ms": time_ms(torch, kern, iters=10, warmup=2),
+            "device_ms": device_ms(torch, kern, iters=5),
+            "loop_ms": time_ms(torch, lambda: loop(args), iters=2, warmup=1),
+            "bound_ms": bound_ms(args, ENTRANCE_WAVE)}
+    source, replaces = KERNELS["entrance_search"]
+    first = by_width[ENTRANCE_CASES[0][0]]
+    rec = {"name": "entrance_search", "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+           **{k: first[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms")},
+           "bound_by": "bytes", "library_ms": None,
+           "library_reason": "no single PyTorch call computes the search"}
+    return rec, {"by_width": by_width, "deep96_wave": wave}
+
+
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.kernels import ops, ref
@@ -1099,6 +1222,9 @@ def phase_kernels(torch) -> dict:
                        if k not in ("name", "route", "source", "replaces",
                                     "launches")}
     records["rerank_l2_shared"] = (rec, extra)
+    # -- entrance_search: every lane's whole entrance search, bit for bit
+    #    the host loop's --------------------------------------------------
+    records["entrance_search"] = _entrance_records(torch, gen, b)
     cache_records = phase_cache_kernels(torch)
 
     grades = {"pool_merge": "exact (distance bits and ids); the unsorted "
@@ -1117,7 +1243,11 @@ def phase_kernels(torch) -> dict:
               "casr_rerank": "ids, loads and rounds exact outside near "
                              f"ties; distances rtol {RERANK_RTOL} / atol "
                              f"{RERANK_ATOL}, bit-equal to rerank_l2_rows "
-                             "where loaded"}
+                             "where loaded",
+              "entrance_search": "exact (E_ent, distance bits and lane "
+                                 "iterations) against the host loop, plain "
+                                 "in both visited modes and with its "
+                                 "kernels"}
     out = {}
     for name, (rec, extra) in records.items():
         emit(f"kernel:{name}", lanes=b, grade=grades[name],

@@ -183,8 +183,8 @@ class OpStats(NamedTuple):
     dropped: torch.Tensor
 
 
-WAVE_COUNTS = ("entry_iters", "traverse_iters", "traverse_lanes",
-               "visited_redo")
+WAVE_COUNTS = ("entry_iters", "entry_lane_steps", "traverse_iters",
+               "traverse_lanes", "visited_redo")
 
 
 def _wave_timing(rec: dict) -> dict:

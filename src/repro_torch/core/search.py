@@ -67,6 +67,38 @@ def entrance_search(ent: EntranceGraph, lut: torch.Tensor,
     graph, explored main ids E_ent [B, pool_size], their PQ distances).
     ``visited="bitmap"`` keeps the expanded set as a dense bitmap (the
     same answers: the hash set never overflows here)."""
+    main, pool_d, _ = entrance_lanes(ent, lut, codes, pool_size=pool_size,
+                                     max_hops=max_hops, visited=visited)
+    return main[:, :n_entry], main, pool_d
+
+
+def entrance_lanes(ent: EntranceGraph, lut: torch.Tensor,
+                   codes: torch.Tensor, *, pool_size: int, max_hops: int,
+                   visited: str):
+    """:func:`entrance_search`'s (E_ent, distances) and each lane's
+    iteration count [B] int32.  On the card it is one ``entrance_search``
+    launch with no host read: the counters ``entry_iters`` (the largest
+    lane count, the iterations the loop runs) and ``entry_lane_steps``
+    (their sum) are read at the next :func:`spans.sync`.  CPU tensors, and
+    :func:`kernel_ops.plain_on_device`, run the host loop, the kernel's
+    plain version."""
+    if kernel_ops.runs_plain(lut, codes, ent.ids, ent.edges):
+        return _entrance_loop(ent, lut, codes, pool_size=pool_size,
+                              max_hops=max_hops, visited=visited)
+    main, pool_d, hops, tally = kernel_ops.entrance_search(
+        lut, codes, ent.ids, ent.edges, pool_size=pool_size,
+        max_hops=max_hops)
+    spans.count_later(("entry_iters", "entry_lane_steps"), tally)
+    return main, pool_d, hops
+
+
+def _entrance_loop(ent: EntranceGraph, lut: torch.Tensor,
+                   codes: torch.Tensor, *, pool_size: int, max_hops: int,
+                   visited: str):
+    """The entrance search as a host loop over all lanes, each iteration
+    through ``adc_distance`` and ``pool_merge``: (E_ent, distances, lane
+    iterations), as :func:`entrance_lanes`.  Counts ``entry_iters`` an
+    iteration and ``entry_lane_steps`` at the next sync."""
     b = lut.shape[0]
     dev = lut.device
     c = ent.c_max
@@ -108,9 +140,10 @@ def entrance_search(ent: EntranceGraph, lut: torch.Tensor,
             unexp)
         hops += active.to(hops.dtype)
         active = (hops < max_hops) & unexp.any(1)
+    spans.count_later(("entry_lane_steps",), hops.sum())
     main = torch.where(pool_idx >= 0,
                        ent.ids[pool_idx.clamp(min=0).long()], -1)
-    return main[:, :n_entry], main, pool_d
+    return main, pool_d, hops
 
 
 # ---------------------------------------------------------------------------

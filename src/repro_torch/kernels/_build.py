@@ -42,6 +42,7 @@ SIGNATURES = {
     "casr_rerank_stages": [_P] + [_I] * 4,
     "cache_replay_launch": [_P] * 13 + [_I] * 6 + [_P],
     "cache_ops_launch": [_P] * 14 + [_I] * 6 + [_P],
+    "entrance_search_launch": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

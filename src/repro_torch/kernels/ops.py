@@ -11,8 +11,11 @@ rerank), ``rerank_l2_shared`` (every lane against the same ``[S, D]``
 rows: FreshDiskANN's buffer scan, on the tensor cores behind a guard that
 recomputes near pairs with the row body),
 ``casr_rerank`` (its rows prefetched a group ahead through a ring in
-shared memory; ``casr_rerank_stages`` says which route a call takes), and
-the cache's serial state machine: ``cache_replay``
+shared memory; ``casr_rerank_stages`` says which route a call takes),
+``entrance_search`` (every lane's whole entrance beam search, the ADC and
+the merge fused; its plain version is the host loop in
+:mod:`repro_torch.core.search`, which calls it where :func:`runs_plain`
+says no), and the cache's serial state machine: ``cache_replay``
 (trace rows in wave order) and ``cache_ops`` (a stream of accesses,
 eviction hints and entrance admits), both in place on a ``CacheState``'s
 tensors (``CACHE_TABLES``).
@@ -48,7 +51,7 @@ from repro_torch.kernels import ref
 
 launches = {"pool_merge": 0, "adc_distance": 0, "rerank_l2": 0,
             "rerank_l2_rows": 0, "rerank_l2_shared": 0, "casr_rerank": 0,
-            "cache_replay": 0, "cache_ops": 0}
+            "cache_replay": 0, "cache_ops": 0, "entrance_search": 0}
 POOL_MERGE_MAX = 1024    # the merge kernel's width limit, P + Q
 # the merge kernel's routes, by lane (csrc/pool_merge.cu): a sorted pool
 # (every caller's) ranks the new entries below its largest by counting, or
@@ -81,6 +84,12 @@ ACCESS, INVALIDATE, PRIORITY_ADMIT = 0, 1, 2     # cache_ops' kinds
 # (at most 227 KB), so W + F <= 8,225 slots whatever the split
 # (csrc/cache_replay.cu, cache_smem_bytes)
 CACHE_SMEM_MAX = 227 * 1024
+# entrance_search's limits (csrc/entrance_search.cu): the pool and the
+# degree, two entries a thread of the lane's warp; the LUT and the
+# expanded bitmap share one block's shared memory
+ENTRANCE_MAX_POOL = 64
+ENTRANCE_MAX_DEG = 64
+ENTRANCE_SMEM_MAX = 227 * 1024
 _plain_on_device = False
 _entry: dict = {}       # C entry point name -> ctypes function
 _raw_stream = None      # device index -> its current stream's handle
@@ -110,6 +119,13 @@ def _use_plain(*tensors: torch.Tensor) -> bool:
         raise ValueError(f"kernel inputs on unsupported or mixed devices: "
                          f"{[str(t.device) for t in tensors]}")
     return _plain_on_device
+
+
+def runs_plain(*tensors: torch.Tensor) -> bool:
+    """Whether the wrappers run the plain versions on ``tensors`` (CPU
+    tensors, or CUDA ones under :func:`plain_on_device`); for a kernel
+    whose plain version lives with its caller (``entrance_search``)."""
+    return _use_plain(*tensors)
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
@@ -309,6 +325,60 @@ def pool_merge_chunked(pool_d, pool_ids, new_d, new_ids):
             pool_d, pool_ids, new_d[:, lo:lo + step].contiguous(),
             new_ids[:, lo:lo + step].contiguous())
     return pool_d, pool_ids
+
+
+def entrance_smem_bytes(m: int, c: int) -> int:
+    """entrance_search's shared memory a lane: the LUT (M x 256 floats),
+    the pool's two buffers and the new block (distances and slots), the
+    expanded bitmap over C slots."""
+    return (m * 256 * 4 + (2 * ENTRANCE_MAX_POOL + ENTRANCE_MAX_DEG) * 8 +
+            -(-c // 32) * 4)
+
+
+def entrance_search(lut, codes, ent_ids, ent_edges, *, pool_size: int,
+                    max_hops: int):
+    """Every lane's whole entrance beam search, on CUDA tensors: lut [B,
+    M, 256] f32, codes [N, M] uint8, the entrance's ids [C] and edges [C,
+    R] int32 -> (main ids [B, pool_size] int32, -1 where empty; their PQ
+    distances [B, pool_size] f32; each lane's iterations [B] int32; int64
+    [2]: the largest and the summed iterations).  Bit-equal to the host
+    loop (``core/search.py`` ``_entrance_loop``), its plain version, in
+    either visited mode.  Kernel limits: pool_size <= 64, R <= 64, the LUT
+    and a bitmap of C bits within 227 KB (M <= 225 at C 2,400)."""
+    if not all(t.is_cuda for t in (lut, codes, ent_ids, ent_edges)):
+        raise ValueError("entrance_search: CUDA tensors only")
+    _check(lut, "lut", torch.float32, 3)
+    _check(codes, "codes", torch.uint8, 2)
+    _check(ent_ids, "ent_ids", torch.int32, 1)
+    _check(ent_edges, "ent_edges", torch.int32, 2)
+    b, m, k = lut.shape
+    c, r = ent_edges.shape
+    if k != 256 or codes.shape[1] != m or ent_ids.shape[0] != c or \
+            len({t.get_device() for t in (lut, codes, ent_ids,
+                                           ent_edges)}) != 1:
+        raise ValueError(f"entrance_search shapes: lut {tuple(lut.shape)}, "
+                         f"codes {tuple(codes.shape)}, ids "
+                         f"{tuple(ent_ids.shape)}, edges {(c, r)}")
+    if not (1 <= pool_size <= ENTRANCE_MAX_POOL and
+            1 <= r <= ENTRANCE_MAX_DEG and c >= 1 and b < 2 ** 31) or \
+            entrance_smem_bytes(m, c) > ENTRANCE_SMEM_MAX or \
+            lut.data_ptr() % 16:
+        raise ValueError(
+            f"entrance_search limits: pool_size {pool_size} (1.."
+            f"{ENTRANCE_MAX_POOL}), R {r} (1..{ENTRANCE_MAX_DEG}), C {c} "
+            f">= 1, a 16-byte aligned LUT and {entrance_smem_bytes(m, c)} "
+            f"bytes of shared memory (<= {ENTRANCE_SMEM_MAX})")
+    main = ent_ids.new_empty((b, pool_size))
+    dist = lut.new_empty((b, pool_size))
+    hops = ent_ids.new_empty((b,))
+    tally = ent_ids.new_zeros((2,), dtype=torch.int64)
+    if b:
+        _call("entrance_search_launch", lut, lut.data_ptr(),
+              codes.data_ptr(), ent_ids.data_ptr(), ent_edges.data_ptr(),
+              main.data_ptr(), dist.data_ptr(), hops.data_ptr(),
+              tally.data_ptr(), b, m, pool_size, r, c, int(max_hops))
+        launches["entrance_search"] += 1
+    return main, dist, hops, tally
 
 
 def casr_rerank(q, vectors, pool_ids, *, k: int, s: int):

@@ -16,7 +16,10 @@ and its count and the nanoseconds the host was blocked add up under
 ``"<stage>/<site>"``, the stage being the innermost open span (empty
 outside any span).  :func:`sync` does the same for an explicit wait on
 the device, under the site ``timing``.  :func:`count` adds to a host
-counter.
+counter; :func:`count_later` adds a device tensor's values to host
+counters without a read of its own: they are read after the next
+:func:`sync`'s wait (so the read waits for nothing), or at :func:`take`,
+under the site ``counts``.
 
 Stamps are ``time.perf_counter_ns()``, the clock of the benchmark's host
 spans; a record gives them in ``perf_counter`` seconds.  The recorder
@@ -53,7 +56,8 @@ class Span(NamedTuple):
 class _Record(threading.local):
     """One thread's record: the innermost open span, the closed ones as
     ``(name, parent, t0_ns, t1_ns)``, reads as ``{stage: {site: [count,
-    blocked_ns]}}`` with ``cur`` the open stage's, and counters."""
+    blocked_ns]}}`` with ``cur`` the open stage's, counters, and the
+    device values pending for counters (``{names: tensor}``)."""
 
     def __init__(self):
         self.wave = 0
@@ -65,6 +69,7 @@ class _Record(threading.local):
         self.reads: dict[str, dict] = {"": {}}
         self.cur: dict = self.reads[""]
         self.counts: dict[str, int] = {}
+        self.pending: dict[tuple, torch.Tensor] = {}
 
 
 _rec = _Record()
@@ -135,6 +140,7 @@ def sync(t: torch.Tensor) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     _note("timing", _clock() - t0)
+    _read_pending()
 
 
 def count(name: str, n: int = 1) -> None:
@@ -143,10 +149,33 @@ def count(name: str, n: int = 1) -> None:
     c[name] = c.get(name, 0) + n
 
 
+def count_later(names: tuple[str, ...], values: torch.Tensor) -> None:
+    """Add ``values`` (a device tensor of ``len(names)`` integers) to the
+    host counters ``names`` at the next :func:`sync` or :func:`take`,
+    without reading it now.  Values pending under the same names add up
+    on the device."""
+    p = _rec.pending
+    prev = p.get(names)
+    p[names] = values.reshape(-1) if prev is None else prev + values
+
+
+def _read_pending() -> None:
+    """Read the pending counter values into the counters, one read for
+    each set of names."""
+    p, _rec.pending = _rec.pending, {}
+    for names, values in p.items():
+        t0 = _clock()
+        got = values.tolist()
+        _note("counts", _clock() - t0)
+        for name, v in zip(names, got):
+            count(name, int(v))
+
+
 def take() -> dict:
     """The record so far, and clear it: ``wave`` (its id), ``spans`` (each
     closed :class:`Span`, in closing order), ``reads`` (``{"<stage>/<site>":
-    [count, blocked_s]}``) and ``counts``."""
+    [count, blocked_s]}``) and ``counts``, pending ones read."""
+    _read_pending()
     rec = _rec
     out = {"wave": rec.wave,
            "spans": [Span(rec.wave, n, p, t0 * 1e-9, t1 * 1e-9)

@@ -24,6 +24,8 @@ from repro_torch import interop
 from repro_torch import random as jr
 from repro_torch.core import cache as tcache
 from repro_torch.core import casr as tcasr
+from repro_torch.core import search as tsearch
+from repro_torch.core.entrance import EntranceGraph
 from repro_torch.core.iomodel import IOCounters
 from repro_torch.core.layout import LayoutSpec
 from repro_torch.device import resolve_device
@@ -657,10 +659,19 @@ def test_cpu_tensors_never_launch():
                      torch.tensor([[1, 2, 1, -1]], dtype=torch.int32))
     ops.cache_ops(st.policy, tables, torch.tensor([3, -1, 1],
                                                   dtype=torch.int32))
+    ent = EntranceGraph(ids=torch.tensor([-1, 0, 1], dtype=torch.int32),
+                        edges=torch.tensor([[1, 2], [2, -1], [1, -1]],
+                                           dtype=torch.int32),
+                        count=2,
+                        main_to_ent=torch.zeros(2, dtype=torch.int32))
+    tsearch.entrance_search(ent, torch.ones((1, 4, 256)),
+                            torch.zeros((2, 4), dtype=torch.uint8),
+                            n_entry=1, pool_size=2)
     assert ops.launches == {"pool_merge": 0, "adc_distance": 0,
                             "rerank_l2": 0, "rerank_l2_rows": 0,
                             "rerank_l2_shared": 0, "casr_rerank": 0,
-                            "cache_replay": 0, "cache_ops": 0}
+                            "cache_replay": 0, "cache_ops": 0,
+                            "entrance_search": 0}
 
 
 def test_unsupported_devices_raise():

@@ -84,8 +84,9 @@ def test_timing_keys_are_span_durations(wave):
 def test_loop_reads_are_iterations_plus_one(wave):
     tm, res = wave
     reads, counts = tm["reads"], tm["counts"]
-    assert set(counts) == {"entry_iters", "traverse_iters",
-                           "traverse_lanes", "visited_redo"}
+    assert set(counts) == {"entry_iters", "entry_lane_steps",
+                           "traverse_iters", "traverse_lanes",
+                           "visited_redo"}
     assert counts["entry_iters"] > 0
     assert reads["entry/loop"][0] == counts["entry_iters"] + 1
     assert reads["traverse/loop"][0] == counts["traverse_iters"] + 1
@@ -160,7 +161,7 @@ def test_every_host_read_of_the_wave_is_routed(built, queries,
                 busy[0] = False
         return conv
 
-    for attr in ("__bool__", "__int__", "item"):
+    for attr in ("__bool__", "__int__", "item", "tolist"):
         monkeypatch.setattr(torch.Tensor, attr,
                             wrap(getattr(torch.Tensor, attr)))
     eng.search_many(state, queries)

@@ -229,9 +229,9 @@ def spans_report(args) -> None:
     cost = _recorder_cost(torch, spans)
     tm = eng.last_wave_timing
     n_reads = sum(n for n, _ in reads.values())
-    c = tm["counts"]    # count calls: one an entrance iteration or redo,
-    n_counts = (c["entry_iters"] + 2 * c["traverse_iters"] +  # two a hop
-                c["visited_redo"])
+    c = tm["counts"]    # count calls: the entrance kernel's two (read at
+    n_counts = (2 + 2 * c["traverse_iters"] +  # the mask's sync), two a hop,
+                c["visited_redo"])             # one a redo
     per_wave_ns = (n_reads * cost["read_over_item_ns"] +
                    len(tm["spans"]) * cost["span_ns"] +
                    n_counts * cost["count_ns"])
