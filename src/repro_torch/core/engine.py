@@ -184,7 +184,8 @@ class OpStats(NamedTuple):
 
 
 WAVE_COUNTS = ("entry_iters", "entry_lane_steps", "traverse_iters",
-               "traverse_lanes", "visited_redo")
+               "traverse_lanes", "visited_redo", "rerank_rows",
+               "rerank_groups", "rerank_rows_distinct")
 
 
 def _wave_timing(rec: dict) -> dict:
@@ -199,6 +200,15 @@ def _wave_timing(rec: dict) -> dict:
             "replay_s": at["replay"].seconds,
             "spans": rec["spans"], "reads": rec["reads"],
             "counts": {k: rec["counts"].get(k, 0) for k in WAVE_COUNTS}}
+
+
+def _distinct_rows(cres, n_max: int) -> torch.Tensor:
+    """How many distinct vector rows a wave's CASR loaded (int64 0-d on
+    the device, with no host sync): the loaded ids marked in a table of
+    ``n_max`` slots (one more for the positions not loaded)."""
+    seen = torch.zeros(n_max + 1, dtype=torch.bool, device=cres.ids.device)
+    seen[torch.where(cres.loaded, cres.ids, n_max).long()] = True
+    return seen[:n_max].sum()
 
 
 def _delta_stats(before: IOCounters, after: IOCounters,
@@ -433,6 +443,17 @@ class Engine:
                                             s=spec.s_search)
                 ids, dists, ctr = cres.topk_ids, cres.topk_d, cres.counters
                 rounds = res.hops + cres.rerank_rounds
+                if cache is None:
+                    # a wave: the rows CASR loaded, its rounds and the
+                    # distinct rows among those loads, read at this
+                    # stage's sync
+                    spans.count_later(
+                        ("rerank_rows", "rerank_groups",
+                         "rerank_rows_distinct"),
+                        torch.stack([cres.n_loaded.sum(),
+                                     cres.n_groups.sum(),
+                                     _distinct_rows(cres,
+                                                    state.store.n_max)]))
             else:
                 ids, dists, _, ctr = search_mod.full_rerank(
                     state.store, spec.lspec, qs, res._replace(pool_ids=pool),

@@ -39,7 +39,8 @@
 //   buckets of 4 slots, 5 (W + F) / 12 buckets (at most 60% full), so a
 //   lookup reads its page's two buckets (two 16-byte keys and two 8-byte
 //   locations, at once) and compares 8 keys; an insert takes a free slot
-//   of the two, else moves residents to their other bucket in turn; a
+//   of the two, else moves residents to their other bucket, each from a
+//   slot hashed from the resident in hand and the move's count; a
 //   deletion empties its slot, found through each location's slot
 //   (posof), with no probe.
 // - The window's LRU victim (NAVIS, LRU) is O(1): the non-empty window
@@ -186,16 +187,28 @@ __device__ __forceinline__ int map_bucket2(int page, int NB) {
   return b != a ? b : (a + 1 == NB ? 0 : a + 1);
 }
 
+// The slot of its bucket that a displacement's n-th move takes, hashed
+// from the page in hand and n.  The slot after the last, in turn, made the
+// walk a function of the map alone, and on some maps (the prologue's
+// parallel build lays the residents out in a different order each launch)
+// it circled among a few full buckets until the trap: in about one replay
+// of a FineWeb-like wave of 10,000 in 140 on an H100.
+__device__ __forceinline__ int kick_slot(int page, int n) {
+  uint32_t h = (uint32_t)page * 0x27D4EB2Fu + (uint32_t)n * 0x165667B1u;
+  h ^= h >> 15;
+  return (int)((h * 0x2C1B3C6Du) >> 30);
+}
+
 // Put `page` at location l where both its buckets are full: move the
-// resident of one of its slots (each move into the slot after the last,
-// in turn) to that resident's other bucket, until one finds an empty slot.
-// Rare, so out of line: the chain's loop stays small.
+// resident of one of its slots (kick_slot) to that resident's other
+// bucket, until one finds an empty slot.  Rare, so out of line: the
+// chain's loop stays small.
 __device__ __noinline__ void displace(int* key, uint16_t* loc,
                                       uint16_t* posof, int NB, int page,
                                       int l) {
   int b = map_bucket1(page, NB);
   for (int n = 0; n < kMaxKicks; ++n) {
-    const int slot = 4 * b + (n & 3);
+    const int slot = 4 * b + kick_slot(page, n);
     const int out = key[slot], out_l = loc[slot];
     key[slot] = page;
     loc[slot] = (uint16_t)l;

@@ -14,6 +14,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch import spans
 from repro_torch.core import Engine, preset
+from repro_torch.core import casr as casr_mod
 from repro_torch.core import search as search_mod
 from repro_torch.data.pipeline import insert_stream, make_clustered, \
     query_stream
@@ -86,7 +87,8 @@ def test_loop_reads_are_iterations_plus_one(wave):
     reads, counts = tm["reads"], tm["counts"]
     assert set(counts) == {"entry_iters", "entry_lane_steps",
                            "traverse_iters", "traverse_lanes",
-                           "visited_redo"}
+                           "visited_redo", "rerank_rows", "rerank_groups",
+                           "rerank_rows_distinct"}
     assert counts["entry_iters"] > 0
     assert reads["entry/loop"][0] == counts["entry_iters"] + 1
     assert reads["traverse/loop"][0] == counts["traverse_iters"] + 1
@@ -104,6 +106,47 @@ def test_timing_syncs_sit_in_their_stages(wave):
                if k.endswith("/timing")) == 4
     for n, s in reads.values():
         assert n > 0 and s >= 0
+
+
+def test_rerank_counts_are_casr_sums(built, queries, monkeypatch):
+    """A wave's ``rerank_rows`` and ``rerank_groups`` are the sums of
+    ``n_loaded`` and ``n_groups`` of a direct ``casr_rerank`` call on the
+    wave's pools, and ``rerank_rows_distinct`` the distinct ids it loaded,
+    read once at the rerank's sync: no sync of their own."""
+    eng, state, _ = built
+    seen = []
+    inner = casr_mod.casr_rerank
+
+    def rerank(*a, **kw):
+        seen.append((a, kw))
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(casr_mod, "casr_rerank", rerank)
+    eng.search_many(state, queries)
+    tm = eng.last_wave_timing
+    (a, kw), = seen
+    direct = inner(*a, **kw)
+    assert tm["counts"]["rerank_rows"] == int(direct.n_loaded.sum()) > 0
+    assert tm["counts"]["rerank_groups"] == int(direct.n_groups.sum()) > 0
+    distinct = direct.ids[direct.loaded].unique().numel()
+    assert tm["counts"]["rerank_rows_distinct"] == distinct
+    assert 0 < distinct < tm["counts"]["rerank_rows"]
+    assert tm["reads"]["rerank/counts"][0] == 1
+    assert {k for k in tm["reads"] if k.endswith("/timing")} == {
+        f"{s}/timing" for s in ("mask", "rerank", "search_many", "replay")}
+
+
+def test_sequential_search_counts_no_rerank_rows(built, queries):
+    """Only a wave records the rerank's counts: a search threaded through
+    the cache (``search_batch``) adds none and reads none at its rerank."""
+    eng, state, _ = built
+    spans.take()
+    eng.search_batch(state, queries[:2])
+    rec = spans.take()
+    assert not {"rerank_rows", "rerank_groups",
+                "rerank_rows_distinct"} & set(rec["counts"])
+    assert "rerank/counts" not in rec["reads"]
+    assert "rerank/timing" in rec["reads"]
 
 
 def test_redo_count_matches_its_reads(wave):

@@ -11,7 +11,8 @@ From the root of a checkout.  The first form builds the cell's index
 then runs ``--waves`` ``search_many`` waves of 10,000 queries and prints
 one JSON line a wave: the stage spans (lut, entry, traverse, mask,
 rerank, replay), how much of ``wave_s - rerank_s`` the first four cover,
-the host reads by stage and site, the loop counts and the share of lane
+the host reads by stage and site, the loop counts, the rows CASR loads
+a group (``rerank_rows`` over ``rerank_groups``) and the share of lane
 steps that moved a lane.  One more wave runs under
 ``torch.cuda.set_sync_debug_mode("warn")``: its synchronising calls are
 counted by source line and by whether ``search_many`` is on their stack,
@@ -169,6 +170,8 @@ def _wave_line(w, tm, hops) -> dict:
             "host_reads": sum(c for c, _ in reads.values()),
             "read_wait_s": waits["entry"] + waits["traverse"],
             "reads": reads, "counts": tm["counts"],
+            "rerank_rows_a_group": (tm["counts"]["rerank_rows"] /
+                                    tm["counts"]["rerank_groups"]),
             "active_lane_share": 100.0 * hops / tm["counts"]["traverse_lanes"]}
 
 
@@ -229,9 +232,10 @@ def spans_report(args) -> None:
     cost = _recorder_cost(torch, spans)
     tm = eng.last_wave_timing
     n_reads = sum(n for n, _ in reads.values())
-    c = tm["counts"]    # count calls: the entrance kernel's two (read at
-    n_counts = (2 + 2 * c["traverse_iters"] +  # the mask's sync), two a hop,
-                c["visited_redo"])             # one a redo
+    # count calls: the entrance kernel's two (read at the mask's sync),
+    # the rerank's three (read at its own), two a hop, one a redo
+    c = tm["counts"]
+    n_counts = 5 + 2 * c["traverse_iters"] + c["visited_redo"]
     per_wave_ns = (n_reads * cost["read_over_item_ns"] +
                    len(tm["spans"]) * cost["span_ns"] +
                    n_counts * cost["count_ns"])
